@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source in ``kernels/csrc/`` has a plain C interface. On first
+use it is compiled with ``nvcc`` for sm_90a into a shared library under
+``kernels/_build/`` (listed in .gitignore) and loaded with ctypes. The
+library name carries a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is loaded as built. Nothing here runs
+at import time: this module imports on hosts with no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",  # register / shared-memory / spill report, kept beside the library
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, /usr/local/cuda, or PATH; raises if absent."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cand = os.path.join(root, "bin", "nvcc")
+            if os.path.isfile(cand):
+                return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the port's CUDA kernels need the CUDA toolkit"
+        )
+    return found
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` into a shared library (if not built yet)
+    and return its path. The compiler's output, with ptxas's register and
+    shared-memory report per kernel, is kept in ``<library>.log``."""
+    src = os.path.join(_CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        text = f.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # build into a private name, then rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {src}:\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        with open(out + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building it on first use."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            _LOADED[name] = lib
+        return lib
