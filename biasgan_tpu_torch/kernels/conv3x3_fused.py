@@ -129,7 +129,7 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3_fused_launch.argtypes = [p] * 8 + [i] * 9 + [p]
         lib.conv3x3_fused_launch.restype = i
-        lib.conv3x3_fused_num_tiles.argtypes = [i, i]
+        lib.conv3x3_fused_num_tiles.argtypes = [i, i, i]
         lib.conv3x3_fused_num_tiles.restype = i
         lib.conv3x3_fused_error_string.argtypes = [i]
         lib.conv3x3_fused_error_string.restype = ctypes.c_char_p
@@ -165,7 +165,7 @@ def _launch(x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments):
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
     part = moments = None
     if want_moments:
-        tiles = lib.conv3x3_fused_num_tiles(h, w)
+        tiles = lib.conv3x3_fused_num_tiles(h, w, _DTYPE_CODE[x.dtype])
         part = torch.empty((2, n, tiles, cout), dtype=torch.float32, device=dev)
         moments = torch.empty((2, n, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

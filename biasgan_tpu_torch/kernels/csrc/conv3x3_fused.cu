@@ -22,12 +22,12 @@
 //     alignment and there is no padded row tail;
 //   * per chunk of input channels, the (TH+2) x (TW+2) halo tile is staged
 //     in shared memory with the SAME pad resolved by index (reflect / zero /
-//     wrap on each axis), the prologue applied while loading, and its result
-//     cast back to the storage type before the taps (as the Pallas kernel
-//     does, pallas_conv.py:695-703);
-//   * bf16: two shared-memory stages; the weights and input of chunk k+1
-//     stream in with cp.async while the tensor cores work on chunk k, and
-//     the prologue is applied in place once they land;
+//     wrap on each axis); the prologue is applied to the staged values and
+//     its result cast back to the storage type before the taps (as the
+//     Pallas kernel does, pallas_conv.py:695-703);
+//   * bf16: three shared-memory stages; the weights and input of chunks
+//     k+1 and k+2 stream in with cp.async while the tensor cores work on
+//     chunk k, and chunk k+1's prologue runs between chunk k's MMAs;
 //   * the 9 taps read shifted windows of the staged tile directly (no im2col
 //     copy): a row of TW output pixels at tap (dy, dx) is TW consecutive
 //     staged pixels;
@@ -37,11 +37,11 @@
 //     over tiles in a fixed order. No float atomics: results are
 //     deterministic.
 // Measured on an H100 80GB HBM3 (700 W) at the globe shape with prologue and
-// moments: ~0.46 ms per conv (~168 TFLOP/s), where a bf16 cuDNN conv alone
-// takes ~0.11 ms (PERF.md). What holds it back: the per-chunk refetch of
-// the weights from L2 for every 128-pixel tile, the in-place prologue pass
-// between chunks, and a grid of 1,058 blocks that fills 264 block slots in
-// 4.01 waves (a nearly empty fifth one).
+// moments: ~0.43 ms per conv (~180 TFLOP/s), where a bf16 cuDNN conv alone
+// takes ~0.11 ms (PERF.md). The MMAs are not what limits it (removing them
+// left the time unchanged in an earlier version); the chunk-by-chunk
+// staging and barriers are, with the prologue pass (~0.07 ms) and a grid
+// of 552 blocks on 132 SMs (4.18 waves).
 //
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream; the function returns the cudaError_t of the launches (0 = ok).
@@ -52,11 +52,10 @@
 
 namespace {
 
-constexpr int TH = 8;   // output rows per block
 constexpr int TW = 16;  // output columns per block (one m16 row of pixels)
-constexpr int KC = 16;  // input channels per chunk of the f32 kernel
-constexpr int HALO_H = TH + 2;
 constexpr int HALO_W = TW + 2;
+constexpr int TH = 8;   // output rows per block, f32 kernel
+constexpr int KC = 16;  // input channels per chunk, f32 kernel
 constexpr int NTHREADS = 256;
 
 constexpr int NT_BF16 = 128;           // Cout slice of the tensor-core kernel
@@ -140,6 +139,10 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 // One group of 8 elements: asynchronous when `vec`, else copied now.
 template <typename T>
@@ -177,13 +180,13 @@ __device__ __forceinline__ void issue_weights(T* s_w, int ldw,
   }
 }
 
-// The (TH+2) x (TW+2) input halo tile of channels [k0, k0+KCC), with the
+// The (THH+2) x (TW+2) input halo tile of channels [k0, k0+KCC), with the
 // SAME pad resolved by index: staged pixel p sits at s_in + p * ASTR. The
 // prologue relu/lrelu(a*x+b) runs in f32 and is cast back to T; pads stay
 // zero (a zero pad is a zero of the normalized input).
-template <typename T, int KCC, int ASTR, int NTH>
+template <typename T, int THH, int KCC, int ASTR, int NTH>
 struct InputChunk {
-  static constexpr int GROUPS = HALO_H * HALO_W * (KCC / 8);
+  static constexpr int GROUPS = (THH + 2) * HALO_W * (KCC / 8);
   static_assert(NTH % (KCC / 8) == 0, "one channel group per thread");
 
   // Channels [kc, kc+8) of staged pixel `pix`: source offset and how many
@@ -302,10 +305,11 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 // Sum the per-thread moment partials of one column group across row groups
 // in a fixed order and write this block's tile partials.
+template <int NTH>
 __device__ __forceinline__ void write_tile_moments(
     const float* red, int groups, int nt, float* __restrict__ part, int n,
     int N, int tile, int n_tiles, int co0, int Cout) {
-  for (int t = threadIdx.x; t < nt; t += NTHREADS) {
+  for (int t = threadIdx.x; t < nt; t += NTH) {
     const int co = co0 + t;
     if (co >= Cout) continue;
     float s = 0.f, q = 0.f;
@@ -320,22 +324,26 @@ __device__ __forceinline__ void write_tile_moments(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulation), 4 warps, two
-// blocks per SM. The block tile is TH x TW = 128 pixels by NT_BF16 = 128
+// bf16: tensor cores (mma.sync m16n8k16, f32 accumulation), 8 warps, one
+// block per SM. The block tile is TH_BF16 x TW = 256 pixels by NT_BF16 = 128
 // couts; warp (wm, wn) owns tile rows 4wm..4wm+3 (one m16 fragment of 16
-// pixels each) and couts [64 wn, 64 wn + 64) (eight n8 fragments).
-// Shared-memory rows are padded (input pixel stride A_STRIDE = KC_BF16 + 8,
-// weight row LDW_BF16 = NT_BF16 + 8 elements) so every ldmatrix phase hits
-// 8 distinct 16-byte bank groups.
+// pixels each) and couts [64 wn, 64 wn + 64) (eight n8 fragments). A
+// 256-pixel tile halves the weight traffic from L2 per output pixel against
+// a 128-pixel one. Three shared-memory stages: chunks k+1 and k+2 are in
+// flight while chunk k is computed. Shared-memory rows are padded (input
+// pixel stride A_STRIDE = KC_BF16 + 8, weight row LDW_BF16 = NT_BF16 + 8
+// elements) so every ldmatrix phase hits 8 distinct 16-byte bank groups.
 // ---------------------------------------------------------------------------
-constexpr int NTH_BF16 = 128;
+constexpr int TH_BF16 = 16;
+constexpr int NTH_BF16 = 256;
 constexpr int KC_BF16 = 16;
+constexpr int STAGES_BF16 = 3;
 constexpr int A_STRIDE = KC_BF16 + 8;
-constexpr int IN_ELEMS_BF16 = HALO_H * HALO_W * A_STRIDE;
+constexpr int IN_ELEMS_BF16 = (TH_BF16 + 2) * HALO_W * A_STRIDE;
 constexpr int STAGE_BF16 = IN_ELEMS_BF16 + 9 * KC_BF16 * LDW_BF16;  // elements
-constexpr int SMEM_BF16 = 2 * STAGE_BF16 * 2;                        // bytes
+constexpr int SMEM_BF16 = STAGES_BF16 * STAGE_BF16 * 2;              // bytes
 
-__global__ void __launch_bounds__(NTH_BF16, 2)
+__global__ void __launch_bounds__(NTH_BF16, 1)
     conv3x3_fused_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                               const __nv_bfloat16* __restrict__ w9,
                               const float* __restrict__ bias,
@@ -350,9 +358,9 @@ __global__ void __launch_bounds__(NTH_BF16, 2)
 
   const int tile = blockIdx.x, n = blockIdx.z;
   const int co0 = blockIdx.y * NT_BF16;
-  const int y0 = (tile / tiles_x) * TH, x0 = (tile % tiles_x) * TW;
+  const int y0 = (tile / tiles_x) * TH_BF16, x0 = (tile % tiles_x) * TW;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp & 1, wn = warp >> 1;
+  const int wm = warp & 3, wn = warp >> 2;
   const bool vec_in = (C % 8) == 0 && aligned16(x);
   const bool vec_w = (Cout % 8) == 0 && aligned16(w9);
   const int n_chunks = (C + KC_BF16 - 1) / KC_BF16;
@@ -370,30 +378,36 @@ __global__ void __launch_bounds__(NTH_BF16, 2)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
-  using Input = InputChunk<__nv_bfloat16, KC_BF16, A_STRIDE, NTH_BF16>;
-  issue_weights<__nv_bfloat16, KC_BF16, NT_BF16, NTH_BF16>(
-      stage0 + IN_ELEMS_BF16, LDW_BF16, w9, C, Cout, 0, co0, vec_w);
-  Input::issue(stage0, x, pa, pb, n, H, W, C, y0, x0, 0, h_mode, w_mode, act,
-               vec_in);
-  cp_async_commit();
-  cp_async_wait_all();
-  Input::finish(stage0, pa, pb, n, H, W, C, y0, x0, 0, h_mode, w_mode, act,
-                vec_in);
+  using Input = InputChunk<__nv_bfloat16, TH_BF16, KC_BF16, A_STRIDE, NTH_BF16>;
+  auto stage = [&](int ch) { return stage0 + (ch % STAGES_BF16) * STAGE_BF16; };
+  auto issue = [&](int ch) {  // start chunk ch's copies as one group
+    __nv_bfloat16* st = stage(ch);
+    issue_weights<__nv_bfloat16, KC_BF16, NT_BF16, NTH_BF16>(
+        st + IN_ELEMS_BF16, LDW_BF16, w9, C, Cout, ch * KC_BF16, co0, vec_w);
+    Input::issue(st, x, pa, pb, n, H, W, C, y0, x0, ch * KC_BF16, h_mode,
+                 w_mode, act, vec_in);
+    cp_async_commit();
+  };
+  auto finish = [&](int ch) {
+    Input::finish(stage(ch), pa, pb, n, H, W, C, y0, x0, ch * KC_BF16, h_mode,
+                  w_mode, act, vec_in);
+  };
+
+  issue(0);
+  if (n_chunks > 1) {
+    issue(1);
+    cp_async_wait_one();
+  } else {
+    cp_async_wait_all();
+  }
+  finish(0);
   __syncthreads();
 
   for (int ch = 0; ch < n_chunks; ++ch) {
-    const __nv_bfloat16* s_in = stage0 + (ch & 1) * STAGE_BF16;
+    // stage (ch+2) % 3 was last read in iteration ch-1, before its barrier
+    if (ch + 2 < n_chunks) issue(ch + 2);
+    const __nv_bfloat16* s_in = stage(ch);
     const __nv_bfloat16* s_w = s_in + IN_ELEMS_BF16;
-    __nv_bfloat16* nxt = stage0 + ((ch + 1) & 1) * STAGE_BF16;
-    const bool more = ch + 1 < n_chunks;
-    const int k_next = (ch + 1) * KC_BF16;
-    if (more) {  // fetch chunk ch+1 while chunk ch is computed
-      issue_weights<__nv_bfloat16, KC_BF16, NT_BF16, NTH_BF16>(
-          nxt + IN_ELEMS_BF16, LDW_BF16, w9, C, Cout, k_next, co0, vec_w);
-      Input::issue(nxt, x, pa, pb, n, H, W, C, y0, x0, k_next, h_mode, w_mode,
-                   act, vec_in);
-      cp_async_commit();
-    }
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
@@ -414,11 +428,13 @@ __global__ void __launch_bounds__(NTH_BF16, 2)
           mma_bf16(acc[i][2 * jj + 1], a, b[jj][2], b[jj][3]);
         }
       }
-    }
-    if (more) {
-      cp_async_wait_all();
-      Input::finish(nxt, pa, pb, n, H, W, C, y0, x0, k_next, h_mode, w_mode,
-                    act, vec_in);
+      // halfway through the taps: chunk ch+1 must have landed (ch+2 may
+      // fly); its prologue runs while the MMAs above drain
+      if (tap == 4 && ch + 1 < n_chunks) {
+        if (ch + 2 < n_chunks) cp_async_wait_one();
+        else cp_async_wait_all();
+        finish(ch + 1);
+      }
     }
     __syncthreads();
   }
@@ -427,6 +443,7 @@ __global__ void __launch_bounds__(NTH_BF16, 2)
   // (lane / 4, lane / 4 + 8) of tile row 4wm+i and couts 2 (lane % 4), +1 of
   // n8 fragment j
   float* red = reinterpret_cast<float*>(smem);  // [sum|sq][wm][NT_BF16]
+  constexpr int WM = NTH_BF16 / 64;               // warps along the pixels
   const int pr = lane / 4, pc = 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -471,19 +488,14 @@ __global__ void __launch_bounds__(NTH_BF16, 2)
       const int t = wn * 64 + j * 8 + pc;
       red[wm * NT_BF16 + t] = s0;
       red[wm * NT_BF16 + t + 1] = s1;
-      red[(2 + wm) * NT_BF16 + t] = q0;
-      red[(2 + wm) * NT_BF16 + t + 1] = q1;
+      red[(WM + wm) * NT_BF16 + t] = q0;
+      red[(WM + wm) * NT_BF16 + t + 1] = q1;
     }
   }
   if (part == nullptr) return;
   __syncthreads();
-  for (int t = threadIdx.x; t < NT_BF16; t += NTH_BF16) {
-    const int co = co0 + t;
-    if (co >= Cout) continue;
-    const size_t o = ((size_t)n * n_tiles + tile) * Cout + co;
-    part[o] = red[t] + red[NT_BF16 + t];
-    part[(size_t)N * n_tiles * Cout + o] = red[2 * NT_BF16 + t] + red[3 * NT_BF16 + t];
-  }
+  write_tile_moments<NTH_BF16>(red, WM, NT_BF16, part, n, N, tile, n_tiles,
+                               co0, Cout);
 }
 
 // ---------------------------------------------------------------------------
@@ -499,7 +511,7 @@ __global__ void __launch_bounds__(NTHREADS)
                              float* __restrict__ y, float* __restrict__ part,
                              int N, int H, int W, int C, int Cout, int tiles_x,
                              int n_tiles, int h_mode, int w_mode, int act) {
-  constexpr int IN_ELEMS = HALO_H * HALO_W * KC;
+  constexpr int IN_ELEMS = (TH + 2) * HALO_W * KC;
   constexpr int W_ELEMS = 9 * KC * NT_F32;
   __shared__ __align__(128) float smem[IN_ELEMS + W_ELEMS];
   float* s_in = smem;
@@ -519,7 +531,7 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  using Input = InputChunk<float, KC, KC, NTHREADS>;
+  using Input = InputChunk<float, TH, KC, KC, NTHREADS>;
   for (int k0 = 0; k0 < C; k0 += KC) {
     issue_weights<float, KC, NT_F32, NTHREADS>(s_w, NT_F32, w9, C, Cout, k0,
                                                co0, vec_w);
@@ -574,7 +586,8 @@ __global__ void __launch_bounds__(NTHREADS)
   }
   if (part == nullptr) return;
   __syncthreads();
-  write_tile_moments(red, 16, NT_F32, part, n, N, tile, n_tiles, co0, Cout);
+  write_tile_moments<NTHREADS>(red, 16, NT_F32, part, n, N, tile, n_tiles,
+                              co0, Cout);
 }
 
 // moments[which][n][co] = sum over tiles of part[which][n][tile][co], in
@@ -595,9 +608,11 @@ __global__ void reduce_moments_kernel(const float* __restrict__ part,
 
 extern "C" {
 
-// Spatial tiles per image: the middle dimension of the moment partials.
-int conv3x3_fused_num_tiles(int H, int W) {
-  return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+// Spatial tiles per image (dtype as in conv3x3_fused_launch): the middle
+// dimension of the moment partials.
+int conv3x3_fused_num_tiles(int H, int W, int dtype) {
+  const int th = dtype == 1 ? TH_BF16 : TH;
+  return ((H + th - 1) / th) * ((W + TW - 1) / TW);
 }
 
 const char* conv3x3_fused_error_string(int err) {
@@ -616,7 +631,7 @@ int conv3x3_fused_launch(const void* x, const void* w9, const void* bias,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_x = (W + TW - 1) / TW;
-  const int n_tiles = conv3x3_fused_num_tiles(H, W);
+  const int n_tiles = conv3x3_fused_num_tiles(H, W, dtype);
   const float* b = static_cast<const float*>(bias);
   const float* a0 = static_cast<const float*>(pa);
   const float* b0 = static_cast<const float*>(pb);
