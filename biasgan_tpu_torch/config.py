@@ -55,7 +55,6 @@ class BaseConfig:
     max_dataset_size: int = -1  # -1 = unlimited (reference: inf)
     preprocess: str = "resize_and_crop"
     serial_batches: bool = False
-    num_threads: int = 4
     # checkpoint selection
     epoch: str = "latest"
     load_iter: int = 0
@@ -95,7 +94,6 @@ class TestConfig(BaseConfig):
     # test-time loader defaults (reference TestOptions hardcodes these)
     batch_size: int = 1
     serial_batches: bool = True
-    num_threads: int = 0
 
 
 # ---------------------------------------------------------------------------

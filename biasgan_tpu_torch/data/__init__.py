@@ -19,7 +19,9 @@ from biasgan_tpu_torch.data import climate  # noqa: F401 (registers 'climate')
 class DataLoader:
     """Shuffling, fixed-shape batching loader (reference
     CustomDatasetDataLoader semantics: shuffle unless --serial_batches,
-    cap at --max_dataset_size)."""
+    cap at --max_dataset_size). Samples are read in the consumer's thread:
+    the reference's test options pin its worker count to 0, and the
+    threaded reader (--num_threads) arrives with the training slices."""
 
     def __init__(self, dataset, cfg):
         self.dataset = dataset
@@ -33,84 +35,24 @@ class DataLoader:
         self.epoch = 0
         # fixed batch shapes: drop ragged tail when batching for training
         self.drop_last = cfg.batch_size > 1
-        # reference --num_threads: worker threads decode/transform samples
-        # while the device runs the previous step. 0 = synchronous
-        # (test-time default).
-        self.num_threads = max(int(getattr(cfg, "num_threads", 0)), 0)
-        self.prefetch_batches = 2
 
     def __len__(self) -> int:
         if self.drop_last:
             return self.num_samples // self.batch_size
         return -(-self.num_samples // self.batch_size)
 
-    def set_epoch(self, epoch: int) -> None:
-        self.epoch = epoch
-
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         # datasets derive per-sample RNG from (seed, epoch, index)
-        # (transforms.sample_rng) — reproducible under --seed, varying per
-        # epoch, independent of worker-thread scheduling
+        # (transforms.sample_rng): reproducible under --seed, varying per
+        # epoch
         self.dataset.epoch = self.epoch
         order = np.arange(self.num_samples)
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
-        nb = len(self)
-
-        def batch_indices(b: int):
-            return [int(i) for i in order[b * self.batch_size : (b + 1) * self.batch_size]]
-
-        if self.num_threads <= 0 or nb <= 1:
-            for b in range(nb):
-                yield _collate([self.dataset[i] for i in batch_indices(b)])
-            self.epoch += 1
-            return
-
-        # pipelined path: a producer thread maps sample reads over a worker
-        # pool and keeps a small queue of collated batches ahead of the
-        # consumer, so host IO/decode overlaps device compute.
-        import queue
-        import threading
-        from concurrent.futures import ThreadPoolExecutor
-
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
-        _SENTINEL = object()
-        stop = threading.Event()  # set when the consumer abandons iteration
-
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.2)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def produce():
-            try:
-                with ThreadPoolExecutor(self.num_threads) as ex:
-                    for b in range(nb):
-                        samples = list(
-                            ex.map(self.dataset.__getitem__, batch_indices(b))
-                        )
-                        if not put(_collate(samples)):
-                            return  # consumer gone; release workers/handles
-                put(_SENTINEL)
-            except BaseException as e:  # surface worker errors to the consumer
-                put(e)
-
-        threading.Thread(target=produce, daemon=True).start()
-        try:
-            while True:
-                item = q.get()
-                if item is _SENTINEL:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-            self.epoch += 1
-        finally:
-            stop.set()
+        for b in range(len(self)):
+            idx = order[b * self.batch_size : (b + 1) * self.batch_size]
+            yield _collate([self.dataset[int(i)] for i in idx])
+        self.epoch += 1
 
 
 def _collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:

@@ -64,12 +64,6 @@ class _Side:
         self._index: List[Tuple[int, int]] = []  # (file_idx, time_idx)
         self._handles: Dict[int, object] = {}
         self._dsets: Dict[Tuple[int, str], object] = {}
-        # the threaded DataLoader (--num_threads) hits _file concurrently;
-        # serialize the check-then-open (h5py reads themselves hold h5py's
-        # global lock, so the handle cache is the only race)
-        import threading
-
-        self._handles_lock = threading.Lock()
 
         for fi, path in enumerate(self.files):
             f = ncio.open_field_file(path)
@@ -84,10 +78,9 @@ class _Side:
         return len(self._index)
 
     def _file(self, fi: int):
-        with self._handles_lock:
-            if fi not in self._handles:
-                self._handles[fi] = ncio.open_field_file(self.files[fi])
-            return self._handles[fi]
+        if fi not in self._handles:
+            self._handles[fi] = ncio.open_field_file(self.files[fi])
+        return self._handles[fi]
 
     def _dataset(self, fi: int, v: str):
         """Per-(file, variable) read accessor, cached.
@@ -99,8 +92,7 @@ class _Side:
         off the page cache is microseconds. Chunked/compressed datasets (and
         netCDF-3, which scipy already mmaps) keep their handle."""
         key = (fi, v)
-        with self._handles_lock:
-            ds = self._dsets.get(key)
+        ds = self._dsets.get(key)
         if ds is not None:
             return ds
         f = self._file(fi)
@@ -119,21 +111,19 @@ class _Side:
                     self.files[fi], dtype=ds.dtype, mode="r",
                     offset=off, shape=ds.shape,
                 )
-        with self._handles_lock:
-            self._dsets[key] = ds
+        self._dsets[key] = ds
         return ds
 
     def close(self) -> None:
-        with self._handles_lock:
-            # drop dataset accessors FIRST: scipy's mmap'd netCDF-3 files
-            # refuse to unmap while variable refs are alive (RuntimeWarning)
-            self._dsets.clear()
-            for h in self._handles.values():
-                h.close()
-            self._handles.clear()
+        # drop dataset accessors FIRST: scipy's mmap'd netCDF-3 files
+        # refuse to unmap while variable refs are alive (RuntimeWarning)
+        self._dsets.clear()
+        for h in self._handles.values():
+            h.close()
+        self._handles.clear()
 
     def __del__(self):  # handle cleanup at garbage collection
-        if hasattr(self, "_handles_lock"):  # __init__ may have raised first
+        if hasattr(self, "_dsets"):  # __init__ may have raised first
             self.close()
 
     def grid_shape(self) -> Tuple[int, int]:
@@ -196,8 +186,8 @@ class ClimateDataset:
     def __getitem__(self, index: int) -> Dict:
         cfg = self.cfg
         # deterministic per (--seed, epoch, index): reproducible crops and
-        # B-pairings regardless of loader-thread scheduling (the loader
-        # advances self.epoch so crops still vary across epochs)
+        # B-pairings (the loader advances self.epoch so crops still vary
+        # across epochs)
         rng = transforms.sample_rng(cfg.seed, getattr(self, "epoch", 0), index)
         if cfg.paired_time:
             ia = ib = index

@@ -58,7 +58,7 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def environment(torch) -> dict:
+def environment(torch) -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -82,7 +82,6 @@ def environment(torch) -> dict:
         f"torch CUDA {torch.version.cuda}, nvcc: {nvcc}, triton {triton_version}"
     )
     print(f"device: {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    return {"smi": smi}
 
 
 def build_kernels() -> None:

@@ -120,7 +120,7 @@ def test_config_flags_match_jax_parser(model, extra, g_name):
     assert mine.phase == "test" and mine.device == "cuda"
     assert mine.variables == "t2m"
     for k in ("netG", "norm", "no_dropout", "netG_activation", "ngf", "direction",
-              "batch_size", "serial_batches", "num_threads", "epoch", "w_pad_mode"):
+              "batch_size", "serial_batches", "epoch", "w_pad_mode"):
         assert getattr(mine, k) == getattr(ref, k), k
     assert get_model(model).generator_name(mine) == g_name
     with pytest.raises(NotImplementedError):
