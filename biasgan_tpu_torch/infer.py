@@ -35,7 +35,7 @@ from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.data.transforms import standardize
 from biasgan_tpu_torch.nn import compute_dtype_of, define_G
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
-from biasgan_tpu_torch.nn.layers import pad_hw
+from biasgan_tpu_torch.ops.padding import pad_hw
 from biasgan_tpu_torch.registry import get_model
 from biasgan_tpu_torch.utils import checkpoint
 
@@ -50,6 +50,42 @@ def generator_downs(netG: str) -> int:
 
 def _pad_up(size: int, multiple: int) -> int:
     return -(-size // multiple) * multiple - size
+
+
+def pad_multiples(netG: str, fused_blocks: bool) -> tuple:
+    """(H, W) multiples the field is padded to before G: the 2^downs
+    multiple, and for W x8 more when --fused_blocks is asked for a resnet
+    (the JAX infer.py widens the wrap pad so whenever the fused path is
+    requested, infer.py:112; the padded columns enter the instance-norm
+    statistics, so the port widens the same way)."""
+    h_multiple = 2 ** generator_downs(netG)
+    w_multiple = h_multiple * (8 if fused_blocks and netG.startswith("resnet") else 1)
+    return h_multiple, w_multiple
+
+
+def pad_field(x: torch.Tensor, h_multiple: int, w_multiple: int) -> torch.Tensor:
+    """Pad NHWC ``x`` at the end of H and W up to the multiples: latitude is
+    not periodic, so H reflects; longitude wraps."""
+    return pad_hw(
+        x, (0, _pad_up(x.shape[1], h_multiple)), (0, _pad_up(x.shape[2], w_multiple)),
+        "reflect", "wrap",
+    )
+
+
+def field_runner(G: torch.nn.Module, h_multiple: int, w_multiple: int):
+    """The per-field computation ``main`` times: standardize with the
+    source stats, pad to the multiples, G, crop, destandardize with the
+    target stats. Returns ``run(x, a_mean, a_std, b_mean, b_std)`` on NHWC
+    ``x``."""
+
+    @torch.inference_mode()
+    def run(x, a_mean, a_std, b_mean, b_std):
+        h0, w0 = x.shape[1], x.shape[2]
+        x = pad_field(standardize(x, a_mean, a_std), h_multiple, w_multiple)
+        y = G(x)[:, :h0, :w0, :]
+        return standardize(y, b_mean, b_std, inverse=True)
+
+    return run
 
 
 def build_generator(cfg, device: torch.device) -> torch.nn.Module:
@@ -90,14 +126,9 @@ def main(argv=None):
     dataset = create_dataset(cfg)
     G = build_generator(cfg, device)
 
-    h_multiple = 2 ** generator_downs(cfg.netG)
-    w_multiple = h_multiple
+    run = field_runner(G, *pad_multiples(cfg.netG, cfg.fused_blocks))
     if cfg.fused_blocks:
         if cfg.netG.startswith("resnet"):
-            # the JAX infer.py widens the wrap pad x8 whenever the fused path
-            # is requested (infer.py:112); the padded columns enter the
-            # instance-norm statistics, so the port widens the same way
-            w_multiple *= 8
             blocker = fused_blocks_blocker(cfg.norm, cfg.dropout(), G.training)
         else:
             blocker = f"netG {cfg.netG!r} has no resnet block chain"
@@ -107,18 +138,6 @@ def main(argv=None):
 
     # source/target field + stats pairing follows --direction
     src, tgt = ("B", "A") if cfg.direction == "BtoA" else ("A", "B")
-
-    @torch.inference_mode()
-    def run(x, a_mean, a_std, b_mean, b_std):
-        h0, w0 = x.shape[1], x.shape[2]
-        x = standardize(x, a_mean, a_std)
-        # latitude is not periodic: reflect-pad H; longitude wraps
-        x = pad_hw(
-            x, (0, _pad_up(h0, h_multiple)), (0, _pad_up(w0, w_multiple)),
-            "reflect", "wrap",
-        )
-        y = G(x)[:, :h0, :w0, :]
-        return standardize(y, b_mean, b_std, inverse=True)
 
     def stats(data, key, nc):
         if f"{key}_mean" not in data:  # single-sided datasets carry none

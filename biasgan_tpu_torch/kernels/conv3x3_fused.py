@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from biasgan_tpu_torch.nn.layers import pad_hw
+from biasgan_tpu_torch.ops.padding import pad_hw
 
 _PAD_CODE = {"zero": 0, "reflect": 1, "wrap": 2}
 _ACT_CODE = {"none": 0, "relu": 1, "lrelu": 2}

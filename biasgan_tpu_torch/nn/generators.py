@@ -24,6 +24,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from biasgan_tpu_torch.kernels.conv3x3_fused import (
+    apply_affine,
+    instance_moments_to_affine,
+)
 from biasgan_tpu_torch.nn.layers import (
     Conv2d,
     ConvTranspose2d,
@@ -85,11 +89,6 @@ class ResNetBlock(nn.Module):
         if fused:
             # generators.py:253-264: conv0 -> moments -> affine -> conv1's
             # prologue -> moments -> affine + residual
-            from biasgan_tpu_torch.kernels.conv3x3_fused import (
-                apply_affine,
-                instance_moments_to_affine,
-            )
-
             count = x.shape[1] * x.shape[2]
             y0, m0 = self.conv0.forward_fused(x)
             a0, b0 = instance_moments_to_affine(*m0, count)

@@ -27,12 +27,12 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-_PAD_MODES = ("zero", "reflect", "wrap")
+from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
+from biasgan_tpu_torch.ops.padding import pad_axis, pad_hw
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -42,38 +42,6 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
-
-
-# ---------------------------------------------------------------------------
-# Explicit padding
-# ---------------------------------------------------------------------------
-
-
-def _pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str) -> torch.Tensor:
-    if lo == 0 and hi == 0:
-        return x
-    if mode == "zero":
-        pad = [0, 0] * (x.ndim - 1 - axis) + [lo, hi]
-        return F.pad(x, pad)
-    if mode not in ("reflect", "wrap"):
-        raise ValueError(f"unknown pad mode {mode!r}; expected one of {_PAD_MODES}")
-    # numpy's own index arithmetic gives jnp.pad's semantics for any width
-    # (a wrap or reflect wider than the axis repeats, where F.pad refuses)
-    idx = np.pad(np.arange(x.shape[axis]), (lo, hi), mode=mode)
-    return x.index_select(axis, torch.from_numpy(idx).to(x.device))
-
-
-def pad_hw(
-    x: torch.Tensor,
-    pad_h: Tuple[int, int],
-    pad_w: Tuple[int, int],
-    h_mode: str = "zero",
-    w_mode: str = "zero",
-) -> torch.Tensor:
-    """Pad H (axis 1) and W (axis 2) of an NHWC tensor, each with its own
-    mode: 'zero' | 'reflect' | 'wrap'."""
-    x = _pad_axis(x, 1, pad_h[0], pad_h[1], h_mode)
-    return _pad_axis(x, 2, pad_w[0], pad_w[1], w_mode)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +176,7 @@ def conv_transpose2d(
         # zeros complete the period), then the circular pad
         xd = x.new_zeros((n, top + (h - 1) * sh + 1 + top + oph, w * sw, c))
         xd[:, top : top + (h - 1) * sh + 1 : sh, ::sw] = x
-        xd = _pad_axis(xd, 2, kw - 1 - pw, pw, "wrap")
+        xd = pad_axis(xd, 2, kw - 1 - pw, pw, "wrap")
         wconv = weight.transpose(0, 1).flip(2, 3)  # IOHW -> flipped OIHW
         y = _nhwc(F.conv2d(_nchw(xd), wconv))
     if bias is not None:
@@ -377,8 +345,6 @@ class Conv2d(nn.Module):
         in the kernel, optional instance-norm + ReLU prologue ``(a, b)`` on
         the input, and the (sum, sumsq) moments of the output. Returns
         ``(y, (sum, sumsq))``."""
-        from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
-
         if tuple(self.weight.shape[2:]) != (3, 3) or self.stride != (1, 1) or (
             self.padding != (1, 1)
         ):

@@ -1,0 +1,44 @@
+"""Explicit per-axis padding of NHWC tensors with ``jnp.pad`` semantics.
+
+Counterpart of ``_pad_axis`` / ``pad_hw`` in ``biasgan_tpu/nn/layers.py``.
+It lives below nn/ and kernels/ because both pad: the layers before their
+convs, and the plain version of the fused block conv.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+PAD_MODES = ("zero", "reflect", "wrap")
+
+
+def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str) -> torch.Tensor:
+    """Pad one axis of ``x`` by (lo, hi) with 'zero' | 'reflect' | 'wrap'."""
+    if lo == 0 and hi == 0:
+        return x
+    if mode == "zero":
+        pad = [0, 0] * (x.ndim - 1 - axis) + [lo, hi]
+        return F.pad(x, pad)
+    if mode not in ("reflect", "wrap"):
+        raise ValueError(f"unknown pad mode {mode!r}; expected one of {PAD_MODES}")
+    # numpy's own index arithmetic gives jnp.pad's semantics for any width
+    # (a wrap or reflect wider than the axis repeats, where F.pad refuses)
+    idx = np.pad(np.arange(x.shape[axis]), (lo, hi), mode=mode)
+    return x.index_select(axis, torch.from_numpy(idx).to(x.device))
+
+
+def pad_hw(
+    x: torch.Tensor,
+    pad_h: Tuple[int, int],
+    pad_w: Tuple[int, int],
+    h_mode: str = "zero",
+    w_mode: str = "zero",
+) -> torch.Tensor:
+    """Pad H (axis 1) and W (axis 2) of an NHWC tensor, each with its own
+    mode: 'zero' | 'reflect' | 'wrap'."""
+    x = pad_axis(x, 1, pad_h[0], pad_h[1], h_mode)
+    return pad_axis(x, 2, pad_w[0], pad_w[1], w_mode)

@@ -1,0 +1,156 @@
+"""Serving time and device-time breakdown of the full-globe forward, with
+and without the fused block kernel, on one CUDA device:
+
+    python -m biasgan_tpu_torch.profile_globe [--out FILE.json]
+
+The model is resnet_9blocks (ngf 64, instance norm, no dropout, periodic W,
+bf16 compute) with random weights from a fixed seed, on a random
+(1, 721, 1440, 3) field; the numbers do not depend on the values. Rounds
+run in the order fused, plain, fused, plain, and each round measures:
+
+* serve: FIELDS fields through ``infer.field_runner`` (standardize, pad,
+  G, crop, destandardize) plus the copy to the host, each timed on the host
+  clock between ``torch.cuda.synchronize()`` calls as ``infer.main`` times
+  a field, after WARMUP fields;
+* wall: FORWARDS back-to-back forwards of G on the padded field with one
+  synchronize at the end, host ms per forward;
+* profile: ``torch.profiler`` over PROFILED forwards: device busy ms per
+  forward (the sum of the kernels' self device time), the largest kernels,
+  and the idle share 1 - busy / wall.
+
+It prints one line per round and, with --out, writes every number to a
+JSON file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from biasgan_tpu_torch import infer
+from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
+from biasgan_tpu_torch.nn.factory import define_G
+
+GLOBE = (1, 721, 1440, 3)
+FIELDS, WARMUP, FORWARDS, PROFILED, TOP = 20, 3, 10, 3, 14
+
+
+def _device_rows(prof, forwards: int, top: int):
+    """(busy ms per forward, [(ms per forward, calls per forward, kernel)])
+    from the profiler's kernel events (user annotations excluded)."""
+    from torch.autograd import DeviceType
+
+    rows = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+    ]
+    busy = sum(e.self_device_time_total for e in rows) / forwards / 1e3
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return busy, [
+        (e.self_device_time_total / forwards / 1e3, e.count / forwards, e.key[:100])
+        for e in rows[:top]
+    ]
+
+
+def profile_round(G, x, fused: bool) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    G.fused_blocks = fused
+    multiples = infer.pad_multiples("resnet_9blocks", fused)
+    run = infer.field_runner(G, *multiples)
+    zeros = torch.zeros(x.shape[-1], device=x.device)
+    ones = torch.ones(x.shape[-1], device=x.device)
+    stats = (zeros, ones, zeros, ones)
+
+    for _ in range(WARMUP):
+        run(x, *stats).cpu()
+    serve_ms = []
+    for _ in range(FIELDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(x, *stats).cpu()
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+
+    xp = infer.pad_field(x, *multiples)
+    with torch.inference_mode():
+        G(xp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FORWARDS):
+            G(xp)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / FORWARDS
+        launches = conv3x3_fused.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED):
+                G(xp)
+            torch.cuda.synchronize()
+        launches = (conv3x3_fused.launches - launches) / PROFILED
+    busy, top = _device_rows(prof, PROFILED, TOP)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time for the forwards")
+    return {
+        "path": "fused" if fused else "plain",
+        "serve_ms": serve_ms,
+        "serve_median_ms": statistics.median(serve_ms),
+        "serve_mean_ms": statistics.fmean(serve_ms),
+        "serve_mpx_s": x.shape[1] * x.shape[2] / statistics.median(serve_ms) / 1e3,
+        "wall_ms_per_forward": wall,
+        "device_busy_ms_per_forward": busy,
+        "idle_share": 1 - busy / wall,
+        "conv3x3_fused_launches_per_forward": launches,
+        "top_kernels": top,
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--out", default="", help="write every number to this JSON file")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_globe: needs a CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    G = define_G(
+        "resnet_9blocks", GLOBE[3], GLOBE[3], ngf=64, norm="instance",
+        w_mode="wrap", out_activation="none", compute_dtype=torch.bfloat16,
+        generator=g,
+    ).cuda().eval()
+    x = torch.randn(GLOBE, generator=g).cuda()
+    rounds = []
+    for fused in (True, False, True, False):
+        r = profile_round(G, x, fused)
+        rounds.append(r)
+        print(
+            f"{r['path']}: serve median {r['serve_median_ms']:.3f} ms/field "
+            f"(mean {r['serve_mean_ms']:.3f}, {FIELDS} fields, "
+            f"{r['serve_mpx_s']:.2f} Mpx/s); wall {r['wall_ms_per_forward']:.3f} "
+            f"ms/forward, device busy {r['device_busy_ms_per_forward']:.3f}, "
+            f"idle share {r['idle_share']:.3f}; conv3x3_fused "
+            f"{r['conv3x3_fused_launches_per_forward']:g} launches/forward"
+        )
+        for ms, calls, key in r["top_kernels"]:
+            print(f"  {ms:8.3f} ms/fwd {calls:6.1f} calls/fwd  {key}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "torch": torch.__version__,
+                       "cuda": torch.version.cuda,
+                       "rounds": rounds}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

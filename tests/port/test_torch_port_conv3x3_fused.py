@@ -7,7 +7,9 @@ h_run tail, sliced to the logical rows (tests/unit/test_fused_block.py).
 On the CPU the port's wrapper takes its plain PyTorch version, so these
 tests hold that version to the Pallas kernel. The CUDA kernel is held to
 the plain version on the card (test_torch_port_cuda.py, chip_smoke.py).
-Tolerances: f32 1e-4, bf16 2e-2 on y; moments 1e-4 (f32) / bf16-sized.
+Tolerances: f32 1e-4, bf16 2e-2 on y; moments 1e-4 (f32) or 1e-3
+relative (bf16), and in both no further from the reference's than the
+stored outputs are (the moments are those of the stored value).
 """
 
 import jax
@@ -64,12 +66,24 @@ def _port(x, k, b, pro, dtype, h_mode, w_mode):
 
 
 def _compare(got, want, dtype):
+    (y, s, q), (ry, rs, rq) = got, want
     tol = 1e-4 if dtype == "float32" else 2e-2
-    np.testing.assert_allclose(got[0], want[0], rtol=tol, atol=tol)
-    # moments are sums over H*W of y: scale the tolerance by that count
-    mtol = tol * H * W if dtype == "bfloat16" else 1e-4
-    np.testing.assert_allclose(got[1], want[1], rtol=mtol, atol=mtol)
-    np.testing.assert_allclose(got[2], want[2], rtol=mtol, atol=mtol)
+    np.testing.assert_allclose(y, ry, rtol=tol, atol=tol)
+    if dtype == "float32":
+        np.testing.assert_allclose(s, rs, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(q, rq, rtol=1e-4, atol=1e-4)
+    else:  # chip_smoke.py's measure: the sum against sqrt(H*W*sumsq)
+        assert np.all(np.abs(s - rs) <= 1e-3 * np.sqrt(H * W * rq))
+        assert np.all(np.abs(q - rq) <= 1e-3 * rq)
+    # Both kernels take the moments of the stored value (pallas_conv.py:
+    # 763-768), so the moments may differ by no more than the stored outputs
+    # do, plus f32 summation order. Moments of the f32 value before the
+    # bf16 cast add that cast's rounding, ~1e-3 |y| per element, and fail.
+    slack = 1e-5
+    dsum = np.abs(y - ry).sum(axis=(1, 2)) + slack * np.abs(ry).sum(axis=(1, 2))
+    dsq = np.abs(y**2 - ry**2).sum(axis=(1, 2)) + slack * (ry**2).sum(axis=(1, 2))
+    assert np.all(np.abs(s - rs) <= dsum), np.abs(s - rs) / dsum
+    assert np.all(np.abs(q - rq) <= dsq), np.abs(q - rq) / dsq
 
 
 @pytest.mark.parametrize("h_mode", ["reflect", "zero", "wrap"])
@@ -85,6 +99,16 @@ def test_prologue_matches_pallas_interpret(dtype):
     x, k, b, pro = _data(dtype, seed=1, prologue=True)
     _compare(_port(x, k, b, pro, dtype, "reflect", "wrap"),
              _jax(x, k, b, pro, getattr(jnp, dtype), "reflect", "wrap"), dtype)
+
+
+@pytest.mark.parametrize("h_mode", ["reflect", "zero", "wrap"])
+@pytest.mark.parametrize("w_mode", ["wrap", "zero", "reflect"])
+def test_bf16_prologue_pad_modes_match_pallas_interpret(h_mode, w_mode):
+    """bf16 with the prologue: both rounding rules (the prologue's result
+    cast before the taps, moments of the stored value) at every pad pair."""
+    x, k, b, pro = _data("bfloat16", seed=4, prologue=True)
+    _compare(_port(x, k, b, pro, "bfloat16", h_mode, w_mode),
+             _jax(x, k, b, pro, jnp.bfloat16, h_mode, w_mode), "bfloat16")
 
 
 def test_bf16_matches_pallas_interpret():
