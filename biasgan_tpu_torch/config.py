@@ -11,10 +11,14 @@ behaviors are kept:
 * **reproducibility dump** — the resolved config is printed and persisted
   as JSON next to the checkpoints.
 
-The TPU kernel-routing knobs (``--pallas_conv``, ``--s2d_*``, ``--cin_pad``
-and the rest) are not carried: they select XLA rewrites and Pallas kernels
-that the port does not have. ``--device`` is the port's own: the torch
-device the inference CLI runs on (it never falls back to another).
+The JAX kernel-routing knobs that select a kernel the port has are carried
+under their JAX names and types: ``--fused_blocks``, ``--fused_updown``,
+``--conv7_pallas`` and ``--force_pallas_norm`` route the resnet generator
+through the port's hand-written CUDA kernels. The others (``--pallas_conv``,
+``--s2d_*``, ``--cin_pad``, ``--fused_min_c`` and the rest) are not: they
+select XLA rewrites or TPU regime splits, or a kernel not ported yet.
+``--device`` is the port's own: the torch device the inference CLI runs on
+(it never falls back to another).
 """
 
 from __future__ import annotations
@@ -71,6 +75,16 @@ class BaseConfig:
     # kernel (kernels/conv3x3_fused.py): SAME pad in-kernel, instance-norm
     # prologue, output moments. Needs instance norm, no dropout, eval mode.
     fused_blocks: bool = False
+    # with --fused_blocks engaged: the two stride-2 down convs and the two
+    # up conv-transposes through the conv3x3s2_fused / convt3x3s2_fused
+    # kernels, each norm riding into the next conv as its prologue
+    fused_updown: bool = False
+    # '' | '0' = off, '1' (or 'interpret', the JAX CPU-test value) = the 7x7
+    # stem and head through the conv7x7 kernel
+    conv7_pallas: str = ""
+    # every instance norm + [residual] + activation through the
+    # instance_norm_act kernel
+    force_pallas_norm: bool = False
     # torch device to run on ('cuda', 'cuda:1', 'cpu')
     device: str = "cuda"
 

@@ -16,9 +16,14 @@ crop, destandardize with the target-domain stats, and write
 ``<checkpoints_dir>/<name>/<epoch>_net_<G>.pth``; --direction picks G_A or
 G_B of a CycleGAN run.
 
---fused_blocks runs the resnet blocks through the hand-written
-conv3x3_fused kernel. Spatial sharding over several devices
-(--spatial_mesh > 1, --halo_rdma) is not ported yet.
+The kernel routes are the JAX CLI's flags: --fused_blocks runs the resnet
+blocks through the hand-written conv3x3_fused kernel, and with it
+--fused_updown the down and up convs through conv3x3s2_fused and
+convt3x3s2_fused; --conv7_pallas 1 runs the 7x7 stem and head through
+conv7x7; --force_pallas_norm runs the remaining instance norms through
+instance_norm_act. A flag that cannot engage says why; none is silently
+ignored. Spatial sharding over several devices (--spatial_mesh > 1,
+--halo_rdma) is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.data.transforms import standardize
 from biasgan_tpu_torch.nn import compute_dtype_of, define_G
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
+from biasgan_tpu_torch.nn.layers import conv7_eligible
 from biasgan_tpu_torch.ops.padding import pad_hw
 from biasgan_tpu_torch.registry import get_model
 from biasgan_tpu_torch.utils import checkpoint
@@ -88,6 +94,17 @@ def field_runner(G: torch.nn.Module, h_multiple: int, w_multiple: int):
     return run
 
 
+CONV7_VALUES = ("", "0", "1", "interpret")
+
+
+def conv7_on(value: str) -> bool:
+    """--conv7_pallas: '' or '0' is off; '1' (or the JAX CPU-test value
+    'interpret') is on."""
+    if value not in CONV7_VALUES:
+        raise ValueError(f"--conv7_pallas {value!r}: expected one of {CONV7_VALUES}")
+    return value not in ("", "0")
+
+
 def build_generator(cfg, device: torch.device) -> torch.nn.Module:
     """G of the run, in eval mode on ``device``, with its checkpoint loaded."""
     G = define_G(
@@ -103,6 +120,9 @@ def build_generator(cfg, device: torch.device) -> torch.nn.Module:
         compute_dtype=compute_dtype_of(cfg.compute_dtype),
         out_activation=cfg.netG_activation,
         fused_blocks=cfg.fused_blocks,
+        fused_updown=cfg.fused_updown,
+        conv7=conv7_on(cfg.conv7_pallas),
+        fused_norm=cfg.force_pallas_norm,
     )
     name = get_model(cfg.model).generator_name(cfg)
     path = checkpoint.load_network(
@@ -110,6 +130,44 @@ def build_generator(cfg, device: torch.device) -> torch.nn.Module:
     )
     print(f"loaded net {name} from {path}")
     return G.to(device).eval()
+
+
+def routing_notices(cfg, G: torch.nn.Module) -> list:
+    """One line for each kernel flag of ``cfg`` that cannot engage on G,
+    saying why: the flags must never be silently ignored."""
+    notes = []
+    blocker = None
+    if cfg.fused_blocks or cfg.fused_updown:
+        if cfg.netG.startswith("resnet"):
+            blocker = fused_blocks_blocker(cfg.norm, cfg.dropout(), G.training)
+        else:
+            blocker = f"netG {cfg.netG!r} has no resnet block chain"
+    if cfg.fused_blocks and blocker is not None:
+        notes.append(f"--fused_blocks: ignored — {blocker}; using the plain path")
+    if cfg.fused_updown and (blocker is not None or not cfg.fused_blocks):
+        why = blocker or "it needs --fused_blocks"
+        notes.append(f"--fused_updown: ignored — {why}; using cuDNN convs + norms")
+    if conv7_on(cfg.conv7_pallas):
+        for conv in ("stem", "head"):
+            mod = getattr(G, conv)
+            if not conv7_eligible(mod.weight.shape, mod.stride, mod.padding):
+                cout, cin = mod.weight.shape[:2]
+                notes.append(
+                    f"--conv7_pallas: the {conv} ({cin} -> {cout} channels) stays "
+                    "on cuDNN — the kernel takes a 7x7 conv with exactly one "
+                    "channel side of at most 8"
+                )
+    if cfg.force_pallas_norm:
+        if cfg.norm != "instance":
+            notes.append(
+                f"--force_pallas_norm: ignored — norm {cfg.norm!r} is not instance norm"
+            )
+        elif cfg.fused_blocks and cfg.fused_updown and blocker is None:
+            notes.append(
+                "--force_pallas_norm: ignored — with --fused_blocks and "
+                "--fused_updown every norm rides in a conv kernel"
+            )
+    return notes
 
 
 def main(argv=None):
@@ -127,14 +185,8 @@ def main(argv=None):
     G = build_generator(cfg, device)
 
     run = field_runner(G, *pad_multiples(cfg.netG, cfg.fused_blocks))
-    if cfg.fused_blocks:
-        if cfg.netG.startswith("resnet"):
-            blocker = fused_blocks_blocker(cfg.norm, cfg.dropout(), G.training)
-        else:
-            blocker = f"netG {cfg.netG!r} has no resnet block chain"
-        if blocker is not None:
-            # the flag must never be silently ignored
-            print(f"--fused_blocks: ignored — {blocker}; using the plain path")
+    for note in routing_notices(cfg, G):
+        print(note)
 
     # source/target field + stats pairing follows --direction
     src, tgt = ("B", "A") if cfg.direction == "BtoA" else ("A", "B")

@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel source in ``kernels/csrc/`` has a plain C interface. On first
-use it is compiled with ``nvcc`` for sm_90a into a shared library under
-``kernels/_build/`` (listed in .gitignore) and loaded with ctypes. The
-library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded as built. Nothing here runs
+Each kernel source in ``kernels/csrc/`` has a plain C interface and may
+include the shared headers there (``*.cuh``). On first use it is compiled
+with ``nvcc`` for sm_90a into a shared library under ``kernels/_build/``
+(listed in .gitignore) and loaded with ctypes. The library name carries a
+hash of the source, the headers and the flags, so an edited source or
+header rebuilds and an unchanged one is loaded as built. Nothing here runs
 at import time: this module imports on hosts with no CUDA toolkit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -57,9 +59,11 @@ def build(name: str) -> str:
     and return its path. The compiler's output, with ptxas's register and
     shared-memory report per kernel, is kept in ``<library>.log``."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        text = f.read()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(out):
         return out

@@ -6,7 +6,7 @@ Counterpart of ``biasgan_tpu/ops/pallas_conv.py::conv3x3_fused`` (:771) and
 its helpers ``instance_moments_to_affine`` (:541) / ``apply_affine`` (:553).
 The kernel is CUDA C++ for sm_90a (csrc/conv3x3_fused.cu, which says what
 bounds it and how it is built up), compiled with nvcc on first use and
-bound with ctypes (kernels/build.py).
+bound with ctypes (kernels/build.py, kernels/common.py).
 
 ``conv3x3_fused`` takes its plain PyTorch version (pad + f32 ``F.conv2d`` +
 sums, ``conv3x3_fused_plain``) for a tensor on the CPU, and launches the
@@ -21,17 +21,25 @@ argument (the tiling is the kernel's own), and the weight is OIHW. The
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from biasgan_tpu_torch.kernels.common import (
+    ACT_CODE,
+    PAD_CODE,
+    INT,
+    PTR,
+    affine_act,
+    check_device,
+    check_kernel_input,
+    launch,
+    num_tiles,
+    ptr,
+    stored_moments,
+)
 from biasgan_tpu_torch.ops.padding import pad_hw
-
-_PAD_CODE = {"zero": 0, "reflect": 1, "wrap": 2}
-_ACT_CODE = {"none": 0, "relu": 1, "lrelu": 2}
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def instance_moments_to_affine(
     msum: torch.Tensor, msq: torch.Tensor, count: int, eps: float = 1e-5
@@ -57,14 +65,6 @@ def apply_affine(
     return yn.to(y.dtype)
 
 
-def _act(x: torch.Tensor, act: str) -> torch.Tensor:
-    if act == "relu":
-        return torch.clamp(x, min=0.0)
-    if act == "lrelu":
-        return torch.where(x > 0, x, 0.2 * x)
-    return x
-
-
 def _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode) -> None:
     if x.ndim != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
@@ -79,11 +79,11 @@ def _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode) -> None:
         for t in prologue:
             if tuple(t.shape) != (n, c):
                 raise ValueError(f"prologue tensors must be ({n}, {c}), got {tuple(t.shape)}")
-    if act_pre not in _ACT_CODE:
+    if act_pre not in ACT_CODE:
         raise ValueError(f"unknown act_pre {act_pre!r}")
     for name, mode, size in (("h_mode", h_mode, h), ("w_mode", w_mode, w)):
-        if mode not in _PAD_CODE:
-            raise ValueError(f"unknown {name} {mode!r}; expected one of {sorted(_PAD_CODE)}")
+        if mode not in PAD_CODE:
+            raise ValueError(f"unknown {name} {mode!r}; expected one of {sorted(PAD_CODE)}")
         if mode == "reflect" and size < 2:
             raise ValueError(f"{name}='reflect' needs a size of at least 2, got {size}")
 
@@ -105,81 +105,42 @@ def conv3x3_fused_plain(
     value. Set TF32 off to compare it with the kernel on the card."""
     _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
     if prologue is not None:
-        a, b = prologue
-        xf = x.float() * a[:, None, None, :].float() + b[:, None, None, :].float()
         # cast back to the storage dtype before the taps, as the kernel does
-        x = _act(xf, act_pre).to(x.dtype)
+        x = affine_act(x, *prologue, act_pre)
     xp = pad_hw(x, (1, 1), (1, 1), h_mode, w_mode)
     w = weight.to(x.dtype).float()
     y = F.conv2d(xp.permute(0, 3, 1, 2).float(), w).permute(0, 2, 3, 1)
     if bias is not None:
         y = y + bias.float()
     y = y.to(x.dtype)
-    if not want_moments:
-        return y
-    yf = y.float()
-    return y, (yf.sum(dim=(1, 2)), yf.square().sum(dim=(1, 2)))
+    return (y, stored_moments(y)) if want_moments else y
 
 
-def _library() -> ctypes.CDLL:
-    from biasgan_tpu_torch.kernels import build
-
-    lib = build.load("conv3x3_fused")
-    if not getattr(lib, "_conv3x3_fused_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_fused_launch.argtypes = [p] * 8 + [i] * 9 + [p]
-        lib.conv3x3_fused_launch.restype = i
-        lib.conv3x3_fused_num_tiles.argtypes = [i, i, i]
-        lib.conv3x3_fused_num_tiles.restype = i
-        lib.conv3x3_fused_error_string.argtypes = [i]
-        lib.conv3x3_fused_error_string.restype = ctypes.c_char_p
-        lib._conv3x3_fused_bound = True
-    return lib
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+_ARGTYPES = [PTR] * 8 + [INT] * 9
 
 
 def _launch(x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments):
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"conv3x3_fused kernel takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("conv3x3_fused kernel needs a contiguous NHWC x")
     n, h, w, c = x.shape
     cout = weight.shape[0]
-    if max(x.numel(), n * h * w * cout) >= 2**31:
-        raise ValueError("conv3x3_fused kernel indexes tensors below 2**31 elements")
+    dtype = check_kernel_input("conv3x3_fused", x, n * h * w * cout)
     dev = x.device
-    tensors = [weight] + ([] if bias is None else [bias]) + list(prologue or ())
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"conv3x3_fused: tensor on {t.device}, x on {dev}")
     # weight as (9, C, Cout) in x's dtype: the Pallas wrapper's w9
     w9 = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
     b = None if bias is None else bias.float().contiguous()
     pa = pb = None
     if prologue is not None:
         pa, pb = (t.float().contiguous() for t in prologue)
-    lib = _library()
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
     part = moments = None
     if want_moments:
-        tiles = lib.conv3x3_fused_num_tiles(h, w, _DTYPE_CODE[x.dtype])
+        tiles = num_tiles("conv3x3_fused", "conv3x3_fused_num_tiles", h, w, dtype)
         part = torch.empty((2, n, tiles, cout), dtype=torch.float32, device=dev)
         moments = torch.empty((2, n, cout), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.conv3x3_fused_launch(
-            _ptr(x), _ptr(w9), _ptr(b), _ptr(pa), _ptr(pb), _ptr(y),
-            _ptr(part), _ptr(moments),
-            n, h, w, c, cout, _DTYPE_CODE[x.dtype],
-            _PAD_CODE[h_mode], _PAD_CODE[w_mode], _ACT_CODE[act_pre],
-            stream,
-        )
-    if err != 0:
-        msg = lib.conv3x3_fused_error_string(err).decode()
-        raise RuntimeError(f"conv3x3_fused kernel launch failed: CUDA error {err} ({msg})")
+    launch(
+        "conv3x3_fused", "conv3x3_fused_launch", _ARGTYPES, dev,
+        ptr(x), ptr(w9), ptr(b), ptr(pa), ptr(pb), ptr(y), ptr(part), ptr(moments),
+        n, h, w, c, cout, dtype, PAD_CODE[h_mode], PAD_CODE[w_mode], ACT_CODE[act_pre],
+    )
     conv3x3_fused.launches += 1
     if not want_moments:
         return y
@@ -209,13 +170,10 @@ def conv3x3_fused(
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts it in ``conv3x3_fused.launches``) or raises."""
     _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
-    if x.device.type == "cpu":
-        return conv3x3_fused_plain(
-            x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_fused runs on cpu or cuda tensors, got {x.device}")
-    return _launch(x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments)
+    args = (x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments)
+    if check_device("conv3x3_fused", x, [weight, bias, *(prologue or ())]):
+        return conv3x3_fused_plain(*args)
+    return _launch(*args)
 
 
 conv3x3_fused.launches = 0

@@ -46,11 +46,11 @@
 // Interface: plain C, loaded with ctypes. Launches go on the caller's
 // stream; the function returns the cudaError_t of the launches (0 = ok).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace port;
 
 constexpr int TW = 16;  // output columns per block (one m16 row of pixels)
 constexpr int HALO_W = TW + 2;
@@ -62,9 +62,6 @@ constexpr int NT_BF16 = 128;           // Cout slice of the tensor-core kernel
 constexpr int LDW_BF16 = NT_BF16 + 8;  // padded smem row of staged weights
 constexpr int NT_F32 = 64;             // Cout slice of the CUDA-core kernel
 
-enum PadMode { PAD_ZERO = 0, PAD_REFLECT = 1, PAD_WRAP = 2 };
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_LRELU = 2 };
-
 // Source index of padded coordinate g along an axis of size n, or -1 where
 // the staged value is zero: a zero pad, or a row/column past the pad that
 // only masked outputs read.
@@ -75,253 +72,16 @@ __device__ __forceinline__ int resolve(int g, int n, int mode) {
   return -1;
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// Eight consecutive elements; 16-byte vector moves when aligned.
-template <typename T>
-struct alignas(16) Vec8 {
-  T v[8];
-};
-
-template <typename T>
-__device__ __forceinline__ Vec8<T> load8(const T* __restrict__ src, int valid,
-                                         bool vec) {
-  Vec8<T> r;
-  if (vec && valid == 8) {
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-    for (int i = 0; i < (int)(sizeof(Vec8<T>) / 16); ++i)
-      reinterpret_cast<uint4*>(&r)[i] = s[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) r.v[i] = i < valid ? src[i] : from_f<T>(0.f);
-  }
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ void store8(T* dst, const Vec8<T>& r) {
-#pragma unroll
-  for (int i = 0; i < (int)(sizeof(Vec8<T>) / 16); ++i)
-    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(&r)[i];
-}
-
-// ---------------------------------------------------------------------------
-// Staging of one chunk of input channels into shared memory, shared by both
-// kernels. Groups of 8 consecutive elements move as 16-byte cp.async copies
-// (zero-filled where out of range) when the tensor is 16-byte aligned at
-// every group (C or Cout % 8 == 0); otherwise element by element. The
-// tensor-core kernel issues chunk k+1 while it computes chunk k.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// One group of 8 elements: asynchronous when `vec`, else copied now.
-template <typename T>
-__device__ __forceinline__ void copy8(T* dst, const T* __restrict__ src,
-                                      const T* __restrict__ base, int valid,
-                                      bool vec) {
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < (int)(sizeof(Vec8<T>) / 16); ++i)
-      cp_async16(reinterpret_cast<uint4*>(dst) + i,
-                 valid == 8 ? reinterpret_cast<const uint4*>(src) + i
-                            : reinterpret_cast<const uint4*>(base),
-                 valid == 8);
-  } else {
-    store8(dst, load8(src, valid, false));
-  }
-}
-
-// Weights of taps 0..8, channels [k0, k0+KCC), couts [co0, co0+NT) from w9
-// (9, C, Cout) into s_w[tap][k][ldw].
-template <typename T, int KCC, int NT, int NTH>
-__device__ __forceinline__ void issue_weights(T* s_w, int ldw,
-                                              const T* __restrict__ w9, int C,
-                                              int Cout, int k0, int co0,
-                                              bool vec) {
-  constexpr int GROUPS = 9 * KCC * (NT / 8);
-  for (int g = threadIdx.x; g < GROUPS; g += NTH) {
-    const int n8 = (g % (NT / 8)) * 8;
-    const int row = g / (NT / 8);  // tap * KCC + k
-    const int tap = row / KCC, k = row % KCC;
-    const int kc = k0 + k, co = co0 + n8;
-    const int valid = kc < C ? max(min(8, Cout - co), 0) : 0;
-    const T* src = w9 + ((size_t)tap * C + min(kc, C - 1)) * Cout + co;
-    copy8(s_w + row * ldw + n8, src, w9, valid, vec);
-  }
-}
-
-// The (THH+2) x (TW+2) input halo tile of channels [k0, k0+KCC), with the
-// SAME pad resolved by index: staged pixel p sits at s_in + p * ASTR. The
-// prologue relu/lrelu(a*x+b) runs in f32 and is cast back to T; pads stay
-// zero (a zero pad is a zero of the normalized input).
-template <typename T, int THH, int KCC, int ASTR, int NTH>
-struct InputChunk {
-  static constexpr int GROUPS = (THH + 2) * HALO_W * (KCC / 8);
-  static_assert(NTH % (KCC / 8) == 0, "one channel group per thread");
-
-  // Channels [kc, kc+8) of staged pixel `pix`: source offset and how many
-  // are real (0 where the pad is zero or the channels ran out).
-  __device__ __forceinline__ static int source(int pix, int n, int H, int W,
-                                               int C, int y0, int x0, int kc,
-                                               int h_mode, int w_mode,
-                                               size_t* src) {
-    const int ry = resolve(y0 + pix / HALO_W - 1, H, h_mode);
-    const int rx = resolve(x0 + pix % HALO_W - 1, W, w_mode);
-    *src = (((size_t)n * H + max(ry, 0)) * W + max(rx, 0)) * C + kc;
-    return (ry >= 0 && rx >= 0) ? max(min(8, C - kc), 0) : 0;
-  }
-
-  __device__ __forceinline__ static void scales(const float* __restrict__ pa,
-                                                const float* __restrict__ pb,
-                                                int n, int C, int kc,
-                                                float (&a)[8], float (&b)[8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int k = min(kc + i, C - 1);
-      a[i] = pa[(size_t)n * C + k];
-      b[i] = pb[(size_t)n * C + k];
-    }
-  }
-
-  __device__ __forceinline__ static void transform(Vec8<T>& v, int valid,
-                                                   const float (&a)[8],
-                                                   const float (&b)[8],
-                                                   int act) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i < valid) {
-        float f = __fadd_rn(__fmul_rn(to_f(v.v[i]), a[i]), b[i]);
-        if (act == ACT_RELU) f = fmaxf(f, 0.f);
-        else if (act == ACT_LRELU) f = f > 0.f ? f : 0.2f * f;
-        v.v[i] = from_f<T>(f);
-      }
-    }
-  }
-
-  // Start (vec: asynchronous) or do (element-wise, prologue included) the
-  // copy of the chunk. All of a thread's groups hold the same 8 channels.
-  __device__ __forceinline__ static void issue(
-      T* s_in, const T* __restrict__ x, const float* __restrict__ pa,
-      const float* __restrict__ pb, int n, int H, int W, int C, int y0,
-      int x0, int k0, int h_mode, int w_mode, int act, bool vec) {
-    const int c8 = (threadIdx.x % (KCC / 8)) * 8;
-    float a[8], b[8];
-    if (!vec && pa != nullptr) scales(pa, pb, n, C, k0 + c8, a, b);
-    for (int g = threadIdx.x; g < GROUPS; g += NTH) {
-      const int pix = g / (KCC / 8);
-      size_t src;
-      const int valid =
-          source(pix, n, H, W, C, y0, x0, k0 + c8, h_mode, w_mode, &src);
-      T* dst = s_in + pix * ASTR + c8;
-      if (vec) {
-        copy8(dst, x + src, x, valid, true);
-      } else {
-        Vec8<T> v = load8(x + src, valid, false);
-        if (pa != nullptr) transform(v, valid, a, b, act);
-        store8(dst, v);
-      }
-    }
-  }
-
-  // After an asynchronous copy has landed (cp_async_wait_all): the prologue,
-  // in place, on the real values this thread copied.
-  __device__ __forceinline__ static void finish(
-      T* s_in, const float* __restrict__ pa, const float* __restrict__ pb,
-      int n, int H, int W, int C, int y0, int x0, int k0, int h_mode,
-      int w_mode, int act, bool vec) {
-    if (!vec || pa == nullptr) return;
-    const int c8 = (threadIdx.x % (KCC / 8)) * 8;
-    float a[8], b[8];
-    scales(pa, pb, n, C, k0 + c8, a, b);
-    for (int g = threadIdx.x; g < GROUPS; g += NTH) {
-      const int pix = g / (KCC / 8);
-      size_t src;
-      const int valid =
-          source(pix, n, H, W, C, y0, x0, k0 + c8, h_mode, w_mode, &src);
-      if (valid == 0) continue;
-      T* p = s_in + pix * ASTR + c8;
-      Vec8<T> v = load8(p, 8, true);
-      transform(v, valid, a, b, act);
-      store8(p, v);
-    }
+// The (th+2) x (TW+2) input halo of output tile (y0, x0): the SAME pad
+// resolved by index on each axis.
+struct SameMap {
+  int y0, x0, H, W, h_mode, w_mode;
+  __device__ __forceinline__ bool operator()(int pix, int* iy, int* ix) const {
+    *iy = resolve(y0 + pix / HALO_W - 1, H, h_mode);
+    *ix = resolve(x0 + pix % HALO_W - 1, W, w_mode);
+    return *iy >= 0 && *ix >= 0;
   }
 };
-
-// Tensor-core primitives (sm_80+): four 8x8 b16 matrices from shared memory
-// (each lane gives one row address), optionally transposed, and the
-// m16n8k16 bf16 MMA with f32 accumulation.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Sum the per-thread moment partials of one column group across row groups
-// in a fixed order and write this block's tile partials.
-template <int NTH>
-__device__ __forceinline__ void write_tile_moments(
-    const float* red, int groups, int nt, float* __restrict__ part, int n,
-    int N, int tile, int n_tiles, int co0, int Cout) {
-  for (int t = threadIdx.x; t < nt; t += NTH) {
-    const int co = co0 + t;
-    if (co >= Cout) continue;
-    float s = 0.f, q = 0.f;
-    for (int gi = 0; gi < groups; ++gi) {
-      s += red[gi * nt + t];
-      q += red[(groups + gi) * nt + t];
-    }
-    const size_t o = ((size_t)n * n_tiles + tile) * Cout + co;
-    part[o] = s;
-    part[(size_t)N * n_tiles * Cout + o] = q;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, f32 accumulation), 8 warps, one
@@ -378,19 +138,19 @@ __global__ void __launch_bounds__(NTH_BF16, 1)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
 
-  using Input = InputChunk<__nv_bfloat16, TH_BF16, KC_BF16, A_STRIDE, NTH_BF16>;
+  using Input =
+      HaloChunk<__nv_bfloat16, (TH_BF16 + 2) * HALO_W, KC_BF16, A_STRIDE, NTH_BF16>;
+  const SameMap map{y0, x0, H, W, h_mode, w_mode};
   auto stage = [&](int ch) { return stage0 + (ch % STAGES_BF16) * STAGE_BF16; };
   auto issue = [&](int ch) {  // start chunk ch's copies as one group
     __nv_bfloat16* st = stage(ch);
     issue_weights<__nv_bfloat16, KC_BF16, NT_BF16, NTH_BF16>(
         st + IN_ELEMS_BF16, LDW_BF16, w9, C, Cout, ch * KC_BF16, co0, vec_w);
-    Input::issue(st, x, pa, pb, n, H, W, C, y0, x0, ch * KC_BF16, h_mode,
-                 w_mode, act, vec_in);
+    Input::issue(st, x, pa, pb, map, n, H, W, C, ch * KC_BF16, act, vec_in);
     cp_async_commit();
   };
   auto finish = [&](int ch) {
-    Input::finish(stage(ch), pa, pb, n, H, W, C, y0, x0, ch * KC_BF16, h_mode,
-                  w_mode, act, vec_in);
+    Input::finish(stage(ch), pa, pb, map, n, H, W, C, ch * KC_BF16, act, vec_in);
   };
 
   issue(0);
@@ -531,16 +291,15 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  using Input = InputChunk<float, TH, KC, KC, NTHREADS>;
+  using Input = HaloChunk<float, (TH + 2) * HALO_W, KC, KC, NTHREADS>;
+  const SameMap map{y0, x0, H, W, h_mode, w_mode};
   for (int k0 = 0; k0 < C; k0 += KC) {
     issue_weights<float, KC, NT_F32, NTHREADS>(s_w, NT_F32, w9, C, Cout, k0,
                                                co0, vec_w);
-    Input::issue(s_in, x, pa, pb, n, H, W, C, y0, x0, k0, h_mode, w_mode, act,
-                 vec_in);
+    Input::issue(s_in, x, pa, pb, map, n, H, W, C, k0, act, vec_in);
     cp_async_commit();
     cp_async_wait_all();
-    Input::finish(s_in, pa, pb, n, H, W, C, y0, x0, k0, h_mode, w_mode, act,
-                  vec_in);
+    Input::finish(s_in, pa, pb, map, n, H, W, C, k0, act, vec_in);
     __syncthreads();
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
@@ -590,20 +349,6 @@ __global__ void __launch_bounds__(NTHREADS)
                               co0, Cout);
 }
 
-// moments[which][n][co] = sum over tiles of part[which][n][tile][co], in
-// tile order.
-__global__ void reduce_moments_kernel(const float* __restrict__ part,
-                                      float* __restrict__ moments, int N,
-                                      int n_tiles, int Cout) {
-  const int co = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = blockIdx.y, which = blockIdx.z;
-  if (co >= Cout) return;
-  const float* p = part + ((size_t)which * N + n) * n_tiles * Cout + co;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t) s += p[(size_t)t * Cout];
-  moments[((size_t)which * N + n) * Cout + co] = s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -613,10 +358,6 @@ extern "C" {
 int conv3x3_fused_num_tiles(int H, int W, int dtype) {
   const int th = dtype == 1 ? TH_BF16 : TH;
   return ((H + th - 1) / th) * ((W + TW - 1) / TW);
-}
-
-const char* conv3x3_fused_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // dtype: 0 = float32, 1 = bfloat16. h_mode / w_mode: 0 zero, 1 reflect,
@@ -658,10 +399,8 @@ int conv3x3_fused_launch(const void* x, const void* w9, const void* bias,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
-  dim3 rgrid((Cout + 127) / 128, N, 2);
-  reduce_moments_kernel<<<rgrid, 128, 0, s>>>(pp, static_cast<float*>(moments),
-                                              N, n_tiles, Cout);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(port::launch_reduce_moments(
+      pp, static_cast<float*>(moments), N, n_tiles, Cout, s));
 }
 
 }  // extern "C"

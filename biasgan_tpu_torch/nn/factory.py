@@ -42,11 +42,16 @@ def define_G(
     compute_dtype: Optional[torch.dtype] = None,
     out_activation: str = "tanh",
     fused_blocks: bool = False,
+    fused_updown: bool = False,
+    conv7: bool = False,
+    fused_norm: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
     """Build a generator module by name: resnet_9blocks | resnet_6blocks |
     resnet_<K>blocks. ``w_mode`` overrides width-axis padding ('wrap' =
-    periodic longitude). The U-Net names are not ported yet."""
+    periodic longitude). ``fused_blocks``, ``fused_updown``, ``conv7`` and
+    ``fused_norm`` route the resnet's layers through the hand-written
+    kernels (``ResNetGenerator``). The U-Net names are not ported yet."""
     m = re.fullmatch(r"resnet_(\d+)blocks", netG)
     if m:
         return ResNetGenerator(
@@ -62,6 +67,9 @@ def define_G(
             init_gain=init_gain,
             compute_dtype=compute_dtype,
             fused_blocks=fused_blocks,
+            fused_updown=fused_updown,
+            conv7=conv7,
+            fused_norm=fused_norm,
             generator=generator,
         )
     if netG in _UNET_NAMES or re.fullmatch(r"unet_d(\d+)", netG):

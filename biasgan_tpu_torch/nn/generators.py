@@ -15,6 +15,19 @@ norm0 + ReLU as conv1's prologue, the instance-norm moments emitted by the
 kernel, so the normalized activation and the pad copies never round-trip
 device memory. Only the closing norm1 affine + residual add is a separate
 elementwise pass.
+
+Three more routes follow the JAX generator's opt-in kernel paths:
+
+* ``fused_updown`` (with the fused block path engaged) runs the two
+  downsampling convs through ``conv3x3s2_fused`` and the two upsampling
+  conv-transposes through ``convt3x3s2_fused``: the stem's instance norm +
+  ReLU becomes down0's prologue (from the f32 moments of the stem output),
+  down0's becomes down1's, up0's becomes up1's, and only down1's and up1's
+  norms run as one affine + ReLU pass each (generators.py:409-458,
+  512-531);
+* ``conv7`` runs the 7x7 stem and head through ``conv7x7``;
+* ``fused_norm`` runs every ``norm_act`` that remains on the path through
+  ``instance_norm_act`` (instance norm only).
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from biasgan_tpu_torch.kernels.common import stored_moments
 from biasgan_tpu_torch.kernels.conv3x3_fused import (
     apply_affine,
     instance_moments_to_affine,
@@ -85,7 +99,9 @@ class ResNetBlock(nn.Module):
         self.conv1 = conv()
         self.norm1 = make_norm(norm_type, dim, compute_dtype, generator)
 
-    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, fused: bool = False, fused_norm: bool = False
+    ) -> torch.Tensor:
         if fused:
             # generators.py:253-264: conv0 -> moments -> affine -> conv1's
             # prologue -> moments -> affine + residual
@@ -95,10 +111,10 @@ class ResNetBlock(nn.Module):
             y1, m1 = self.conv1.forward_fused(y0, prologue=(a0, b0))
             a1, b1 = instance_moments_to_affine(*m1, count)
             return apply_affine(y1, a1, b1) + x
-        h = norm_act(self.conv0(x), self.norm0, activation="relu")
+        h = norm_act(self.conv0(x), self.norm0, activation="relu", fused=fused_norm)
         if self.dropout is not None:
             h = self.dropout(h)
-        return norm_act(self.conv1(h), self.norm1, residual=x)
+        return norm_act(self.conv1(h), self.norm1, residual=x, fused=fused_norm)
 
 
 class ResNetGenerator(nn.Module):
@@ -108,7 +124,11 @@ class ResNetGenerator(nn.Module):
 
     ``fused_blocks`` routes the residual blocks through the conv3x3_fused
     kernel whenever ``fused_blocks_blocker`` allows it (checked per
-    forward, since it depends on train/eval mode)."""
+    forward, since it depends on train/eval mode). ``fused_updown`` adds
+    the fused down and up convs where the block path is engaged (the down
+    path also needs the input's H and W divisible by 4); ``conv7`` and
+    ``fused_norm`` route the 7x7 convs and the remaining norms (module
+    docstring). All four are plain attributes, read per forward."""
 
     def __init__(
         self,
@@ -124,6 +144,9 @@ class ResNetGenerator(nn.Module):
         init_gain: float = 0.02,
         compute_dtype: Optional[torch.dtype] = None,
         fused_blocks: bool = False,
+        fused_updown: bool = False,
+        conv7: bool = False,
+        fused_norm: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -131,6 +154,9 @@ class ResNetGenerator(nn.Module):
         self.use_dropout = use_dropout
         self.out_activation = out_activation
         self.fused_blocks = fused_blocks
+        self.fused_updown = fused_updown
+        self.conv7 = conv7
+        self.fused_norm = fused_norm
         use_bias = norm_uses_bias(norm_type)
         common = dict(
             init_type=init_type, init_gain=init_gain,
@@ -184,14 +210,43 @@ class ResNetGenerator(nn.Module):
             self.norm_type, self.use_dropout, self.training
         ) is None
 
+    def updown_engaged(self, x: torch.Tensor) -> tuple:
+        """(down, up): whether the fused down and up paths run for stem
+        input ``x`` (the JAX gate ``_fused_updown_plans``,
+        generators.py:333-383, less its TPU tiling conditions)."""
+        up = self.fused_updown and self.fused_engaged()
+        return up and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0, up
+
+    def _norm_act(self, h, norm, **kw):
+        return norm_act(h, norm, fused=self.fused_norm, **kw)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = norm_act(self.stem(x), self.stem_norm, activation="relu")
-        h = norm_act(self.down0(h), self.down_norm0, activation="relu")
-        h = norm_act(self.down1(h), self.down_norm1, activation="relu")
+        fused_down, fused_up = self.updown_engaged(x)
+        h = self.stem(x, conv7=self.conv7)
+        if fused_down:
+            # the stem's norm + ReLU rides into down0, down0's into down1
+            count = h.shape[1] * h.shape[2]
+            a, b = instance_moments_to_affine(*stored_moments(h), count)
+            for down in (self.down0, self.down1):
+                h, m = down.forward_fused_s2(h, prologue=(a, b))
+                a, b = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
+            h = apply_affine(h, a, b, relu=True)
+        else:
+            h = self._norm_act(h, self.stem_norm, activation="relu")
+            h = self._norm_act(self.down0(h), self.down_norm0, activation="relu")
+            h = self._norm_act(self.down1(h), self.down_norm1, activation="relu")
         fused = self.fused_engaged()
         for block in self.blocks:
-            h = block(h, fused=fused)
-        h = norm_act(self.up0(h), self.up_norm0, activation="relu")
-        h = norm_act(self.up1(h), self.up_norm1, activation="relu")
-        h = self.head(h).float()
+            h = block(h, fused=fused, fused_norm=self.fused_norm)
+        if fused_up:
+            # up0's norm + ReLU rides into up1
+            prologue = None
+            for up in (self.up0, self.up1):
+                h, m = up.forward_fused(h, prologue=prologue)
+                prologue = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
+            h = apply_affine(h, *prologue, relu=True)
+        else:
+            h = self._norm_act(self.up0(h), self.up_norm0, activation="relu")
+            h = self._norm_act(self.up1(h), self.up_norm1, activation="relu")
+        h = self.head(h, conv7=self.conv7).float()
         return torch.tanh(h) if self.out_activation == "tanh" else h

@@ -20,6 +20,11 @@ What follows the JAX package exactly, because it moves the numbers:
 The TPU rewrites of the JAX layers (cin padding, space-to-depth, the
 tiny-cin VJP, the phase-decomposed and one-buffer conv-transposes) are not
 carried: they reorganize the same arithmetic for the TPU's matrix unit.
+The JAX layers' opt-in kernel routes are, as arguments where the JAX
+package reads its perf gates: ``conv7`` in ``conv2d`` (the 7x7 kernel),
+``fused`` in ``norm_act`` (the fused instance-norm kernel), and the fused
+stride-2 down and up convs as ``Conv2d.forward_fused_s2`` and
+``ConvTranspose2d.forward_fused``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
+from biasgan_tpu_torch.kernels.conv3x3s2_fused import conv3x3s2_fused
+from biasgan_tpu_torch.kernels.conv7x7 import conv7x7
+from biasgan_tpu_torch.kernels.convt3x3s2_fused import convt3x3s2_fused
+from biasgan_tpu_torch.kernels.instance_norm_act import instance_norm_act
 from biasgan_tpu_torch.ops.padding import pad_axis, pad_hw
 
 
@@ -42,6 +51,14 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
+
+
+def _in_compute_dtype(x, weight, compute_dtype):
+    """(x, weight) cast to ``compute_dtype`` (None keeps them as they are),
+    as every conv casts per call."""
+    if compute_dtype is None:
+        return x, weight
+    return x.to(compute_dtype), weight.to(compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +129,16 @@ def conv2d(
     h_mode: str = "zero",
     w_mode: str = "zero",
     compute_dtype: Optional[torch.dtype] = None,
+    conv7: bool = False,
 ) -> torch.Tensor:
     """torch ``Conv2d(k, stride, padding)`` on NHWC ``x`` with per-axis pad
-    modes. ``weight`` is OIHW."""
+    modes. ``weight`` is OIHW.
+
+    ``conv7`` routes a 7x7 stride-1 pad-3 conv with exactly one channel
+    side of at most 8 (the resnet stem and head) through the ``conv7x7``
+    kernel on the padded input, with f32 accumulation and the bias added
+    before the one cast (the JAX ``--conv7_pallas`` route,
+    biasgan_tpu/nn/layers.py:408-426)."""
     ph, pw = padding
     kh, kw = weight.shape[2:]
     out_h = (x.shape[1] + 2 * ph - kh) // stride[0] + 1
@@ -126,13 +150,27 @@ def conv2d(
             "input too small for this network"
         )
     x = pad_hw(x, (ph, ph), (pw, pw), h_mode, w_mode)
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-        weight = weight.to(compute_dtype)
+    x, weight = _in_compute_dtype(x, weight, compute_dtype)
+    if conv7 and conv7_eligible(weight.shape, stride, padding):
+        return conv7x7(x, weight, bias)
     y = _nhwc(F.conv2d(_nchw(x), weight, None, stride))
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def conv7_eligible(weight_shape, stride, padding) -> bool:
+    """Whether ``conv2d(..., conv7=True)`` takes the 7x7 kernel: a 7x7
+    stride-1 pad-3 conv with exactly one channel side of at most 8 (the
+    JAX gate, biasgan_tpu/nn/layers.py:414-419; its GEMM-size and cin-pad
+    conditions are TPU regime splits and are not carried)."""
+    cout, cin, kh, kw = weight_shape
+    return (
+        (kh, kw) == (7, 7)
+        and tuple(stride) == (1, 1)
+        and tuple(padding) == (3, 3)
+        and (cin <= 8) != (cout <= 8)
+    )
 
 
 def conv_transpose2d(
@@ -156,9 +194,7 @@ def conv_transpose2d(
     true for every conv-transpose in the zoo."""
     kh, kw = weight.shape[2:]
     (sh, sw), (ph, pw), (oph, opw) = stride, padding, output_padding
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-        weight = weight.to(compute_dtype)
+    x, weight = _in_compute_dtype(x, weight, compute_dtype)
     if w_mode != "wrap":
         y = _nhwc(
             F.conv_transpose2d(_nchw(x), weight, None, stride, padding, output_padding)
@@ -210,8 +246,17 @@ def norm_act(
     norm: nn.Module,
     activation: str = "none",
     residual: Optional[torch.Tensor] = None,
+    fused: bool = False,
 ) -> torch.Tensor:
-    """norm -> [+ residual] -> activation, the chain that follows every conv."""
+    """norm -> [+ residual] -> activation, the chain that follows every conv.
+
+    ``fused`` sends an instance norm through the ``instance_norm_act``
+    kernel (the JAX ``--force_pallas_norm`` route,
+    biasgan_tpu/nn/layers.py:781-784): the residual is then added in f32
+    and the result cast once, where this plain chain casts the norm to x's
+    dtype before the add."""
+    if fused and isinstance(norm, InstanceNorm):
+        return instance_norm_act(x, residual, activation, norm.eps)
     h = norm(x)
     if residual is not None:
         h = h + residual
@@ -324,7 +369,7 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(hwio.permute(3, 2, 0, 1).contiguous())
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, conv7: bool = False) -> torch.Tensor:
         return conv2d(
             x,
             self.weight,
@@ -334,7 +379,9 @@ class Conv2d(nn.Module):
             self.h_mode,
             self.w_mode,
             self.compute_dtype,
+            conv7,
         )
+
 
     def forward_fused(
         self,
@@ -349,13 +396,30 @@ class Conv2d(nn.Module):
             self.padding != (1, 1)
         ):
             raise ValueError("forward_fused needs a 3x3 stride-1 pad-1 conv")
-        w = self.weight
-        if self.compute_dtype is not None:
-            x = x.to(self.compute_dtype)
-            w = w.to(self.compute_dtype)
+        x, w = _in_compute_dtype(x, self.weight, self.compute_dtype)
         return conv3x3_fused(
             x, w, self.bias, prologue=prologue, act_pre="relu",
             h_mode=self.h_mode, w_mode=self.w_mode, want_moments=True,
+        )
+
+    def forward_fused_s2(
+        self,
+        x: torch.Tensor,
+        prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ):
+        """This 3x3 stride-2 pad-1 conv (H zero pad) through
+        ``kernels.conv3x3s2_fused``: optional instance-norm + ReLU prologue
+        ``(a, b)`` on the input, and the (sum, sumsq) moments of the output
+        (the JAX ``fused_s2_plan`` branch, biasgan_tpu/nn/layers.py:845-864).
+        Returns ``(y, (sum, sumsq))``."""
+        if tuple(self.weight.shape[2:]) != (3, 3) or self.stride != (2, 2) or (
+            self.padding != (1, 1)
+        ) or self.h_mode != "zero":
+            raise ValueError("forward_fused_s2 needs a 3x3 stride-2 pad-1 conv, H zero")
+        x, w = _in_compute_dtype(x, self.weight, self.compute_dtype)
+        return conv3x3s2_fused(
+            x, w, self.bias, prologue=prologue, act_pre="relu",
+            w_mode=self.w_mode, want_moments=True,
         )
 
 
@@ -401,4 +465,24 @@ class ConvTranspose2d(nn.Module):
             self.output_padding,
             self.compute_dtype,
             self.w_mode,
+        )
+
+    def forward_fused(
+        self,
+        x: torch.Tensor,
+        prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ):
+        """This 3x3 stride-2 pad-1 output-pad-1 conv-transpose through
+        ``kernels.convt3x3s2_fused``: optional instance-norm + ReLU prologue
+        ``(a, b)`` on the input, and the (sum, sumsq) moments of the whole
+        (N, 2H, 2W, Cout) output (the JAX ``fused_plan`` branch,
+        biasgan_tpu/nn/layers.py:942-968). Returns ``(y, (sum, sumsq))``."""
+        if tuple(self.weight.shape[2:]) != (3, 3) or self.stride != (2, 2) or (
+            self.padding != (1, 1) or self.output_padding != (1, 1)
+        ):
+            raise ValueError("forward_fused needs a 3x3 stride-2 pad-1 output-pad-1 convT")
+        x, w = _in_compute_dtype(x, self.weight, self.compute_dtype)
+        return convt3x3s2_fused(
+            x, w, self.bias, prologue=prologue, act_pre="relu",
+            w_mode="wrap" if self.w_mode == "wrap" else "zero", want_moments=True,
         )

@@ -1,12 +1,20 @@
-"""Serving time and device-time breakdown of the full-globe forward, with
-and without the fused block kernel, on one CUDA device:
+"""Serving time and device-time breakdown of the full-globe forward on one
+CUDA device, on four paths through the generator:
 
     python -m biasgan_tpu_torch.profile_globe [--out FILE.json]
+
+* fused: --fused_blocks (the block convs through conv3x3_fused);
+* plain: cuDNN convs, instance norms and pads;
+* fused_all: --fused_blocks --fused_updown --conv7_pallas 1 (conv3x3_fused,
+  conv3x3s2_fused, convt3x3s2_fused and conv7x7; no separate norm pass but
+  the closing affines);
+* plain_norm: --force_pallas_norm (the plain path with every norm through
+  instance_norm_act).
 
 The model is resnet_9blocks (ngf 64, instance norm, no dropout, periodic W,
 bf16 compute) with random weights from a fixed seed, on a random
 (1, 721, 1440, 3) field; the numbers do not depend on the values. Rounds
-run in the order fused, plain, fused, plain, and each round measures:
+run the four paths in that order, twice, and each round measures:
 
 * serve: FIELDS fields through ``infer.field_runner`` (standardize, pad,
   G, crop, destandardize) plus the copy to the host, each timed on the host
@@ -16,7 +24,8 @@ run in the order fused, plain, fused, plain, and each round measures:
   synchronize at the end, host ms per forward;
 * profile: ``torch.profiler`` over PROFILED forwards: device busy ms per
   forward (the sum of the kernels' self device time), the largest kernels,
-  and the idle share 1 - busy / wall.
+  the idle share 1 - busy / wall, and the launches of each hand-written
+  kernel per forward.
 
 It prints one line per round and, with --out, writes every number to a
 JSON file.
@@ -35,10 +44,22 @@ import torch
 
 from biasgan_tpu_torch import infer
 from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
+from biasgan_tpu_torch.kernels.conv3x3s2_fused import conv3x3s2_fused
+from biasgan_tpu_torch.kernels.conv7x7 import conv7x7
+from biasgan_tpu_torch.kernels.convt3x3s2_fused import convt3x3s2_fused
+from biasgan_tpu_torch.kernels.instance_norm_act import instance_norm_act
 from biasgan_tpu_torch.nn.factory import define_G
 
 GLOBE = (1, 721, 1440, 3)
 FIELDS, WARMUP, FORWARDS, PROFILED, TOP = 20, 3, 10, 3, 14
+KERNELS = (conv3x3_fused, conv3x3s2_fused, convt3x3s2_fused, conv7x7, instance_norm_act)
+# the generator's routing attributes on each path
+PATHS = {
+    "fused": dict(fused_blocks=True),
+    "plain": {},
+    "fused_all": dict(fused_blocks=True, fused_updown=True, conv7=True),
+    "plain_norm": dict(fused_norm=True),
+}
 
 
 def _device_rows(prof, forwards: int, top: int):
@@ -58,11 +79,16 @@ def _device_rows(prof, forwards: int, top: int):
     ]
 
 
-def profile_round(G, x, fused: bool) -> dict:
+def set_path(G, path: str) -> None:
+    for attr in ("fused_blocks", "fused_updown", "conv7", "fused_norm"):
+        setattr(G, attr, PATHS[path].get(attr, False))
+
+
+def profile_round(G, x, path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    G.fused_blocks = fused
-    multiples = infer.pad_multiples("resnet_9blocks", fused)
+    set_path(G, path)
+    multiples = infer.pad_multiples("resnet_9blocks", G.fused_blocks)
     run = infer.field_runner(G, *multiples)
     zeros = torch.zeros(x.shape[-1], device=x.device)
     ones = torch.ones(x.shape[-1], device=x.device)
@@ -86,17 +112,19 @@ def profile_round(G, x, fused: bool) -> dict:
             G(xp)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / FORWARDS
-        launches = conv3x3_fused.launches
+        before = [k.launches for k in KERNELS]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED):
                 G(xp)
             torch.cuda.synchronize()
-        launches = (conv3x3_fused.launches - launches) / PROFILED
+        launches = {
+            k.__name__: (k.launches - b) / PROFILED for k, b in zip(KERNELS, before)
+        }
     busy, top = _device_rows(prof, PROFILED, TOP)
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the forwards")
     return {
-        "path": "fused" if fused else "plain",
+        "path": path,
         "serve_ms": serve_ms,
         "serve_median_ms": statistics.median(serve_ms),
         "serve_mean_ms": statistics.fmean(serve_ms),
@@ -104,7 +132,7 @@ def profile_round(G, x, fused: bool) -> dict:
         "wall_ms_per_forward": wall,
         "device_busy_ms_per_forward": busy,
         "idle_share": 1 - busy / wall,
-        "conv3x3_fused_launches_per_forward": launches,
+        "launches_per_forward": launches,
         "top_kernels": top,
     }
 
@@ -131,16 +159,16 @@ def main(argv=None) -> int:
     ).cuda().eval()
     x = torch.randn(GLOBE, generator=g).cuda()
     rounds = []
-    for fused in (True, False, True, False):
-        r = profile_round(G, x, fused)
+    for path in list(PATHS) * 2:
+        r = profile_round(G, x, path)
         rounds.append(r)
+        kernels = ", ".join(f"{k} {n:g}" for k, n in r["launches_per_forward"].items() if n)
         print(
             f"{r['path']}: serve median {r['serve_median_ms']:.3f} ms/field "
             f"(mean {r['serve_mean_ms']:.3f}, {FIELDS} fields, "
             f"{r['serve_mpx_s']:.2f} Mpx/s); wall {r['wall_ms_per_forward']:.3f} "
             f"ms/forward, device busy {r['device_busy_ms_per_forward']:.3f}, "
-            f"idle share {r['idle_share']:.3f}; conv3x3_fused "
-            f"{r['conv3x3_fused_launches_per_forward']:g} launches/forward"
+            f"idle share {r['idle_share']:.3f}; launches/forward: {kernels or 'none'}"
         )
         for ms, calls, key in r["top_kernels"]:
             print(f"  {ms:8.3f} ms/fwd {calls:6.1f} calls/fwd  {key}")

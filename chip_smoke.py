@@ -9,28 +9,34 @@ checkout is missing, and at the first failure of any phase:
 
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA,
      nvcc and Triton versions;
-  2. build every kernel of the served path from csrc/ (nvcc, sm_90a);
+  2. build every kernel of the served paths from csrc/ (nvcc, sm_90a), one
+     nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card (TF32 off):
-     the full-globe block shape (1, 181, 360, 256) in bf16 and f32, with and
-     without the prologue, and a sweep of all nine pad-mode pairs at odd
-     shapes, with the moments held to those of the stored output; then the
-     kernel's time beside the plain version's;
-  4. a small-input reference: the generator's kernel path on the card
+     at the full-globe shapes the served paths give it, in bf16 and f32,
+     and over a sweep of small odd shapes, pad modes, prologues,
+     activations and residuals, with the moments held to those of the
+     stored output; then, at the globe shapes in bf16, the kernel's time
+     beside the plain version's, one PyTorch library call's, and the
+     card's bound for the same work;
+  4. a small-input reference: the generator's kernel paths on the card
      against its plain path on the CPU (which the CPU tests hold to the JAX
      package), f32;
   5. a NetCDF-3 store of three 721x1440 fields per side and a seeded
      resnet_9blocks (ngf 64) checkpoint;
-  6. serve the fields through ``biasgan_tpu_torch.infer.main`` with
-     --fused_blocks, counting kernel launches, and again on the plain path;
-     outputs must be finite, of the right shape, and agree with each other.
+  6. serve the fields through ``biasgan_tpu_torch.infer.main`` on four
+     paths, counting each kernel's launches: --fused_blocks; the plain
+     path; --fused_blocks --fused_updown --conv7_pallas 1; and
+     --force_pallas_norm. Outputs must be finite, of the right shape, and
+     each kernel path must agree with the plain path.
 
 Before its last line it prints one JSON object with the kernels' names,
-sources, launch counts on the served path, errors and times. The last line
-is {"ok": true, "device": {...}}.
+sources, launch counts on their served path, errors, times and bounds. The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -43,12 +49,34 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GLOBE_H, GLOBE_W, GLOBE_C, N_VARS, N_TIMES = 721, 1440, 256, 3, 3
+GLOBE_H, GLOBE_W, N_VARS, N_TIMES = 721, 1440, 3, 3
 PAD_MODES = ("zero", "reflect", "wrap")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # |y - ref| <= tol * (1 + |ref|)
 MOMENT_TOL = 1e-3  # relative, see moment_error
 MOMENT_SLACK = 1e-5  # f32 summation order, see stored_moment_ratio
-BLOCK_CONVS = 18  # resnet_9blocks: 9 blocks x 2 convs
+# the card's published peaks (H100 SXM, dense, at 700 W), for the bounds:
+# bf16 on the tensor cores, f32 outside them, device memory
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+# kernel -> (the TPU kernel it replaces, the served path it carries)
+KERNELS = {
+    "conv3x3_fused": ("biasgan_tpu/ops/pallas_conv.py:771", "fused"),
+    "conv3x3s2_fused": ("biasgan_tpu/ops/pallas_conv.py:1663", "fused_all"),
+    "convt3x3s2_fused": ("biasgan_tpu/ops/pallas_conv.py:1318", "fused_all"),
+    "conv7x7": ("biasgan_tpu/ops/pallas_conv7.py:197", "fused_all"),
+    "instance_norm_act": ("biasgan_tpu/ops/pallas_fused.py:149", "plain_norm"),
+}
+# served path -> (infer flags, kernel launches per field)
+PATHS = {
+    "fused": (["--fused_blocks"], {"conv3x3_fused": 18}),
+    "plain": ([], {}),
+    "fused_all": (
+        ["--fused_blocks", "--fused_updown", "--conv7_pallas", "1"],
+        {"conv3x3_fused": 18, "conv3x3s2_fused": 2, "convt3x3s2_fused": 2, "conv7x7": 2},
+    ),
+    "plain_norm": (["--force_pallas_norm"], {"instance_norm_act": 23}),
+}
 
 
 class SmokeFailure(Exception):
@@ -58,6 +86,14 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def kernel_fns(name: str):
+    """(wrapper, plain version) of kernel ``name``."""
+    import importlib
+
+    mod = importlib.import_module(f"biasgan_tpu_torch.kernels.{name}")
+    return getattr(mod, name), getattr(mod, name + "_plain")
 
 
 def environment(torch) -> None:
@@ -87,14 +123,25 @@ def environment(torch) -> None:
 
 
 def build_kernels() -> None:
+    """One nvcc per source, all at once; prints each kernel function's
+    registers and spills from ptxas."""
     from biasgan_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    path = build.build("conv3x3_fused")
-    build.load("conv3x3_fused")
-    print(f"build conv3x3_fused: {time.perf_counter() - t0:.1f} s -> {path}")
-    with open(path + ".log") as f:
-        print(f.read().strip())
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    print(f"build {len(paths)} kernels: {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        build.load(name)
+        with open(path + ".log") as f:
+            log = f.read()
+        fns = re.findall(r"Compiling entry function '(\S+)'", log)
+        used = re.findall(r"Used (\d+) registers.*", log)
+        spills = re.findall(r"(\d+) bytes spill stores", log)
+        print(f"  {name} -> {os.path.basename(path)}")
+        for fn, u, sp in zip(fns, used, spills):
+            short = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", fn)[:70]
+            print(f"    {short}: {u} registers, {sp} bytes spilled")
 
 
 def moment_error(got, ref, count: int) -> float:
@@ -110,7 +157,7 @@ def moment_error(got, ref, count: int) -> float:
 
 
 def stored_moment_ratio(y, m, ry, rm) -> float:
-    """Moments of the stored value (the Pallas kernel's rule,
+    """Moments of the stored value (the Pallas kernels' rule,
     pallas_conv.py:763-768): the kernel's moments may differ from the
     reference's by no more than its stored outputs do, plus f32 summation
     order (MOMENT_SLACK). Returns the largest |d moment| / that bound; moments
@@ -126,131 +173,233 @@ def stored_moment_ratio(y, m, ry, rm) -> float:
     )
 
 
-def kernel_case(torch, g, n, h, w, c, cout, dtype, prologue, h_mode, w_mode):
-    """One kernel-vs-plain comparison; returns max |y - ref| and the
-    stored-value moment ratio."""
-    from biasgan_tpu_torch.kernels.conv3x3_fused import (
-        conv3x3_fused,
-        conv3x3_fused_plain,
-    )
+# ---------------------------------------------------------------------------
+# Kernel cases: the arguments of one call, its work and its library yardstick
+# ---------------------------------------------------------------------------
 
-    dev = "cuda"
-    x = torch.randn((n, h, w, c), generator=g, device=dev).to(dtype)
-    wt = torch.randn((cout, c, 3, 3), generator=g, device=dev) / (9 * c) ** 0.5
-    bias = 0.1 * torch.randn((cout,), generator=g, device=dev)
-    pro = None
-    if prologue:
-        pro = (
-            0.5 + torch.rand((n, c), generator=g, device=dev),
-            0.5 * torch.randn((n, c), generator=g, device=dev),
-        )
-    args = (x, wt.to(dtype), bias, pro, "relu", h_mode, w_mode, True)
-    y, m = conv3x3_fused(*args)
-    ry, rm = conv3x3_fused_plain(*args)
+
+def _randn(torch, g, shape, scale=1.0, shift=0.0):
+    return scale * torch.randn(shape, generator=g, device="cuda") + shift
+
+
+def _prologue(torch, g, n, c):
+    return (0.5 + torch.rand((n, c), generator=g, device="cuda"),
+            _randn(torch, g, (n, c), 0.5))
+
+
+def make_case(torch, g, name, shape, dtype, **opt):
+    """The wrapper's arguments for one call of kernel ``name`` on random
+    inputs; for the bound, the bytes it must move and the seconds its
+    operations take at the card's peak for their type; and one PyTorch call
+    computing the same function (the library yardstick, timed only)."""
+    import torch.nn.functional as F
+
+    es = torch.finfo(dtype).bits // 8
+    pro = opt.get("prologue", False)
+    if name in ("conv3x3_fused", "conv3x3s2_fused", "convt3x3s2_fused"):
+        n, h, w, c, cout = shape
+        x = _randn(torch, g, (n, h, w, c)).to(dtype)
+        wt = _randn(torch, g, (cout, c, 3, 3), (9 * c) ** -0.5).to(dtype)
+        bias = _randn(torch, g, (cout,), 0.1)
+        p = _prologue(torch, g, n, c) if pro else None
+        if name == "conv3x3_fused":
+            args = (x, wt, bias, p, "relu", opt.get("h_mode", "reflect"),
+                    opt.get("w_mode", "wrap"), True)
+            out_px = n * h * w
+            lib = lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias.to(dtype), padding=1)
+        elif name == "conv3x3s2_fused":
+            args = (x, wt, bias, p, "relu", opt.get("w_mode", "wrap"), True)
+            out_px = n * h * w // 4
+            lib = lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias.to(dtype), stride=2,
+                                   padding=1)
+        else:
+            wt = wt.transpose(0, 1).contiguous()  # IOHW
+            args = (x, wt, bias, p, "relu", opt.get("w_mode", "wrap"), True)
+            out_px = 4 * n * h * w
+            lib = lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, bias.to(dtype),
+                                             stride=2, padding=1, output_padding=1)
+        flops = 2 * (n * h * w if name != "conv3x3s2_fused" else out_px) * 9 * c * cout
+        nbytes = ((n * h * w * c + out_px * cout + 9 * c * cout) * es + 4 * cout
+                  + (8 * n * c if pro else 0) + 8 * n * cout)
+    elif name == "conv7x7":
+        n, hp, wp, c, cout = shape
+        xp = _randn(torch, g, (n, hp, wp, c)).to(dtype)
+        wt = _randn(torch, g, (cout, c, 7, 7), (49 * c) ** -0.5).to(dtype)
+        bias = _randn(torch, g, (cout,), 0.1)
+        args = (xp, wt, bias)
+        out_px = n * (hp - 6) * (wp - 6)
+        flops = 2 * out_px * 49 * c * cout
+        nbytes = (n * hp * wp * c + out_px * cout + 49 * c * cout) * es + 4 * cout
+        lib = lambda: F.conv2d(xp.permute(0, 3, 1, 2), wt, bias.to(dtype))
+    else:  # instance_norm_act
+        act, res = opt.get("act", "relu"), opt.get("residual", False)
+        x = _randn(torch, g, shape, 3.0, 1.0).to(dtype)
+        r = _randn(torch, g, shape).to(dtype) if res else None
+        args = (x, r, act)
+        numel = x.numel()
+        flops = (5 + res) * numel  # sum, square, subtract, scale, activation
+        nbytes = (3 if res else 2) * numel * es
+        act_fn = {"relu": F.relu, "lrelu": lambda t: F.leaky_relu(t, 0.2),
+                  "none": lambda t: t}[act]
+
+        def lib():
+            z = F.instance_norm(x.permute(0, 3, 1, 2))
+            return act_fn(z + r.permute(0, 3, 1, 2) if res else z)
+    peak = PEAK_FLOPS[str(dtype).replace("torch.", "")]
+    if name == "instance_norm_act":
+        peak = PEAK_FLOPS["float32"]  # reductions and elementwise: no tensor cores
+    return args, nbytes, flops / peak, lib
+
+
+def hold(torch, name, args, where: str):
+    """The kernel against its plain version on the same inputs; returns
+    max |dy| and, for kernels with moments, the stored-value moment ratio."""
+    fn, plain = kernel_fns(name)
+    got, ref = fn(*args), plain(*args)
     torch.cuda.synchronize()
-    name = str(dtype).replace("torch.", "")
-    tol = TOL[name]
+    (y, m), (ry, rm) = (got, ref) if isinstance(got, tuple) else ((got, None), (ref, None))
+    dtype = str(y.dtype).replace("torch.", "")
     yf, rf = y.float(), ry.float()
     err = float((yf - rf).abs().max())
-    bound = tol * (1 + rf.abs())
-    where = f"{name} {(n, h, w, c, cout)} prologue={prologue} h={h_mode} w={w_mode}"
-    check(bool(torch.isfinite(yf).all()), f"non-finite kernel output: {where}")
-    check(bool(((yf - rf).abs() <= bound).all()), f"y off by {err:.3g}: {where}")
-    merr = moment_error(m, rm, h * w)
-    check(merr <= MOMENT_TOL, f"moments off by {merr:.3g} (relative): {where}")
+    check(y.shape == ry.shape and y.dtype == ry.dtype, f"{name} {where}: shape or dtype")
+    check(bool(torch.isfinite(yf).all()), f"{name} {where}: non-finite kernel output")
+    check(bool(((yf - rf).abs() <= TOL[dtype] * (1 + rf.abs())).all()),
+          f"{name} {where}: y off by {err:.3g}")
+    if m is None:
+        return err, 0.0
+    merr = moment_error(m, rm, y.shape[1] * y.shape[2])
+    check(merr <= MOMENT_TOL, f"{name} {where}: moments off by {merr:.3g} (relative)")
     ratio = stored_moment_ratio(y, m, ry, rm)
-    check(ratio <= 1, f"moments {ratio:.3g}x further off than the stored y allows: {where}")
+    check(ratio <= 1, f"{name} {where}: moments {ratio:.3g}x further off than the "
+          "stored y allows")
     return err, ratio
 
 
+# the globe shapes each kernel takes on its served path: (shape, options,
+# calls per field)
+GLOBE_CALLS = {
+    "conv3x3_fused": [((1, 181, 360, 256, 256), dict(prologue=True), 18)],
+    "conv3x3s2_fused": [((1, 724, 1440, 64, 128), dict(prologue=True), 1),
+                        ((1, 362, 720, 128, 256), dict(prologue=True), 1)],
+    "convt3x3s2_fused": [((1, 181, 360, 256, 128), dict(prologue=False), 1),
+                         ((1, 362, 720, 128, 64), dict(prologue=True), 1)],
+    "conv7x7": [((1, 730, 1446, 3, 64), {}, 1), ((1, 730, 1446, 64, 3), {}, 1)],
+    "instance_norm_act": [((1, 724, 1440, 64), dict(act="relu"), 2),
+                          ((1, 362, 720, 128), dict(act="relu"), 2),
+                          ((1, 181, 360, 256), dict(act="relu"), 10),
+                          ((1, 181, 360, 256), dict(act="none", residual=True), 9)],
+}
+
+
+def sweep_cases(name):
+    """Small odd shapes over the modes each kernel takes."""
+    if name == "conv3x3_fused":
+        i = 0
+        for c, cout in ((3, 5), (32, 48), (256, 256)):
+            for h_mode in PAD_MODES:
+                for w_mode in PAD_MODES:
+                    yield (2, 13, 37, c, cout), dict(prologue=i % 2 == 1, h_mode=h_mode,
+                                                     w_mode=w_mode)
+                    i += 1
+    elif name in ("conv3x3s2_fused", "convt3x3s2_fused"):
+        h, w = (26, 38) if name == "conv3x3s2_fused" else (13, 19)
+        for c, cout in ((3, 5), (64, 128), (256, 64)):
+            for w_mode in ("wrap", "zero"):
+                for pro in (False, True):
+                    yield (2, h, w, c, cout), dict(prologue=pro, w_mode=w_mode)
+    elif name == "conv7x7":
+        for c, cout in ((1, 5), (3, 64), (8, 16), (64, 3), (9, 8), (24, 1)):
+            yield (2, 19, 41, c, cout), {}
+    else:
+        for c in (5, 64, 264):
+            for act in ("none", "relu", "lrelu"):
+                for res in (False, True):
+                    yield (2, 13, 37, c), dict(act=act, residual=res)
+
+
 def check_kernels(torch) -> dict:
+    """Every kernel against its plain version: the globe shapes in bf16 and
+    f32, then the sweep in both dtypes. Returns max |dy| at the globe
+    shapes in bf16, per kernel."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    globe = (1, 181, 360, GLOBE_C, GLOBE_C)
-    globe_err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        for prologue in (False, True):
-            err, ratio = kernel_case(torch, g, *globe, dtype, prologue, "reflect", "wrap")
-            print(f"conv3x3_fused globe {dtype} prologue={prologue}: max|dy| {err:.3g}, "
-                  f"moments at {ratio:.3g} of the stored-value bound")
-            if dtype == torch.bfloat16:
-                globe_err = max(globe_err, err)
-    n_cases, worst = 0, 0.0
-    for c, cout in ((3, 5), (32, 48), (256, 256)):
-        for h_mode in PAD_MODES:
-            for w_mode in PAD_MODES:
-                for dtype in (torch.bfloat16, torch.float32):
-                    prologue = (n_cases % 2) == 1
-                    _, ratio = kernel_case(torch, g, 2, 13, 37, c, cout, dtype,
-                                           prologue, h_mode, w_mode)
-                    worst = max(worst, ratio)
-                    n_cases += 1
-    print(f"conv3x3_fused pad-mode sweep: {n_cases} cases within tolerance; "
-          f"moments at most {worst:.3g} of the stored-value bound")
-    return {"max_abs_err": globe_err}
+    errs = {}
+    for name in KERNELS:
+        errs[name] = 0.0
+        for shape, opt, _ in GLOBE_CALLS[name]:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = make_case(torch, g, name, shape, dtype, **opt)[0]
+                where = f"globe {shape} {dtype} {opt}"
+                err, ratio = hold(torch, name, args, where)
+                print(f"{name} {where}: max|dy| {err:.3g}"
+                      + (f", moments at {ratio:.3g} of the stored-value bound" if ratio else ""))
+                if dtype == torch.bfloat16:
+                    errs[name] = max(errs[name], err)
+        n_cases, worst = 0, 0.0
+        for shape, opt in sweep_cases(name):
+            for dtype in (torch.bfloat16, torch.float32):
+                args = make_case(torch, g, name, shape, dtype, **opt)[0]
+                worst = max(worst, hold(torch, name, args, f"{shape} {dtype} {opt}")[1])
+                n_cases += 1
+        print(f"{name} sweep: {n_cases} cases within tolerance"
+              + (f"; moments at most {worst:.3g} of the stored-value bound" if worst else ""))
+    return errs
 
 
-def time_kernel(torch) -> dict:
-    """Kernel vs plain version at the globe block shape in bf16, with the
-    prologue and moments (conv1 of a block), and beside them the same op
-    with a bf16 cuDNN conv; in turns, CUDA events over 20 calls each after a
-    warm-up."""
-    from biasgan_tpu_torch.kernels.conv3x3_fused import (
-        conv3x3_fused,
-        conv3x3_fused_plain,
-    )
-    from biasgan_tpu_torch.ops.padding import pad_hw
-
+def time_kernels(torch) -> dict:
+    """At each globe shape in bf16: the kernel, its plain version and the
+    library call, in turns (plain, library, kernel, kernel, library,
+    plain), CUDA events over 20 calls each after 3 warm-up calls, best of
+    each; and the bound. Per kernel, the per-field sums (each shape's time
+    times its calls per field) and the per-shape numbers."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    n, h, w, c = 1, 181, 360, GLOBE_C
-    x = torch.randn((n, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
-    wt = (torch.randn((c, c, 3, 3), generator=g, device="cuda") / (9 * c) ** 0.5).to(
-        torch.bfloat16
-    )
-    bias = 0.1 * torch.randn((c,), generator=g, device="cuda")
-    pro = (
-        0.5 + torch.rand((n, c), generator=g, device="cuda"),
-        0.5 * torch.randn((n, c), generator=g, device="cuda"),
-    )
-    args = (x, wt, bias, pro, "relu", "reflect", "wrap", True)
 
     def timed(fn, iters=20):
         for _ in range(3):
-            fn(*args)
+            fn()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            fn(*args)
+            fn()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    def cudnn_bf16(x, wt, bias, pro, act, h_mode, w_mode, _):
-        """The same op on the plain generator path's terms: prologue, pad,
-        a bf16 cuDNN conv, bias, moments (not the checked reference: it
-        rounds differently, see conv3x3_fused_plain)."""
-        xf = torch.clamp(x.float() * pro[0][:, None, None, :] + pro[1][:, None, None, :], min=0)
-        xp = pad_hw(xf.to(x.dtype), (1, 1), (1, 1), h_mode, w_mode)
-        y = torch.nn.functional.conv2d(xp.permute(0, 3, 1, 2), wt).permute(0, 2, 3, 1)
-        y = (y + bias.to(y.dtype)).float()
-        return y, (y.sum((1, 2)), y.square().sum((1, 2)))
-
-    fns = {"plain": conv3x3_fused_plain, "kernel": conv3x3_fused, "cudnn_bf16": cudnn_bf16}
-    runs = {k: [] for k in fns}
-    for which in ("plain", "cudnn_bf16", "kernel", "kernel", "cudnn_bf16", "plain"):
-        runs[which].append(timed(fns[which]))
-    best = {k: min(v) for k, v in runs.items()}
-    flops = 2 * n * h * w * 9 * c * c
-    print(f"conv3x3_fused (1,{h},{w},{c}) bf16 + prologue + moments, ms per call "
-          "(CUDA events, 20 calls after 3 warm-up, in turns):")
-    for k, v in runs.items():
-        print(f"  {k}: {v} -> best {best[k]:.4f} ms ({flops / best[k] / 1e9:.1f} TFLOP/s)")
-    return {"ms": best["kernel"], "plain_ms": best["plain"]}
+    out = {}
+    for name in KERNELS:
+        fn, plain = kernel_fns(name)
+        calls = []
+        for shape, opt, per_field in GLOBE_CALLS[name]:
+            args, nbytes, op_s, lib = make_case(torch, g, name, shape, torch.bfloat16, **opt)
+            fns = {"plain": lambda: plain(*args), "library": lib, "kernel": lambda: fn(*args)}
+            runs = {k: [] for k in fns}
+            for which in ("plain", "library", "kernel", "kernel", "library", "plain"):
+                runs[which].append(timed(fns[which]))
+            best = {k: min(v) for k, v in runs.items()}
+            byte_ms, op_ms = nbytes / PEAK_BYTES * 1e3, op_s * 1e3
+            calls.append({
+                "shape": list(shape), "options": opt, "per_field": per_field,
+                "ms": best["kernel"], "plain_ms": best["plain"],
+                "library_ms": best["library"], "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                "bytes_ms": byte_ms, "operations_ms": op_ms,
+            })
+            print(f"{name} {shape} bf16 {opt}, ms per call (in turns): "
+                  + "; ".join(f"{k} {v}" for k, v in runs.items())
+                  + f"; bound {max(byte_ms, op_ms):.4f} ms ({calls[-1]['bound_by']})")
+        total = {k: sum(c[k] * c["per_field"] for c in calls)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                           "operations_ms")}
+        total["bound_by"] = "bytes" if total["bytes_ms"] >= total["operations_ms"] else "operations"
+        total["calls"] = calls
+        out[name] = total
+    return out
 
 
 def check_small_generator(torch) -> None:
-    """The generator's kernel path on the card against its plain path on
-    the CPU, f32, tiny shape."""
+    """The generator's kernel paths on the card against its plain path on
+    the CPU, f32, tiny shape (H divisible by 4, so the fused down path
+    engages)."""
     from biasgan_tpu_torch.nn import define_G
 
     g = torch.Generator().manual_seed(2)
@@ -258,14 +407,22 @@ def check_small_generator(torch) -> None:
         "resnet_2blocks", 3, 3, ngf=16, norm="instance", w_mode="wrap",
         out_activation="none", generator=g,
     ).eval()
-    x = torch.randn((1, 13, 40, 3), generator=g)
+    x = torch.randn((1, 16, 40, 3), generator=g)
     with torch.inference_mode():
         ref = G(x)
-        G.fused_blocks = True
-        got = G.to("cuda")(x.to("cuda")).cpu()
-    err = float((got - ref).abs().max())
-    print(f"resnet_2blocks (1,13,40,3) f32: card kernel path vs CPU plain max|dy| {err:.3g}")
-    check(err <= 2e-4 * (1 + float(ref.abs().max())), f"small generator off by {err:.3g}")
+        Gc = G.to("cuda")
+        for path, routes in (("fused", dict(fused_blocks=True)),
+                             ("fused_all", dict(fused_blocks=True, fused_updown=True,
+                                                conv7=True)),
+                             ("plain_norm", dict(fused_norm=True))):
+            for attr in ("fused_blocks", "fused_updown", "conv7", "fused_norm"):
+                setattr(Gc, attr, routes.get(attr, False))
+            got = Gc(x.to("cuda")).cpu()
+            err = float((got - ref).abs().max())
+            print(f"resnet_2blocks (1,16,40,3) f32 {path}: card kernel path vs CPU plain "
+                  f"max|dy| {err:.3g}")
+            check(err <= 2e-4 * (1 + float(ref.abs().max())),
+                  f"small generator, {path} path, off by {err:.3g}")
 
 
 def make_store(root: str) -> None:
@@ -294,46 +451,52 @@ def make_store(root: str) -> None:
                 var[:] = data[v]
 
 
-def serve(torch, work: str, fused: bool):
-    """One infer.main run over the store; returns (fields, per-field ms,
-    per-field Mpx/s, kernel launches)."""
+def serve(torch, work: str, path: str):
+    """One infer.main run over the store on ``path``; returns (fields,
+    per-field ms, per-field Mpx/s, kernel launches). Every kernel's count
+    is set to 0 just before the run and read just after it."""
     import numpy as np
 
     from biasgan_tpu_torch import infer
-    from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
 
-    tag = "fused" if fused else "plain"
+    fns = {name: kernel_fns(name)[0] for name in KERNELS}
     argv = [
         "--model", "pix2pix", "--dataset_mode", "climate",
         "--dataroot", os.path.join(work, "data"),
         "--checkpoints_dir", os.path.join(work, "ckpt"), "--name", "globe",
-        "--results_dir", os.path.join(work, "results_" + tag),
+        "--results_dir", os.path.join(work, "results_" + path),
         "--full_field", "--compute_dtype", "bfloat16",
         "--netG", "resnet_9blocks", "--ngf", "64", "--norm", "instance",
         "--no_dropout", "--w_pad_mode", "wrap", "--netG_activation", "none",
         "--input_nc", str(N_VARS), "--output_nc", str(N_VARS),
         "--num_test", str(N_TIMES), "--device", "cuda",
-    ] + (["--fused_blocks"] if fused else [])
+    ] + PATHS[path][0]
     out = io.StringIO()
-    conv3x3_fused.launches = 0
+    for fn in fns.values():
+        fn.launches = 0
     with contextlib.redirect_stdout(out):
         out_dir = infer.main(argv)
-    launches = conv3x3_fused.launches
+    launches = {name: fn.launches for name, fn in fns.items()}
     log = out.getvalue()
-    lines = [ln for ln in log.splitlines() if ln.startswith("[") or "fused_blocks" in ln]
-    print("\n".join(f"  {tag}: {ln}" for ln in lines))
+    lines = [ln for ln in log.splitlines() if ln.startswith(("[", "--"))]
+    print("\n".join(f"  {path}: {ln}" for ln in lines))
     stamps = re.findall(r"corrected in ([0-9.]+) ms \(([0-9.]+) Mpx/s\)", log)
-    check(len(stamps) == N_TIMES, f"{tag}: expected {N_TIMES} served fields, got {len(stamps)}")
+    check(len(stamps) == N_TIMES, f"{path}: expected {N_TIMES} served fields, got {len(stamps)}")
     fields = []
     for i in range(N_TIMES):
         y = np.load(os.path.join(out_dir, f"corrected_{i:05d}.npy"))
-        check(y.shape == (1, GLOBE_H, GLOBE_W, N_VARS), f"{tag}: field {i} shape {y.shape}")
-        check(bool(np.isfinite(y).all()), f"{tag}: field {i} has non-finite values")
+        check(y.shape == (1, GLOBE_H, GLOBE_W, N_VARS), f"{path}: field {i} shape {y.shape}")
+        check(bool(np.isfinite(y).all()), f"{path}: field {i} has non-finite values")
         fields.append(y)
+    want = {name: PATHS[path][1].get(name, 0) * N_TIMES for name in KERNELS}
+    check(launches == want, f"{path}: kernel launches {launches}, expected {want} "
+          f"({N_TIMES} fields)")
     return fields, [float(s[0]) for s in stamps], [float(s[1]) for s in stamps], launches
 
 
-def serve_globe(torch, work: str) -> int:
+def serve_globe(torch, work: str) -> dict:
+    """Serve every path; hold each kernel path to the plain one. Returns
+    each path's kernel launches."""
     import numpy as np
 
     from biasgan_tpu_torch.data import stats
@@ -350,40 +513,37 @@ def serve_globe(torch, work: str) -> int:
     checkpoint.save_network(G, os.path.join(work, "ckpt", "globe"), "latest", "G")
     print(f"store + checkpoint: {time.perf_counter() - t0:.1f} s")
 
-    fused, f_ms, f_mpx, launches = serve(torch, work, fused=True)
-    plain, p_ms, p_mpx, plain_launches = serve(torch, work, fused=False)
-    check(
-        launches == BLOCK_CONVS * N_TIMES,
-        f"fused run launched conv3x3_fused {launches} times, expected "
-        f"{BLOCK_CONVS} per field x {N_TIMES}",
-    )
-    check(plain_launches == 0, f"plain run launched the kernel {plain_launches} times")
-    # field 0 of both paths: bf16 rounds at different places on the two, so
-    # hold them to the repo's own bf16 globe rule (tests/integration/
-    # test_infer_globe.py:107: rtol 2e-2, atol 1 K at a std of ~10 K, i.e.
-    # |dy| <= 0.02 |y| + 0.1 std of the target variable), and the mean
-    # |dy| to 0.01 std
+    served = {path: serve(torch, work, path) for path in PATHS}
+    # field 0 of each kernel path against the plain path: bf16 rounds at
+    # different places on the two, so hold them to the repo's own bf16
+    # globe rule (tests/integration/test_infer_globe.py:107: rtol 2e-2,
+    # atol 1 K at a std of ~10 K, i.e. |dy| <= 0.02 |y| + 0.1 std of the
+    # target variable), and the mean |dy| to 0.01 std
     sd = stats.load_or_compute_stats(
         os.path.join(work, "data", "stats_B.json"), [], [f"var{v}" for v in range(N_VARS)]
     )
     std = np.array([sd[f"var{v}"]["std"] for v in range(N_VARS)], np.float32)
-    diff = np.abs(fused[0] - plain[0])
-    excess = diff - (0.02 * np.abs(plain[0]) + 0.1 * std)
-    print(
-        f"field 0, fused vs plain path: max |dy| {float((diff / std).max()):.4g} std, "
-        f"mean |dy| {float((diff / std).mean()):.4g} std, "
-        f"worst margin to the bf16 bound {float(excess.max()):.4g}"
-    )
-    check(float(excess.max()) <= 0 and float((diff / std).mean()) <= 0.01,
-          "fused and plain globe outputs disagree beyond bf16 tolerance")
-    name = torch.cuda.get_device_name(0)
-    for tag, ms, mpx in (("fused", f_ms, f_mpx), ("plain", p_ms, p_mpx)):
+    plain = served["plain"][0][0]
+    for path in PATHS:
+        if path == "plain":
+            continue
+        diff = np.abs(served[path][0][0] - plain)
+        excess = diff - (0.02 * np.abs(plain) + 0.1 * std)
         print(
-            f"globe {GLOBE_H}x{GLOBE_W}x{N_VARS} bf16 {tag}: ms/field {ms} "
+            f"field 0, {path} vs plain path: max |dy| {float((diff / std).max()):.4g} std, "
+            f"mean |dy| {float((diff / std).mean()):.4g} std, "
+            f"worst margin to the bf16 bound {float(excess.max()):.4g}"
+        )
+        check(float(excess.max()) <= 0 and float((diff / std).mean()) <= 0.01,
+              f"{path} and plain globe outputs disagree beyond bf16 tolerance")
+    name = torch.cuda.get_device_name(0)
+    for path, (_, ms, mpx, _) in served.items():
+        print(
+            f"globe {GLOBE_H}x{GLOBE_W}x{N_VARS} bf16 {path}: ms/field {ms} "
             f"(field 0 warms up; median of the rest {statistics.median(ms[1:]):.1f}), "
             f"Mpx/s {mpx} on {name}"
         )
-    return launches
+    return {path: s[3] for path, s in served.items()}
 
 
 def main() -> int:
@@ -403,8 +563,8 @@ def main() -> int:
     try:
         environment(torch)
         build_kernels()
-        kstats = check_kernels(torch)
-        kstats.update(time_kernel(torch))
+        errs = check_kernels(torch)
+        times = time_kernels(torch)
         check_small_generator(torch)
         launches = serve_globe(torch, work)
     except SmokeFailure as e:
@@ -412,16 +572,26 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(json.dumps({"kernels": [{
-        "name": "conv3x3_fused",
-        "route": "cuda",
-        "source": "biasgan_tpu_torch/kernels/csrc/conv3x3_fused.cu",
-        "replaces": "biasgan_tpu/ops/pallas_conv.py:771",
-        "launches": launches,
-        "max_abs_err": kstats["max_abs_err"],
-        "ms": kstats["ms"],
-        "plain_ms": kstats["plain_ms"],
-    }]}))
+    kernels = []
+    for name, (replaces, path) in KERNELS.items():
+        t = times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"biasgan_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches[path][name],
+            "max_abs_err": errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "path": path,
+            "per": "field: each globe call's best time times its calls per field",
+            "calls": t["calls"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
