@@ -1,10 +1,11 @@
 """Dataclass config with per-model/per-dataset flag injection.
 
 Counterpart of ``biasgan_tpu/config.py`` (the reference family's three-tier
-argparse options), cut to the fields the inference slice reads. Field names
-and defaults are the JAX package's, so the same command line drives both
-``infer.py`` and ``python -m biasgan_tpu_torch.infer``. Its two signature
-behaviors are kept:
+argparse options), cut to the fields the ported paths read: inference
+(``TestConfig``) and CycleGAN training (``TrainConfig``). Field names and
+defaults are the JAX package's, so the same command line drives
+``infer.py`` / ``train.py`` and ``python -m biasgan_tpu_torch.infer`` /
+``.train``. Its two signature behaviors are kept:
 
 * **dynamic flag injection** — after ``--model`` / ``--dataset_mode`` are
   known, the chosen plugins' extra config fields are added to the CLI;
@@ -13,12 +14,11 @@ behaviors are kept:
 
 The JAX kernel-routing knobs that select a kernel the port has are carried
 under their JAX names and types: ``--fused_blocks``, ``--fused_updown``,
-``--conv7_pallas`` and ``--force_pallas_norm`` route the resnet generator
-through the port's hand-written CUDA kernels. The others (``--pallas_conv``,
-``--s2d_*``, ``--cin_pad``, ``--fused_min_c`` and the rest) are not: they
-select XLA rewrites or TPU regime splits, or a kernel not ported yet.
-``--device`` is the port's own: the torch device the inference CLI runs on
-(it never falls back to another).
+``--conv7_pallas``, ``--pallas_conv`` and ``--force_pallas_norm`` route the
+networks through the port's hand-written CUDA kernels. The others
+(``--s2d_*``, ``--cin_pad``, ``--fused_min_c``, ``--convt_*``) are not: they
+select XLA rewrites or TPU regime splits. ``--device`` is the port's own:
+the torch device the CLIs run on (they never fall back to another).
 """
 
 from __future__ import annotations
@@ -44,7 +44,10 @@ class BaseConfig:
     # model selection (reference --model/--netG/...)
     model: str = "pix2pix"
     netG: str = "unet_256"
+    netD: str = "basic"
     ngf: int = 64
+    ndf: int = 64
+    n_layers_D: int = 3
     norm: str = "batch"
     init_type: str = "normal"
     init_gain: float = 0.02
@@ -58,6 +61,7 @@ class BaseConfig:
     crop_size: int = 256
     max_dataset_size: int = -1  # -1 = unlimited (reference: inf)
     preprocess: str = "resize_and_crop"
+    no_flip: bool = False
     serial_batches: bool = False
     # checkpoint selection
     epoch: str = "latest"
@@ -69,16 +73,26 @@ class BaseConfig:
     halo_rdma: bool = False
     # periodic-longitude padding for global fields ('' = architecture default)
     w_pad_mode: str = ""
+    # in-step augmentation (climate/synthetic data): random W flip, and the
+    # periodic longitude roll
+    in_graph_aug: bool = False
+    aug_lon_roll: bool = False
     # generator output activation: 'tanh' (images) | 'none' (standardized fields)
     netG_activation: str = "tanh"
     # route the resnet-block chain through the hand-written conv3x3_fused
     # kernel (kernels/conv3x3_fused.py): SAME pad in-kernel, instance-norm
-    # prologue, output moments. Needs instance norm, no dropout, eval mode.
+    # prologue, output moments; in training conv3x3_fused_t, the kernel with
+    # its exact backward. Needs instance norm and no dropout.
     fused_blocks: bool = False
-    # with --fused_blocks engaged: the two stride-2 down convs and the two
-    # up conv-transposes through the conv3x3s2_fused / convt3x3s2_fused
-    # kernels, each norm riding into the next conv as its prologue
+    # with --fused_blocks engaged, in inference: the two stride-2 down convs
+    # and the two up conv-transposes through the conv3x3s2_fused /
+    # convt3x3s2_fused kernels, each norm riding into the next conv as its
+    # prologue
     fused_updown: bool = False
+    # '' | '0' = off, '1' (or 'interpret', the JAX CPU-test value) = every
+    # 3x3 stride-1 pad-1 conv through the conv3x3_valid kernel, and in
+    # training its input gradient too (conv3x3_op)
+    pallas_conv: str = ""
     # '' | '0' = off, '1' (or 'interpret', the JAX CPU-test value) = the 7x7
     # stem and head through the conv7x7 kernel
     conv7_pallas: str = ""
@@ -101,6 +115,31 @@ class BaseConfig:
 
 
 @dataclass
+class TrainConfig(BaseConfig):
+    # schedule lengths (reference --n_epochs / --n_epochs_decay)
+    n_epochs: int = 100
+    n_epochs_decay: int = 100
+    epoch_count: int = 1
+    # optimization
+    lr: float = 2e-4
+    beta1: float = 0.5
+    # Adam first-moment dtype: only 'float32' is ported
+    adam_mu_dtype: str = "float32"
+    gan_mode: str = "lsgan"
+    pool_size: int = 50
+    lr_policy: str = "linear"  # linear | step | plateau | cosine
+    lr_decay_iters: int = 50
+    continue_train: bool = False
+    # logging / checkpoint cadence
+    print_freq: int = 100
+    save_latest_freq: int = 5000
+    save_epoch_freq: int = 5
+    save_by_iter: bool = False
+    # dataset-size dependent; set by train.py for the LR schedules
+    steps_per_epoch: int = 0
+
+
+@dataclass
 class TestConfig(BaseConfig):
     results_dir: str = "./results"
     num_test: int = 50
@@ -108,6 +147,17 @@ class TestConfig(BaseConfig):
     # test-time loader defaults (reference TestOptions hardcodes these)
     batch_size: int = 1
     serial_batches: bool = True
+
+
+ROUTE_VALUES = ("", "0", "1", "interpret")
+
+
+def route_on(flag: str, value: str) -> bool:
+    """A string kernel-route flag (--conv7_pallas, --pallas_conv): '' or '0'
+    is off; '1' (or the JAX CPU-test value 'interpret') is on."""
+    if value not in ROUTE_VALUES:
+        raise ValueError(f"{flag} {value!r}: expected one of {ROUTE_VALUES}")
+    return value not in ("", "0")
 
 
 # ---------------------------------------------------------------------------
@@ -139,17 +189,11 @@ def parse_config(argv: Optional[List[str]] = None, train: bool = False):
        their field defaults override the base defaults),
     3) final parse, build the merged config object.
 
-    Only the test-time options exist so far; the training options arrive
-    with the training slice of the port.
+    ``train`` selects ``TrainConfig``, else ``TestConfig``.
     """
-    if train:
-        raise NotImplementedError(
-            "training options are not ported yet (the pix2pix training "
-            "slice adds TrainConfig)"
-        )
     from biasgan_tpu_torch import registry
 
-    base_cls = TestConfig
+    base_cls = TrainConfig if train else TestConfig
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--model", type=str, default=base_cls().model)
     pre.add_argument("--dataset_mode", type=str, default=None)

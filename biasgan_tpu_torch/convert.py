@@ -14,9 +14,11 @@ The port holds them in the torch layout under torch module names:
 ``state_dict_to_params`` is the exact counterpart of
 ``biasgan_tpu/utils/torch_import.py::convert_state_dict``;
 ``params_to_state_dict`` is its inverse. Both only transpose, so a round
-trip is bit-exact. Names follow the ResNet generator's torch-oracle naming
-(``blocks.{i}.conv{j}`` <-> ``block{i}/conv{j}``, every other module the
-same on both sides); the U-Net and PatchGAN namings join with their slices.
+trip is bit-exact. Names follow the torch-oracle naming: the ResNet
+generator's ``blocks.{i}.conv{j}`` <-> ``block{i}/conv{j}``, the
+discriminators' ``convs.{n}`` / ``norms.{n}`` / ``out`` <-> ``conv{n}`` /
+``norm{n}`` / ``conv_out``, every other module the same on both sides; the
+U-Net naming joins with its slice.
 """
 
 from __future__ import annotations
@@ -28,13 +30,18 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-# tree path <-> torch module prefix
+# tree path <-> torch module prefix: the resnet blocks, the discriminators'
+# conv{n} / norm{n} / conv_out, every other module the same on both sides
 _TO_TORCH = (
     (r"^block(\d+)/(conv|norm)(\d+)$", r"blocks.\1.\2\3"),
+    (r"^(conv|norm)(\d+)$", r"\1s.\2"),
+    (r"^conv_out$", r"out"),
     (r"^([A-Za-z_0-9]+)$", r"\1"),
 )
 _TO_TREE = (
     (r"^blocks\.(\d+)\.(conv|norm)(\d+)$", r"block\1/\2\3"),
+    (r"^(conv|norm)s\.(\d+)$", r"\1\2"),
+    (r"^out$", r"conv_out"),
     (r"^([A-Za-z_0-9]+)$", r"\1"),
 )
 _BN = "BatchNorm_0"

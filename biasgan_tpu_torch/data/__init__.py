@@ -2,9 +2,9 @@
 
 Counterpart of ``biasgan_tpu/data/__init__.py`` (the reference's
 ``create_dataset(opt)`` -> iterable of dicts {'A','B','A_paths','B_paths'}),
-numpy-only: batches are NHWC float32 numpy arrays that infer.py moves to
-its device. The dataset registered so far is 'climate'; the synthetic and
-image datasets and the train/val split arrive with the training slices.
+numpy-only: batches are NHWC float32 numpy arrays that the CLIs move to
+their device. The datasets registered so far are 'climate' and 'synthetic';
+the image datasets and the train/val split arrive with later slices.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Dict, Iterator, List
 
 import numpy as np
 
-from biasgan_tpu_torch.data import climate  # noqa: F401 (registers 'climate')
+from biasgan_tpu_torch.data import climate, synthetic  # noqa: F401 (registers both)
 
 
 class DataLoader:
@@ -21,7 +21,7 @@ class DataLoader:
     CustomDatasetDataLoader semantics: shuffle unless --serial_batches,
     cap at --max_dataset_size). Samples are read in the consumer's thread:
     the reference's test options pin its worker count to 0, and the
-    threaded reader (--num_threads) arrives with the training slices."""
+    threaded reader of training (--num_threads) is not ported yet."""
 
     def __init__(self, dataset, cfg):
         self.dataset = dataset

@@ -167,8 +167,9 @@ class ClimateDataset:
 
     @staticmethod
     def config_defaults(train: bool):
-        # climate fields: unbounded standardized outputs
-        return {"netG_activation": "none"}
+        # climate fields: in-step flip augmentation, unbounded standardized
+        # outputs
+        return {"in_graph_aug": True, "netG_activation": "none"}
 
     def __init__(self, cfg):
         self.cfg = cfg

@@ -1,13 +1,19 @@
-"""Per-sample RNG and per-variable standardization.
+"""Per-sample RNG, per-variable standardization and the in-step
+augmentation.
 
-Counterpart of ``sample_rng`` and ``standardize`` in
-``biasgan_tpu/data/transforms.py``. The image preprocessing and the random
-augmentation there arrive with the training slices.
+Counterpart of ``sample_rng``, ``standardize`` and ``in_graph_augment`` in
+``biasgan_tpu/data/transforms.py``. The augmentation runs on the training
+device inside the step, with an explicit ``torch.Generator`` (the JAX key's
+streams cannot be matched, so the parity tests turn it off). The image
+preprocessing there arrives with the image datasets.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import numpy as np
+import torch
 
 
 def sample_rng(seed: int, epoch: int, index: int) -> np.random.Generator:
@@ -25,3 +31,32 @@ def standardize(x, mean, std, inverse: bool = False):
     if inverse:
         return x * std + mean
     return (x - mean) / std
+
+
+def in_step_augment(
+    batch: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator],
+    flip: bool = True,
+    lon_roll: bool = False,
+    keys: Tuple[str, ...] = ("A", "B"),
+) -> Dict[str, torch.Tensor]:
+    """Random W-flip and periodic-longitude roll per sample, the same draw
+    for A and B (the reference shares get_params across a pair). Draws come
+    from ``generator`` on the CPU (a flip coin, then a roll shift, per
+    sample)."""
+    present = [k for k in keys if k in batch]
+    if not present or not (flip or lon_roll):
+        return batch
+    n, w = batch[present[0]].shape[0], batch[present[0]].shape[2]
+    out = dict(batch)
+    if flip:
+        do = torch.rand(n, generator=generator) < 0.5
+        for k in present:
+            x = out[k]
+            mask = do.to(x.device)[:, None, None, None]
+            out[k] = torch.where(mask, x.flip(2), x)
+    if lon_roll:
+        shifts = torch.randint(0, w, (n,), generator=generator).tolist()
+        for k in present:
+            out[k] = torch.stack([torch.roll(img, s, dims=1) for img, s in zip(out[k], shifts)])
+    return out

@@ -20,8 +20,9 @@ The kernel routes are the JAX CLI's flags: --fused_blocks runs the resnet
 blocks through the hand-written conv3x3_fused kernel, and with it
 --fused_updown the down and up convs through conv3x3s2_fused and
 convt3x3s2_fused; --conv7_pallas 1 runs the 7x7 stem and head through
-conv7x7; --force_pallas_norm runs the remaining instance norms through
-instance_norm_act. A flag that cannot engage says why; none is silently
+conv7x7; --pallas_conv 1 runs the block convs through conv3x3_valid where
+--fused_blocks does not take them; --force_pallas_norm runs the remaining
+instance norms through instance_norm_act. A flag that cannot engage says why; none is silently
 ignored. Spatial sharding over several devices (--spatial_mesh > 1,
 --halo_rdma) is not ported yet.
 """
@@ -35,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from biasgan_tpu_torch.config import format_config, parse_config, save_config
+from biasgan_tpu_torch.config import format_config, parse_config, route_on, save_config
 from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.data.transforms import standardize
 from biasgan_tpu_torch.nn import compute_dtype_of, define_G
@@ -94,15 +95,10 @@ def field_runner(G: torch.nn.Module, h_multiple: int, w_multiple: int):
     return run
 
 
-CONV7_VALUES = ("", "0", "1", "interpret")
-
-
 def conv7_on(value: str) -> bool:
     """--conv7_pallas: '' or '0' is off; '1' (or the JAX CPU-test value
     'interpret') is on."""
-    if value not in CONV7_VALUES:
-        raise ValueError(f"--conv7_pallas {value!r}: expected one of {CONV7_VALUES}")
-    return value not in ("", "0")
+    return route_on("--conv7_pallas", value)
 
 
 def build_generator(cfg, device: torch.device) -> torch.nn.Module:
@@ -123,6 +119,7 @@ def build_generator(cfg, device: torch.device) -> torch.nn.Module:
         fused_updown=cfg.fused_updown,
         conv7=conv7_on(cfg.conv7_pallas),
         fused_norm=cfg.force_pallas_norm,
+        pallas_conv=route_on("--pallas_conv", cfg.pallas_conv),
     )
     name = get_model(cfg.model).generator_name(cfg)
     path = checkpoint.load_network(
@@ -139,7 +136,7 @@ def routing_notices(cfg, G: torch.nn.Module) -> list:
     blocker = None
     if cfg.fused_blocks or cfg.fused_updown:
         if cfg.netG.startswith("resnet"):
-            blocker = fused_blocks_blocker(cfg.norm, cfg.dropout(), G.training)
+            blocker = fused_blocks_blocker(cfg.norm, cfg.dropout())
         else:
             blocker = f"netG {cfg.netG!r} has no resnet block chain"
     if cfg.fused_blocks and blocker is not None:
@@ -147,6 +144,7 @@ def routing_notices(cfg, G: torch.nn.Module) -> list:
     if cfg.fused_updown and (blocker is not None or not cfg.fused_blocks):
         why = blocker or "it needs --fused_blocks"
         notes.append(f"--fused_updown: ignored — {why}; using cuDNN convs + norms")
+    notes += pallas_conv_notices(cfg, blocker)
     if conv7_on(cfg.conv7_pallas):
         for conv in ("stem", "head"):
             mod = getattr(G, conv)
@@ -168,6 +166,19 @@ def routing_notices(cfg, G: torch.nn.Module) -> list:
                 "--fused_updown every norm rides in a conv kernel"
             )
     return notes
+
+
+def pallas_conv_notices(cfg, blocker) -> list:
+    """The --pallas_conv line, where it cannot engage: only the resnet's
+    block convs are 3x3 stride-1 pad-1, and the fused block path takes them
+    first when it engages (``blocker`` is its reason not to, or None)."""
+    if not route_on("--pallas_conv", cfg.pallas_conv):
+        return []
+    if not cfg.netG.startswith("resnet"):
+        return [f"--pallas_conv: ignored — netG {cfg.netG!r} has no 3x3 stride-1 convs"]
+    if cfg.fused_blocks and blocker is None:
+        return ["--pallas_conv: ignored — --fused_blocks takes the block convs"]
+    return []
 
 
 def main(argv=None):

@@ -5,6 +5,11 @@ point on the current stream.
 
 A wrapper takes its plain version for a CPU tensor and launches its kernel
 for a CUDA tensor; it raises on any other device and never falls back.
+
+A launch writes into a ``torch.empty`` output that autograd knows nothing
+of. So where autograd records (``wants_grad``), a wrapper goes through its
+``torch.autograd.Function`` or, for a kernel with no backward, raises on the
+card (``refuse_grad``): it never returns a result with no ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,22 @@ def check_device(name: str, x: torch.Tensor, others: Sequence[Optional[torch.Ten
         if t is not None and t.device != x.device:
             raise ValueError(f"{name}: tensor on {t.device}, x on {x.device}")
     return x.device.type == "cpu"
+
+
+def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records a call on these tensors: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
+
+
+def refuse_grad(name: str, why: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where a kernel with no backward would return a result that
+    autograd cannot follow."""
+    if wants_grad(*tensors):
+        raise RuntimeError(f"{name} kernel has no backward ({why}); call it under "
+                           "torch.no_grad() or torch.inference_mode()")
 
 
 def check_kernel_input(name: str, x: torch.Tensor, out_numel: int) -> int:

@@ -13,6 +13,13 @@ sums, ``conv3x3_fused_plain``) for a tensor on the CPU, and launches the
 kernel for a CUDA tensor; there is no fallback from one to the other.
 ``conv3x3_fused.launches`` counts the kernel launches.
 
+``conv3x3_fused_t`` is its differentiable form, the counterpart of
+``pallas_conv.py::conv3x3_fused_t`` (:1091, custom VJP ``_fused_diff``
+:950): a ``torch.autograd.Function`` whose forward is the same call (the
+kernel on the card) and whose backward is ``_fused_diff_bwd`` (:972-1085)
+line by line, in torch ops as the JAX backward is in XLA ops. Where
+autograd records, ``conv3x3_fused`` goes through it.
+
 Differences from the Pallas wrapper: the input is at its logical height
 (no ``h_run`` tail: the kernel masks ragged tiles itself), there is no plan
 argument (the tiling is the kernel's own), and the weight is OIHW. The
@@ -31,6 +38,7 @@ from biasgan_tpu_torch.kernels.common import (
     PAD_CODE,
     INT,
     PTR,
+    act_f32,
     affine_act,
     check_device,
     check_kernel_input,
@@ -38,8 +46,10 @@ from biasgan_tpu_torch.kernels.common import (
     num_tiles,
     ptr,
     stored_moments,
+    wants_grad,
 )
 from biasgan_tpu_torch.ops.padding import pad_hw
+
 
 def instance_moments_to_affine(
     msum: torch.Tensor, msq: torch.Tensor, count: int, eps: float = 1e-5
@@ -168,12 +178,113 @@ def conv3x3_fused(
     ``want_moments`` also ``(sum, sumsq)`` (N, Cout) f32 of the stored y.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts it in ``conv3x3_fused.launches``) or raises."""
+    (and counts it in ``conv3x3_fused.launches``) or raises. Where autograd
+    records, the call goes through ``conv3x3_fused_t``."""
     _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
     args = (x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments)
+    if wants_grad(x, weight, bias, *(prologue or ())):
+        return conv3x3_fused_t(*args)
     if check_device("conv3x3_fused", x, [weight, bias, *(prologue or ())]):
         return conv3x3_fused_plain(*args)
     return _launch(*args)
 
 
 conv3x3_fused.launches = 0
+
+
+def _unpad1(d: torch.Tensor, axis: int, mode: str) -> torch.Tensor:
+    """Adjoint of a pad of 1 on each side of ``axis`` (``pad_axis``): the
+    interior, with each pad slot's cotangent added onto the element it
+    copied (reflect: 1 and n-2; wrap: n-1 and 0; zero: dropped)."""
+    n = d.shape[axis] - 2
+    core = d.narrow(axis, 1, n).clone()
+    if mode != "zero":
+        lo, hi = (1, n - 2) if mode == "reflect" else (n - 1, 0)
+        core.narrow(axis, lo, 1).add_(d.narrow(axis, 0, 1))
+        core.narrow(axis, hi, 1).add_(d.narrow(axis, n + 1, 1))
+    return core
+
+
+class _FusedT(torch.autograd.Function):
+    """conv3x3_fused with the exact VJP of pallas_conv.py:_fused_diff."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, a, b, act_pre, h_mode, w_mode, want_moments):
+        prologue = None if a is None else (a, b)
+        args = (x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments)
+        if check_device("conv3x3_fused_t", x, [weight, bias, a, b]):
+            out = conv3x3_fused_plain(*args)
+        else:
+            out = _launch(*args)
+            conv3x3_fused_t.launches += 1
+        y = out[0] if want_moments else out
+        ctx.save_for_backward(x, weight, bias, a, b, y)
+        ctx.cfg = (act_pre, h_mode, w_mode, want_moments)
+        return (y, *out[1]) if want_moments else y
+
+    @staticmethod
+    def backward(ctx, dy, ds=None, dq=None):
+        act_pre, h_mode, w_mode, want_moments = ctx.cfg
+        x, weight, bias, a, b, y = ctx.saved_tensors
+        cdt = x.dtype
+        dYf = dy.float()
+        if want_moments:
+            # pullback of the moments, f32, of the STORED output
+            dYf = dYf + (ds[:, None, None, :] + 2.0 * dq[:, None, None, :] * y.float())
+        # recompute the prologue'd input as the kernel does: f32 affine +
+        # act, one cast to the compute dtype before the taps
+        if a is not None:
+            af = a[:, None, None, :].float()
+            pre = x.float() * af + b[:, None, None, :].float()
+            u = act_f32(pre, act_pre).to(cdt)
+        else:
+            u = x
+        # dU and dW of pad + VALID conv in the compute dtype (the JAX
+        # backward's preferred_element_type=cdt), then the pad's adjoint
+        up = pad_hw(u, (1, 1), (1, 1), h_mode, w_mode)
+        w = weight.to(cdt)
+        dUp, dW, _ = torch.ops.aten.convolution_backward(
+            dYf.to(cdt).permute(0, 3, 1, 2), up.permute(0, 3, 1, 2), w,
+            None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False],
+        )
+        dU = _unpad1(_unpad1(dUp.permute(0, 2, 3, 1), 2, w_mode), 1, h_mode)
+        dbias = None if bias is None else dYf.sum(dim=(0, 1, 2)).to(bias.dtype)
+        da = db = None
+        if a is not None:
+            dUf = dU.float()
+            if act_pre == "relu":
+                dpre = dUf * (pre > 0)
+            elif act_pre == "lrelu":
+                dpre = dUf * torch.where(pre > 0, 1.0, 0.2)
+            else:
+                dpre = dUf
+            dx = (dpre * af).to(x.dtype)
+            da = (dpre * x.float()).sum(dim=(1, 2)).to(a.dtype)
+            db = dpre.sum(dim=(1, 2)).to(b.dtype)
+        else:
+            dx = dU.to(x.dtype)
+        return dx, dW.to(weight.dtype), dbias, da, db, None, None, None, None
+
+
+def conv3x3_fused_t(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    act_pre: str = "relu",
+    h_mode: str = "reflect",
+    w_mode: str = "wrap",
+    want_moments: bool = True,
+):
+    """Differentiable ``conv3x3_fused``: the same arguments and forward (the
+    kernel on the card, counted in ``conv3x3_fused.launches`` and
+    ``conv3x3_fused_t.launches``; the plain version on the CPU), and the
+    exact backward of pad + conv + bias + moments, with the prologue chain
+    to x, a and b. The ``--fused_blocks`` training route."""
+    _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
+    a, b = prologue if prologue is not None else (None, None)
+    out = _FusedT.apply(x, weight, bias, a, b, act_pre, h_mode, w_mode, want_moments)
+    return (out[0], (out[1], out[2])) if want_moments else out
+
+
+conv3x3_fused_t.launches = 0

@@ -40,6 +40,7 @@ from biasgan_tpu_torch.kernels.common import (
     launch,
     num_tiles,
     ptr,
+    refuse_grad,
     stored_moments,
 )
 from biasgan_tpu_torch.ops.padding import pad_hw
@@ -140,11 +141,15 @@ def conv3x3s2_fused(
     the stored y.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts it in ``conv3x3s2_fused.launches``) or raises."""
+    (and counts it in ``conv3x3s2_fused.launches``) or raises; it also raises
+    where autograd would record, since the kernel has no backward (the JAX
+    kernel has none either: its route is inference-only)."""
     _check_args(x, weight, bias, prologue, act_pre, w_mode)
     args = (x, weight, bias, prologue, act_pre, w_mode, want_moments)
     if check_device("conv3x3s2_fused", x, [weight, bias, *(prologue or ())]):
         return conv3x3s2_fused_plain(*args)
+    refuse_grad("conv3x3s2_fused", "--fused_updown is inference-only, as in JAX",
+                x, weight, bias, *(prologue or ()))
     return _launch(*args)
 
 

@@ -12,6 +12,11 @@ ctypes.
 ``conv7x7`` takes its plain PyTorch version (``conv7x7_plain``) for a tensor
 on the CPU and launches the kernel for a CUDA tensor; there is no fallback
 from one to the other. ``conv7x7.launches`` counts the kernel launches.
+Where autograd records, the call goes through a ``torch.autograd.Function``
+with the VJP of ``conv7x7_op`` (pallas_conv7.py:337-375): the input grad is
+the full conv of the cotangent with the flipped, transposed kernel, the
+weight grad the batch-as-contraction conv (both ordinary conv grads, here
+``aten.convolution_backward`` as XLA's convs there), dbias an f32 sum.
 Both accumulate in f32 and add the f32 bias before the one cast to the
 input's dtype (the plain generator path adds it after a bf16 conv, so the
 two round differently).
@@ -31,6 +36,7 @@ from biasgan_tpu_torch.kernels.common import (
     check_kernel_input,
     launch,
     ptr,
+    wants_grad,
 )
 
 
@@ -102,11 +108,44 @@ def conv7x7(
     Cin <= 8 or Cout <= 8. Returns (N, H, W, Cout) in xp's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts it in ``conv7x7.launches``) or raises."""
+    (and counts it in ``conv7x7.launches``) or raises. Where autograd
+    records, the call is differentiable (``_Conv7x7Op``)."""
     _check_args(xp, weight, bias)
+    if wants_grad(xp, weight, bias):
+        return _Conv7x7Op.apply(xp, weight, bias)
+    return _conv7x7(xp, weight, bias)
+
+
+def _conv7x7(xp, weight, bias):
     if check_device("conv7x7", xp, [weight, bias]):
         return conv7x7_plain(xp, weight, bias)
     return _launch(xp, weight, bias)
 
 
 conv7x7.launches = 0
+
+
+class _Conv7x7Op(torch.autograd.Function):
+    """The kernel's forward with the VJP of pallas_conv7.py::_c7_bwd."""
+
+    @staticmethod
+    def forward(ctx, xp, weight, bias):
+        ctx.save_for_backward(xp, weight, bias)
+        return _conv7x7(xp, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, weight, bias = ctx.saved_tensors
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False]
+        dxp, dw, _ = torch.ops.aten.convolution_backward(
+            g.permute(0, 3, 1, 2), xp.permute(0, 3, 1, 2), weight.to(xp.dtype), None,
+            [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask,
+        )
+        if dxp is not None:
+            dxp = dxp.permute(0, 2, 3, 1).to(xp.dtype)
+        if dw is not None:
+            dw = dw.to(weight.dtype)
+        db = None
+        if bias is not None and ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=(0, 1, 2)).to(bias.dtype)
+        return dxp, dw, db

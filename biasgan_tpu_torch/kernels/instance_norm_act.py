@@ -10,7 +10,11 @@ up), compiled with nvcc on first use and bound with ctypes.
 the CPU and launches the kernel for a CUDA tensor; there is no fallback
 from one to the other. ``instance_norm_act.launches`` counts the kernel
 launches. Unlike the JAX op, it runs at every shape: the VMEM size guard
-and the non-TPU fallback of the Pallas op are TPU limits.
+and the non-TPU fallback of the Pallas op are TPU limits. Where autograd
+records, the call goes through a ``torch.autograd.Function`` with the JAX
+op's VJP (``_fwd`` :175, ``_bwd`` :188): x-hat and 1/std recomputed in f32,
+the activation's derivative read from the output, the instance-norm
+pullback, and the residual's gradient passed through.
 
 This is not ``nn.layers.norm_act`` with an instance norm: that one casts
 the normalized value to the input's dtype before a residual add in that
@@ -34,6 +38,7 @@ from biasgan_tpu_torch.kernels.common import (
     launch,
     num_tiles,
     ptr,
+    wants_grad,
 )
 
 
@@ -103,11 +108,55 @@ def instance_norm_act(
     x's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts it in ``instance_norm_act.launches``) or raises."""
+    (and counts it in ``instance_norm_act.launches``) or raises. Where
+    autograd records, the call is differentiable (``_InstanceNormAct``)."""
     _check_args(x, residual, activation)
+    if wants_grad(x, residual):
+        return _InstanceNormAct.apply(x, residual, activation, eps)
+    return _instance_norm_act(x, residual, activation, eps)
+
+
+def _instance_norm_act(x, residual, activation, eps):
     if check_device("instance_norm_act", x, [residual]):
         return instance_norm_act_plain(x, residual, activation, eps)
     return _launch(x, residual, activation, eps)
 
 
 instance_norm_act.launches = 0
+
+
+def _act_grad_from_out(out: torch.Tensor, activation: str) -> torch.Tensor:
+    """relu / lrelu are monotone with act(z) > 0 <=> z > 0, so the
+    derivative is read from the output (pallas_fused.py:60-69)."""
+    if activation == "relu":
+        return (out > 0).float()
+    if activation == "lrelu":
+        return torch.where(out > 0, 1.0, 0.2)
+    return torch.ones_like(out)
+
+
+class _InstanceNormAct(torch.autograd.Function):
+    """The kernel's forward with the VJP of pallas_fused.py::_bwd."""
+
+    @staticmethod
+    def forward(ctx, x, residual, activation, eps):
+        out = _instance_norm_act(x, residual, activation, eps)
+        ctx.save_for_backward(x, out)
+        ctx.cfg = (activation, eps, residual is not None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        activation, eps, has_res = ctx.cfg
+        x, out = ctx.saved_tensors
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        var = xf.square().mean(dim=(1, 2), keepdim=True) - mean.square()
+        inv = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+        xhat = (xf - mean) * inv
+        dz = g.float() * _act_grad_from_out(out.float(), activation)
+        m_dz = dz.mean(dim=(1, 2), keepdim=True)
+        m_dzx = (dz * xhat).mean(dim=(1, 2), keepdim=True)
+        dx = inv * (dz - m_dz - xhat * m_dzx)
+        d_res = dz.to(x.dtype) if has_res else None
+        return dx.to(x.dtype), d_res, None, None

@@ -1,10 +1,11 @@
-"""Model registry entries for the inference slice.
+"""Model registry entries.
 
 Counterpart of the registrations in ``biasgan_tpu/models/`` (pix2pix,
-cycle_gan, test). The port does not train yet, so an entry here carries only
-what inference reads: the model's reference default flags and which
-generator checkpoint ``<epoch>_net_<name>.pth`` to load. The training
-options and steps arrive with the training slices of the port.
+cycle_gan, test). An entry carries the model's reference default flags,
+which generator checkpoint ``<epoch>_net_<name>.pth`` inference loads, and,
+for a model the port trains (cycle_gan), its training state and step
+(``create_state``, ``make_train_step``, ``loss_names``). Pix2pix training
+arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict
 
+from biasgan_tpu_torch.models import cyclegan
 from biasgan_tpu_torch.registry import register_model
 
 
@@ -25,24 +27,34 @@ class Pix2PixModel:
     @staticmethod
     def config_defaults(train: bool) -> Dict[str, Any]:
         # reference Pix2PixModel.modify_commandline_options
-        return {"norm": "batch", "netG": "unet_256", "dataset_mode": "aligned"}
+        d = {"norm": "batch", "netG": "unet_256", "dataset_mode": "aligned"}
+        if train:
+            d.update({"pool_size": 0, "gan_mode": "vanilla"})
+        return d
 
     @staticmethod
     def generator_name(cfg) -> str:
         return "G"
 
 
-@register_model("cycle_gan")
+@register_model("cycle_gan", cyclegan.CycleGANConfig)
 class CycleGANModel:
+    loss_names = cyclegan.LOSS_NAMES
+    create_state = staticmethod(cyclegan.create_state)
+    make_train_step = staticmethod(cyclegan.make_train_step)
+
     @staticmethod
     def config_defaults(train: bool) -> Dict[str, Any]:
         # reference CycleGANModel.modify_commandline_options
-        return {
+        d = {
             "norm": "instance",
             "netG": "resnet_9blocks",
             "no_dropout": True,
             "dataset_mode": "unaligned",
         }
+        if train:
+            d.update({"gan_mode": "lsgan", "pool_size": 50})
+        return d
 
     @staticmethod
     def generator_name(cfg) -> str:
@@ -54,6 +66,8 @@ class CycleGANModel:
 class TestModel:
     @staticmethod
     def config_defaults(train: bool) -> Dict[str, Any]:
+        if train:
+            raise ValueError("TestModel is test-time only (reference semantics)")
         return {"dataset_mode": "single"}
 
     @staticmethod

@@ -1,7 +1,8 @@
-"""Network zoo of the port: layers and the ResNet generator (counterpart
-of ``biasgan_tpu/nn``)."""
+"""Network zoo of the port: layers, the ResNet generator and the
+discriminators (counterpart of ``biasgan_tpu/nn``)."""
 
-from biasgan_tpu_torch.nn.factory import compute_dtype_of, define_G
+from biasgan_tpu_torch.nn.discriminators import NLayerDiscriminator, PixelDiscriminator
+from biasgan_tpu_torch.nn.factory import compute_dtype_of, define_D, define_G
 from biasgan_tpu_torch.nn.generators import ResNetBlock, ResNetGenerator
 from biasgan_tpu_torch.nn.layers import (
     Conv2d,
@@ -13,9 +14,12 @@ from biasgan_tpu_torch.nn.layers import (
 __all__ = [
     "Conv2d",
     "ConvTranspose2d",
+    "NLayerDiscriminator",
+    "PixelDiscriminator",
     "ResNetBlock",
     "ResNetGenerator",
     "compute_dtype_of",
+    "define_D",
     "define_G",
     "instance_norm",
     "pad_hw",

@@ -1,8 +1,8 @@
-"""Network factory — counterpart of ``define_G`` in
+"""Network factory — counterpart of ``define_G`` and ``define_D`` in
 ``biasgan_tpu/nn/factory.py`` (the reference's models/networks.py).
 
-Torch modules need their input width at construction, so ``define_G`` takes
-``input_nc`` where the JAX factory infers it at init. Weights are drawn at
+Torch modules need their input width at construction, so ``define_G`` and
+``define_D`` take ``input_nc`` where the JAX factory infers it at init. Weights are drawn at
 construction from ``generator`` (a ``torch.Generator``; None = torch's
 global one).
 """
@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from biasgan_tpu_torch.nn.discriminators import NLayerDiscriminator, PixelDiscriminator
 from biasgan_tpu_torch.nn.generators import ResNetGenerator
 
 _UNET_NAMES = ("unet_256", "unet_128", "unet_64", "unet_32")
@@ -45,12 +46,13 @@ def define_G(
     fused_updown: bool = False,
     conv7: bool = False,
     fused_norm: bool = False,
+    pallas_conv: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
     """Build a generator module by name: resnet_9blocks | resnet_6blocks |
     resnet_<K>blocks. ``w_mode`` overrides width-axis padding ('wrap' =
-    periodic longitude). ``fused_blocks``, ``fused_updown``, ``conv7`` and
-    ``fused_norm`` route the resnet's layers through the hand-written
+    periodic longitude). ``fused_blocks``, ``fused_updown``, ``conv7``,
+    ``fused_norm`` and ``pallas_conv`` route the resnet's layers through the hand-written
     kernels (``ResNetGenerator``). The U-Net names are not ported yet."""
     m = re.fullmatch(r"resnet_(\d+)blocks", netG)
     if m:
@@ -70,6 +72,7 @@ def define_G(
             fused_updown=fused_updown,
             conv7=conv7,
             fused_norm=fused_norm,
+            pallas_conv=pallas_conv,
             generator=generator,
         )
     if netG in _UNET_NAMES or re.fullmatch(r"unet_d(\d+)", netG):
@@ -78,3 +81,32 @@ def define_G(
             "(the U-Net arrives with the pix2pix training slice)"
         )
     raise ValueError(f"unknown generator name {netG!r}")
+
+
+def define_D(
+    netD: str,
+    input_nc: int,
+    ndf: int = 64,
+    n_layers_D: int = 3,
+    norm: str = "batch",
+    init_type: str = "normal",
+    init_gain: float = 0.02,
+    w_mode: str = "zero",
+    compute_dtype: Optional[torch.dtype] = None,
+    fused_norm: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> nn.Module:
+    """Build a discriminator by name: basic (3-layer PatchGAN) | n_layers |
+    pixel — the reference's --netD values. ``fused_norm`` routes its
+    instance norms through the ``instance_norm_act`` kernel."""
+    common = dict(
+        ndf=ndf, norm_type=norm, init_type=init_type, init_gain=init_gain,
+        compute_dtype=compute_dtype, fused_norm=fused_norm, generator=generator,
+    )
+    if netD == "basic":
+        return NLayerDiscriminator(input_nc, n_layers=3, w_mode=w_mode, **common)
+    if netD == "n_layers":
+        return NLayerDiscriminator(input_nc, n_layers=n_layers_D, w_mode=w_mode, **common)
+    if netD == "pixel":
+        return PixelDiscriminator(input_nc, **common)
+    raise ValueError(f"unknown discriminator name {netD!r}")

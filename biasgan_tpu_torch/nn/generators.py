@@ -14,11 +14,16 @@ The fused block path runs the 18 block convs through the hand-written
 norm0 + ReLU as conv1's prologue, the instance-norm moments emitted by the
 kernel, so the normalized activation and the pad copies never round-trip
 device memory. Only the closing norm1 affine + residual add is a separate
-elementwise pass.
+elementwise pass. In training the same convs run ``conv3x3_fused_t``, the
+kernel with its exact backward (the JAX ``fused_diff`` path).
 
-Three more routes follow the JAX generator's opt-in kernel paths:
+Four more routes follow the JAX generator's opt-in kernel paths:
 
-* ``fused_updown`` (with the fused block path engaged) runs the two
+* ``pallas_conv`` (where the fused block path is off) runs the 18 block
+  convs through ``conv3x3_valid`` on the padded input, and in training
+  their input gradients too (``conv3x3_op``);
+* ``fused_updown`` (with the fused block path engaged, inference only, as
+  the JAX gate ``generators.py:342``) runs the two
   downsampling convs through ``conv3x3s2_fused`` and the two upsampling
   conv-transposes through ``convt3x3s2_fused``: the stem's instance norm +
   ReLU becomes down0's prologue (from the f32 moments of the stem output),
@@ -51,19 +56,15 @@ from biasgan_tpu_torch.nn.layers import (
 )
 
 
-def fused_blocks_blocker(
-    norm_type: str, use_dropout: bool, training: bool
-) -> Optional[str]:
+def fused_blocks_blocker(norm_type: str, use_dropout: bool) -> Optional[str]:
     """Why the fused block path cannot engage, or None when it can:
-    instance norm, no dropout, eval mode (the JAX gate,
-    generators.py:309-316; training needs the backward kernel, which is not
-    ported yet)."""
+    instance norm and no dropout (the JAX gate, generators.py:309-316). It
+    engages in training as in eval: training runs the differentiable
+    ``conv3x3_fused_t``."""
     if norm_type != "instance":
         return f"norm {norm_type!r} is not instance norm"
     if use_dropout:
         return "dropout is on (pass --no_dropout)"
-    if training:
-        return "the generator is in training mode"
     return None
 
 
@@ -100,7 +101,11 @@ class ResNetBlock(nn.Module):
         self.norm1 = make_norm(norm_type, dim, compute_dtype, generator)
 
     def forward(
-        self, x: torch.Tensor, fused: bool = False, fused_norm: bool = False
+        self,
+        x: torch.Tensor,
+        fused: bool = False,
+        fused_norm: bool = False,
+        pallas_conv: bool = False,
     ) -> torch.Tensor:
         if fused:
             # generators.py:253-264: conv0 -> moments -> affine -> conv1's
@@ -111,10 +116,12 @@ class ResNetBlock(nn.Module):
             y1, m1 = self.conv1.forward_fused(y0, prologue=(a0, b0))
             a1, b1 = instance_moments_to_affine(*m1, count)
             return apply_affine(y1, a1, b1) + x
-        h = norm_act(self.conv0(x), self.norm0, activation="relu", fused=fused_norm)
+        h = self.conv0(x, pallas_conv=pallas_conv)
+        h = norm_act(h, self.norm0, activation="relu", fused=fused_norm)
         if self.dropout is not None:
             h = self.dropout(h)
-        return norm_act(self.conv1(h), self.norm1, residual=x, fused=fused_norm)
+        h = self.conv1(h, pallas_conv=pallas_conv)
+        return norm_act(h, self.norm1, residual=x, fused=fused_norm)
 
 
 class ResNetGenerator(nn.Module):
@@ -123,12 +130,13 @@ class ResNetGenerator(nn.Module):
     resnet_9blocks <=> n_blocks=9. Input and output are NHWC.
 
     ``fused_blocks`` routes the residual blocks through the conv3x3_fused
-    kernel whenever ``fused_blocks_blocker`` allows it (checked per
-    forward, since it depends on train/eval mode). ``fused_updown`` adds
-    the fused down and up convs where the block path is engaged (the down
-    path also needs the input's H and W divisible by 4); ``conv7`` and
+    kernel whenever ``fused_blocks_blocker`` allows it, in training and in
+    eval. ``pallas_conv`` routes the block convs through the VALID 3x3
+    kernel where the fused path is off. ``fused_updown`` adds the fused
+    down and up convs where the block path is engaged in eval mode (the
+    down path also needs the input's H and W divisible by 4); ``conv7`` and
     ``fused_norm`` route the 7x7 convs and the remaining norms (module
-    docstring). All four are plain attributes, read per forward."""
+    docstring). All five are plain attributes, read per forward."""
 
     def __init__(
         self,
@@ -147,6 +155,7 @@ class ResNetGenerator(nn.Module):
         fused_updown: bool = False,
         conv7: bool = False,
         fused_norm: bool = False,
+        pallas_conv: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -157,6 +166,7 @@ class ResNetGenerator(nn.Module):
         self.fused_updown = fused_updown
         self.conv7 = conv7
         self.fused_norm = fused_norm
+        self.pallas_conv = pallas_conv
         use_bias = norm_uses_bias(norm_type)
         common = dict(
             init_type=init_type, init_gain=init_gain,
@@ -207,14 +217,15 @@ class ResNetGenerator(nn.Module):
 
     def fused_engaged(self) -> bool:
         return self.fused_blocks and fused_blocks_blocker(
-            self.norm_type, self.use_dropout, self.training
+            self.norm_type, self.use_dropout
         ) is None
 
     def updown_engaged(self, x: torch.Tensor) -> tuple:
         """(down, up): whether the fused down and up paths run for stem
         input ``x`` (the JAX gate ``_fused_updown_plans``,
-        generators.py:333-383, less its TPU tiling conditions)."""
-        up = self.fused_updown and self.fused_engaged()
+        generators.py:333-383, less its TPU tiling conditions): never in
+        training mode, as there (their kernels have no backward)."""
+        up = self.fused_updown and self.fused_engaged() and not self.training
         return up and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0, up
 
     def _norm_act(self, h, norm, **kw):
@@ -237,7 +248,10 @@ class ResNetGenerator(nn.Module):
             h = self._norm_act(self.down1(h), self.down_norm1, activation="relu")
         fused = self.fused_engaged()
         for block in self.blocks:
-            h = block(h, fused=fused, fused_norm=self.fused_norm)
+            h = block(
+                h, fused=fused, fused_norm=self.fused_norm,
+                pallas_conv=self.pallas_conv,
+            )
         if fused_up:
             # up0's norm + ReLU rides into up1
             prologue = None

@@ -22,9 +22,11 @@ tiny-cin VJP, the phase-decomposed and one-buffer conv-transposes) are not
 carried: they reorganize the same arithmetic for the TPU's matrix unit.
 The JAX layers' opt-in kernel routes are, as arguments where the JAX
 package reads its perf gates: ``conv7`` in ``conv2d`` (the 7x7 kernel),
-``fused`` in ``norm_act`` (the fused instance-norm kernel), and the fused
-stride-2 down and up convs as ``Conv2d.forward_fused_s2`` and
-``ConvTranspose2d.forward_fused``.
+``pallas_conv`` in ``conv2d`` (the VALID 3x3 kernel and its VJP), ``fused``
+in ``norm_act`` (the fused instance-norm kernel), the fused block conv as
+``Conv2d.forward_fused`` (differentiable where autograd records), and the
+fused stride-2 down and up convs as ``Conv2d.forward_fused_s2`` and
+``ConvTranspose2d.forward_fused`` (inference only, as in JAX).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
+from biasgan_tpu_torch.kernels.conv3x3_valid import conv3x3_valid
 from biasgan_tpu_torch.kernels.conv3x3s2_fused import conv3x3s2_fused
 from biasgan_tpu_torch.kernels.conv7x7 import conv7x7
 from biasgan_tpu_torch.kernels.convt3x3s2_fused import convt3x3s2_fused
@@ -130,9 +133,17 @@ def conv2d(
     w_mode: str = "zero",
     compute_dtype: Optional[torch.dtype] = None,
     conv7: bool = False,
+    pallas_conv: bool = False,
 ) -> torch.Tensor:
     """torch ``Conv2d(k, stride, padding)`` on NHWC ``x`` with per-axis pad
     modes. ``weight`` is OIHW.
+
+    ``pallas_conv`` routes a 3x3 stride-1 pad-1 conv through the
+    ``conv3x3_valid`` kernel on the padded input (through ``conv3x3_op``,
+    whose input gradient runs the same kernel, where autograd records), the
+    bias added after, in the conv's dtype (the JAX ``--pallas_conv`` route,
+    biasgan_tpu/nn/layers.py:389-407; its ``cin, cout >= 128`` and ``W % 8``
+    conditions are TPU regime splits and are not carried).
 
     ``conv7`` routes a 7x7 stride-1 pad-3 conv with exactly one channel
     side of at most 8 (the resnet stem and head) through the ``conv7x7``
@@ -151,9 +162,12 @@ def conv2d(
         )
     x = pad_hw(x, (ph, ph), (pw, pw), h_mode, w_mode)
     x, weight = _in_compute_dtype(x, weight, compute_dtype)
-    if conv7 and conv7_eligible(weight.shape, stride, padding):
+    if pallas_conv and (kh, kw) == (3, 3) and tuple(stride) == (1, 1) and (ph, pw) == (1, 1):
+        y = conv3x3_valid(x, weight)
+    elif conv7 and conv7_eligible(weight.shape, stride, padding):
         return conv7x7(x, weight, bias)
-    y = _nhwc(F.conv2d(_nchw(x), weight, None, stride))
+    else:
+        y = _nhwc(F.conv2d(_nchw(x), weight, None, stride))
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
@@ -369,7 +383,9 @@ class Conv2d(nn.Module):
         self.weight = nn.Parameter(hwio.permute(3, 2, 0, 1).contiguous())
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
-    def forward(self, x: torch.Tensor, conv7: bool = False) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, conv7: bool = False, pallas_conv: bool = False
+    ) -> torch.Tensor:
         return conv2d(
             x,
             self.weight,
@@ -380,8 +396,8 @@ class Conv2d(nn.Module):
             self.w_mode,
             self.compute_dtype,
             conv7,
+            pallas_conv,
         )
-
 
     def forward_fused(
         self,
@@ -391,7 +407,9 @@ class Conv2d(nn.Module):
         """This 3x3 s1 p1 conv through ``kernels.conv3x3_fused``: SAME pad
         in the kernel, optional instance-norm + ReLU prologue ``(a, b)`` on
         the input, and the (sum, sumsq) moments of the output. Returns
-        ``(y, (sum, sumsq))``."""
+        ``(y, (sum, sumsq))``. Where autograd records (training), the call
+        takes ``conv3x3_fused_t``, the same kernel with its exact backward
+        (the JAX ``fused_diff`` branch, biasgan_tpu/nn/layers.py:866-879)."""
         if tuple(self.weight.shape[2:]) != (3, 3) or self.stride != (1, 1) or (
             self.padding != (1, 1)
         ):

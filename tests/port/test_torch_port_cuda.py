@@ -164,3 +164,105 @@ def test_instance_norm_act_kernel_matches_plain(dtype, c):
         y = instance_norm_act(x, r, act)
         assert instance_norm_act.launches == before + 1
         _check_y(y, instance_norm_act_plain(x, r, act), dtype)
+
+
+# ---------------------------------------------------------------------------
+# The VALID 3x3 kernel (K6), the differentiable wrappers, and the rule that
+# no wrapper returns a result without a grad_fn where autograd records
+# ---------------------------------------------------------------------------
+
+from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_t  # noqa: E402
+from biasgan_tpu_torch.kernels.conv3x3_valid import (  # noqa: E402
+    conv3x3_op,
+    conv3x3_valid,
+    conv3x3_valid_plain,
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout", [(3, 5), (32, 48), (256, 256)])
+def test_conv3x3_valid_kernel_matches_plain(dtype, c, cout):
+    """Ragged tiles (output 13 x 37), with and without bias and residual,
+    each activation."""
+    _needs_card()
+    for i, (bias, res, act) in enumerate(((False, False, "none"), (True, False, "relu"),
+                                          (True, True, "lrelu"), (False, True, "none"))):
+        x, k, b, _, _ = _inputs(2, 15, 39, c, cout, dtype, seed=20 + i)
+        r = torch.randn((2, 13, 37, cout), device="cuda").to(dtype) if res else None
+        args = (x, k, b if bias else None, r, act)
+        before = conv3x3_valid.launches
+        with torch.no_grad():
+            y = conv3x3_valid(*args)
+        assert conv3x3_valid.launches == before + 1
+        _check_y(y, conv3x3_valid_plain(*args), dtype)
+
+
+def _grad_check(fn, plain, inputs, dtype):
+    """The Function's grads of a random cotangent against autograd through
+    the plain version, on the card (the JAX tests' bounds)."""
+    def run(f):
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = f(*ins)
+        outs = list(out) if isinstance(out, tuple) else [out]
+        outs = [o for t in outs for o in (t if isinstance(t, tuple) else (t,))]
+        assert all(o.grad_fn is not None for o in outs)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        loss = sum((o.float() * torch.randn(o.shape, generator=g, device="cuda")).sum()
+                   for o in outs)
+        loss.backward()
+        return [t.grad.float() for t in ins]
+
+    for got, ref in zip(run(fn), run(plain)):
+        scale = max(1.0, float(ref.abs().max()))
+        if dtype == torch.float32:
+            assert bool(((got - ref).abs() <= 2e-4 * scale + 2e-5 * ref.abs()).all())
+        else:
+            assert bool(((got - ref).abs() <= 0.05 * scale + 0.1 * ref.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_functions_match_autograd_through_plain(dtype):
+    _needs_card()
+    x, k, b, a, pb = _inputs(2, 13, 37, 32, 48, dtype, seed=30)
+    _grad_check(lambda x, k, b, a, pb: conv3x3_fused_t(x, k, b, (a, pb)),
+                lambda x, k, b, a, pb: conv3x3_fused_plain(x, k, b, (a, pb)),
+                [x, k, b, a, pb], dtype)
+    before = (conv3x3_valid.launches, conv3x3_valid.bwd_launches)
+    xp, k2, b2, _, _ = _inputs(2, 15, 39, 32, 48, dtype, seed=31)
+    _grad_check(conv3x3_op, conv3x3_valid_plain, [xp, k2, b2], dtype)
+    assert (conv3x3_valid.launches, conv3x3_valid.bwd_launches) == (before[0] + 1,
+                                                                    before[1] + 1)
+    rng = np.random.default_rng(32)
+    xp7 = torch.from_numpy(rng.normal(size=(2, 19, 41, 3)).astype(np.float32)).to(dtype).cuda()
+    k7 = torch.from_numpy((rng.normal(size=(16, 3, 7, 7)) * 0.1).astype(np.float32)).to(dtype).cuda()
+    _grad_check(conv7x7, conv7x7_plain, [xp7, k7, torch.zeros(16, device="cuda")], dtype)
+    xi = torch.randn((2, 13, 37, 64), device="cuda").to(dtype)
+    r = torch.randn((2, 13, 37, 64), device="cuda").to(dtype)
+    for act in ("relu", "lrelu", "none"):
+        _grad_check(lambda x, r: instance_norm_act(x, r, act),
+                    lambda x, r: instance_norm_act_plain(x, r, act), [xi, r], dtype)
+
+
+@pytest.mark.cuda
+def test_wrappers_never_return_detached_results_on_the_card():
+    """Every wrapper on a CUDA input that requires grad: a grad_fn, or (the
+    inference-only K4 / K5) an error."""
+    _needs_card()
+    x, k, b, a, pb = _inputs(1, 8, 16, 8, 8, torch.float32, 0)
+    k.requires_grad_(True)
+    y, (s, q) = conv3x3_fused(x, k, b, (a, pb))
+    assert y.grad_fn is not None and s.grad_fn is not None
+    assert conv3x3_valid(x, k).grad_fn is not None
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv3x3_valid(x, k, activation="relu")
+    xp7 = torch.randn((1, 14, 14, 3), device="cuda", requires_grad=True)
+    assert conv7x7(xp7, torch.randn((8, 3, 7, 7), device="cuda")).grad_fn is not None
+    assert instance_norm_act(x.clone().requires_grad_(True)).grad_fn is not None
+    with pytest.raises(RuntimeError, match="inference-only"):
+        conv3x3s2_fused(x, k)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        convt3x3s2_fused(x, k.transpose(0, 1))
+    with torch.no_grad():
+        conv3x3s2_fused(x, k)

@@ -59,13 +59,17 @@ def test_generator_matches_jax(norm, w_mode, fused, monkeypatch):
 
 
 def test_fused_gate_follows_jax_eligibility():
-    assert fused_blocks_blocker("instance", False, False) is None
-    assert "instance" in fused_blocks_blocker("batch", False, False)
-    assert "dropout" in fused_blocks_blocker("instance", True, False)
-    assert "training" in fused_blocks_blocker("instance", False, True)
-    _, _, G, _ = _pair("instance", "wrap", True)
+    """Instance norm and no dropout open the fused block path, in training
+    too (the differentiable conv3x3_fused_t); the fused down/up path stays
+    inference-only, as the JAX gate (generators.py:342)."""
+    assert fused_blocks_blocker("instance", False) is None
+    assert "instance" in fused_blocks_blocker("batch", False)
+    assert "dropout" in fused_blocks_blocker("instance", True)
+    _, _, G, x = _pair("instance", "wrap", True, h=16, fused_updown=True)
     assert G.fused_engaged()
-    assert not G.train().fused_engaged()
+    assert G.updown_engaged(torch.from_numpy(x)) == (True, True)
+    assert G.train().fused_engaged()
+    assert G.updown_engaged(torch.from_numpy(x)) == (False, False)
 
 
 def test_unported_generators_refuse():

@@ -134,11 +134,24 @@ def test_config_flags_match_jax_parser(model, extra, g_name):
     assert mine.variables == "t2m"
     for k in ("netG", "norm", "no_dropout", "netG_activation", "ngf", "direction",
               "batch_size", "serial_batches", "epoch", "w_pad_mode", "fused_blocks",
-              "fused_updown", "conv7_pallas", "force_pallas_norm"):
+              "fused_updown", "conv7_pallas", "force_pallas_norm", "pallas_conv"):
         assert getattr(mine, k) == getattr(ref, k), k
     assert get_model(model).generator_name(mine) == g_name
-    with pytest.raises(NotImplementedError):
-        parse_config(argv, train=True)
+    # the training options: the model's train defaults (cycle_gan: lsgan,
+    # pool 50; pix2pix: vanilla, no pool; test: refused) and the TrainConfig
+    # fields the port reads
+    if model == "test":
+        for parse in (parse_config, jax_parse_config):
+            with pytest.raises(ValueError, match="test-time only"):
+                parse(argv, train=True)
+        return
+    mine, ref = parse_config(argv, train=True), jax_parse_config(argv, train=True)
+    assert mine.phase == "train"
+    for k in ("pool_size", "gan_mode", "lr", "beta1", "n_epochs", "n_epochs_decay",
+              "epoch_count", "lr_policy", "lr_decay_iters", "print_freq", "save_epoch_freq",
+              "save_latest_freq", "in_graph_aug", "aug_lon_roll", "no_flip", "netD", "ndf",
+              "n_layers_D", "adam_mu_dtype", "continue_train"):
+        assert getattr(mine, k) == getattr(ref, k), k
 
 
 @pytest.mark.parametrize("route", ["fused_all", "plain_norm"])
