@@ -1,20 +1,37 @@
 """Full-field inference CLI: apply a trained generator to whole global
-grids (e.g. 721x1440 multi-channel) on one device.
+grids (e.g. 721x1440 multi-channel), on one device or spatially sharded
+over W (longitude) with halo exchange.
 
   python -m biasgan_tpu_torch.infer --model cycle_gan --dataset_mode climate \\
       --full_field --netG resnet_9blocks --norm instance --no_dropout \\
       --w_pad_mode wrap --netG_activation none --compute_dtype bfloat16 \\
-      --fused_blocks --dataroot DATA --name RUN --device cuda
+      --fused_blocks --dataroot DATA --name RUN --device cuda \\
+      [--spatial_mesh 4 --halo_rdma]
 
-Counterpart of the repo-root ``infer.py``, with the same flags, for one
-device: read the fields, standardize with the source-domain stats,
-reflect-pad H to the 2^downs multiple and wrap-pad W to the multiple
-``infer.py`` uses (x8 more under --fused_blocks; the padded columns enter
+Counterpart of the repo-root ``infer.py``, with the same flags: read the
+fields, standardize with the source-domain stats, reflect-pad H to the
+2^downs multiple and wrap-pad W to the multiple ``infer.py`` uses
+(n_shards * 2^downs, x8 more under --fused_blocks; the padded columns enter
 the instance-norm statistics, so the multiple changes the output), run G,
 crop, destandardize with the target-domain stats, and write
 ``<results_dir>/<name>/fields/corrected_%05d.npy``. G loads from
 ``<checkpoints_dir>/<name>/<epoch>_net_<G>.pth``; --direction picks G_A or
 G_B of a CycleGAN run.
+
+--spatial_mesh N spawns N ranks, one process per W shard
+(``parallel.mesh``): every rank reads and standardizes the field and serves
+its shard, each conv exchanging its W halo with the ring neighbours and
+each instance norm taking W-global statistics (``parallel.spatial``), so the
+result is the whole-field forward's. Rank 0 gathers, crops, destandardizes,
+times each field host to host and saves it. With a CUDA device rank r runs
+on cuda:(r % device_count), over NCCL when every rank has a card of its
+own, else over gloo with host copies (a notice line says which).
+--halo_rdma exchanges the halos with the hand-written halo_exchange_w
+kernel in place of the plain point-to-point ring; --spatial_mesh 1
+--halo_rdma is a one-rank self-ring, as in the JAX CLI (with --fused_blocks
+that serves on one device, as there). --fused_blocks composes with
+sharding (the block conv kernel's halo W mode); the other kernel flags
+cannot engage on a sharded W and say so.
 
 The kernel routes are the JAX CLI's flags: --fused_blocks runs the resnet
 blocks through the hand-written conv3x3_fused kernel, and with it
@@ -22,27 +39,31 @@ blocks through the hand-written conv3x3_fused kernel, and with it
 convt3x3s2_fused; --conv7_pallas 1 runs the 7x7 stem and head through
 conv7x7; --pallas_conv 1 runs the block convs through conv3x3_valid where
 --fused_blocks does not take them; --force_pallas_norm runs the remaining
-instance norms through instance_norm_act. A flag that cannot engage says why; none is silently
-ignored. Spatial sharding over several devices (--spatial_mesh > 1,
---halo_rdma) is not ported yet.
+instance norms through instance_norm_act. A flag that cannot engage says
+why; none is silently ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
+import json
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from biasgan_tpu_torch.config import format_config, parse_config, route_on, save_config
 from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.data.transforms import standardize
+from biasgan_tpu_torch.kernels import launch_counts
 from biasgan_tpu_torch.nn import compute_dtype_of, define_G
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
-from biasgan_tpu_torch.ops.padding import pad_hw
+from biasgan_tpu_torch.parallel import HaloCtx, pad_to_multiple, placement, spatial_apply, spawn
 from biasgan_tpu_torch.registry import get_model
 from biasgan_tpu_torch.utils import checkpoint
 
@@ -55,42 +76,39 @@ def generator_downs(netG: str) -> int:
     raise ValueError(netG)
 
 
-def _pad_up(size: int, multiple: int) -> int:
-    return -(-size // multiple) * multiple - size
-
-
-def pad_multiples(netG: str, fused_blocks: bool) -> tuple:
+def pad_multiples(netG: str, fused_blocks: bool, n_shards: int = 1) -> tuple:
     """(H, W) multiples the field is padded to before G: the 2^downs
-    multiple, and for W x8 more when --fused_blocks is asked for a resnet
-    (the JAX infer.py widens the wrap pad so whenever the fused path is
-    requested, infer.py:112; the padded columns enter the instance-norm
-    statistics, so the port widens the same way)."""
+    multiple, for W times the shards, and x8 more when --fused_blocks is
+    asked for a resnet (the JAX infer.py widens the wrap pad so whenever
+    the fused path is requested, infer.py:64, 112; the padded columns enter
+    the instance-norm statistics, so the port widens the same way)."""
     h_multiple = 2 ** generator_downs(netG)
     w_multiple = h_multiple * (8 if fused_blocks and netG.startswith("resnet") else 1)
-    return h_multiple, w_multiple
+    return h_multiple, w_multiple * n_shards
 
 
 def pad_field(x: torch.Tensor, h_multiple: int, w_multiple: int) -> torch.Tensor:
     """Pad NHWC ``x`` at the end of H and W up to the multiples: latitude is
     not periodic, so H reflects; longitude wraps."""
-    return pad_hw(
-        x, (0, _pad_up(x.shape[1], h_multiple)), (0, _pad_up(x.shape[2], w_multiple)),
-        "reflect", "wrap",
-    )
+    x, _ = pad_to_multiple(x, h_multiple, axis=1, mode="reflect")
+    return pad_to_multiple(x, w_multiple, axis=2, mode="wrap")[0]
 
 
-def field_runner(G: torch.nn.Module, h_multiple: int, w_multiple: int):
+def field_runner(G, h_multiple: int, w_multiple: int):
     """The per-field computation ``main`` times: standardize with the
     source stats, pad to the multiples, G, crop, destandardize with the
     target stats. Returns ``run(x, a_mean, a_std, b_mean, b_std)`` on NHWC
-    ``x``."""
+    ``x``. ``G`` may be a sharded forward (``spatial_apply``), which gives
+    the field on rank 0 and None on the other ranks; ``run`` then does the
+    same."""
 
     @torch.inference_mode()
     def run(x, a_mean, a_std, b_mean, b_std):
         h0, w0 = x.shape[1], x.shape[2]
-        x = pad_field(standardize(x, a_mean, a_std), h_multiple, w_multiple)
-        y = G(x)[:, :h0, :w0, :]
-        return standardize(y, b_mean, b_std, inverse=True)
+        y = G(pad_field(standardize(x, a_mean, a_std), h_multiple, w_multiple))
+        if y is None:
+            return None
+        return standardize(y[:, :h0, :w0, :], b_mean, b_std, inverse=True)
 
     return run
 
@@ -129,9 +147,18 @@ def build_generator(cfg, device: torch.device) -> torch.nn.Module:
     return G.to(device).eval()
 
 
-def routing_notices(cfg, G: torch.nn.Module) -> list:
-    """One line for each kernel flag of ``cfg`` that cannot engage on G,
-    saying why: the flags must never be silently ignored."""
+def is_sharded(cfg) -> bool:
+    """Whether the run serves W shards (``serve_sharded``): --spatial_mesh
+    > 1, or --halo_rdma as a one-rank self-ring unless --fused_blocks takes
+    the one-device path (JAX infer.py:97)."""
+    fused_ok = cfg.fused_blocks and cfg.netG.startswith("resnet")
+    return cfg.spatial_mesh > 1 or (cfg.halo_rdma and not fused_ok)
+
+
+def routing_notices(cfg, G: torch.nn.Module, sharded: bool = False) -> list:
+    """One line for each kernel flag of ``cfg`` that cannot engage on G
+    (on a sharded W with ``sharded``; G is then not read), saying why: the
+    flags must never be silently ignored."""
     notes = []
     blocker = None
     if cfg.fused_blocks or cfg.fused_updown:
@@ -141,6 +168,11 @@ def routing_notices(cfg, G: torch.nn.Module) -> list:
             blocker = f"netG {cfg.netG!r} has no resnet block chain"
     if cfg.fused_blocks and blocker is not None:
         notes.append(f"--fused_blocks: ignored — {blocker}; using the plain path")
+    if sharded:
+        return notes + spatial_notices(cfg)
+    if cfg.halo_rdma:
+        notes.append("--halo_rdma: ignored — with --spatial_mesh 1 and --fused_blocks "
+                     "the field is served on one device, with no exchange (as the JAX CLI)")
     if cfg.fused_updown and (blocker is not None or not cfg.fused_blocks):
         why = blocker or "it needs --fused_blocks"
         notes.append(f"--fused_updown: ignored — {why}; using cuDNN convs + norms")
@@ -168,6 +200,28 @@ def routing_notices(cfg, G: torch.nn.Module) -> list:
     return notes
 
 
+def spatial_notices(cfg) -> list:
+    """The lines for the kernel flags that cannot engage on a sharded W
+    (the JAX gates turn them off under a spatial context), and for
+    --halo_rdma on the CPU, where the exchange is the kernel's plain
+    version."""
+    why = "it cannot engage on a sharded W (--spatial_mesh > 1 or --halo_rdma)"
+    notes = []
+    if cfg.fused_updown:
+        notes.append(f"--fused_updown: ignored — {why}; using cuDNN convs + norms")
+    if conv7_on(cfg.conv7_pallas):
+        notes.append(f"--conv7_pallas: ignored — {why}; the stem and head stay on cuDNN")
+    if route_on("--pallas_conv", cfg.pallas_conv):
+        notes.append(f"--pallas_conv: ignored — {why}")
+    if cfg.force_pallas_norm:
+        notes.append(f"--force_pallas_norm: ignored — {why}; the norms take W-global "
+                     "statistics")
+    if cfg.halo_rdma and torch.device(cfg.device).type == "cpu":
+        notes.append("--halo_rdma: on the CPU the exchange is the halo_exchange_w kernel's "
+                     "plain version, the point-to-point ring")
+    return notes
+
+
 def pallas_conv_notices(cfg, blocker) -> list:
     """The --pallas_conv line, where it cannot engage: only the resnet's
     block convs are 3x3 stride-1 pad-1, and the fused block path takes them
@@ -181,24 +235,12 @@ def pallas_conv_notices(cfg, blocker) -> list:
     return []
 
 
-def main(argv=None):
-    cfg = parse_config(argv, train=False)
-    if cfg.spatial_mesh > 1 or cfg.halo_rdma:
-        raise NotImplementedError(
-            "--spatial_mesh > 1 / --halo_rdma: spatially sharded inference is "
-            "not ported yet (it arrives with the port's parallel/ slice); "
-            "run with --spatial_mesh 1"
-        )
-    print(format_config(cfg))
-    save_config(cfg)
-    device = torch.device(cfg.device)
-    dataset = create_dataset(cfg)
-    G = build_generator(cfg, device)
-
-    run = field_runner(G, *pad_multiples(cfg.netG, cfg.fused_blocks))
-    for note in routing_notices(cfg, G):
-        print(note)
-
+def serve_fields(cfg, dataset, device, run, say=print, before=lambda: None) -> str:
+    """Every field of ``dataset`` through ``run`` (``field_runner``), timed
+    host to host (``before`` runs just ahead of each clock start). Where
+    ``run`` returns the field (one device, or rank 0 of a sharded run), its
+    timing line goes to ``say`` and the field to
+    ``<results_dir>/<name>/fields/``. Returns that directory."""
     # source/target field + stats pairing follows --direction
     src, tgt = ("B", "A") if cfg.direction == "BtoA" else ("A", "B")
 
@@ -221,18 +263,76 @@ def main(argv=None):
         x = torch.as_tensor(data[sk], device=device)
         nc = x.shape[-1]
         sync()
+        before()
         t0 = time.perf_counter()
         y = run(x, *stats(data, sk, nc), *stats(data, tk, nc))
         sync()
+        if y is None:
+            continue
         y = y.cpu().numpy()  # the field reaches the host inside the timing
         dt = time.perf_counter() - t0
         px_per_s = (y.shape[0] * y.shape[1] * y.shape[2]) / dt
-        print(
+        say(
             f"[{i:04d}] field {tuple(x.shape)} -> corrected in {dt*1e3:.1f} ms "
             f"({px_per_s/1e6:.1f} Mpx/s)"
         )
         np.save(os.path.join(out_dir, f"corrected_{i:05d}.npy"), y)
     return out_dir
+
+
+def serve_rank(rank, n, device, say, argv):
+    """One rank of ``serve_sharded`` (run by ``parallel.spawn``): the
+    command line's config, G and the fields on ``device``, this rank's W
+    shard of each through G with halo exchange. Returns every rank's kernel
+    launches."""
+    cfg = parse_config(argv, train=False)
+    loading = io.StringIO()
+    with contextlib.redirect_stdout(loading):
+        dataset = create_dataset(cfg)
+        G = build_generator(cfg, device)
+    say(loading.getvalue().rstrip())
+    ctx = HaloCtx(n, periodic=(cfg.w_pad_mode or "wrap") == "wrap", rdma=cfg.halo_rdma)
+    run = field_runner(spatial_apply(G, ctx), *pad_multiples(cfg.netG, cfg.fused_blocks, n))
+    serve_fields(cfg, dataset, device, run, say, before=ctx.barrier)
+    launches = [None] * n
+    dist.all_gather_object(launches, launch_counts())
+    ctx.close()
+    return {"launches": launches}
+
+
+def serve_sharded(cfg, argv) -> str:
+    """--spatial_mesh N (or --halo_rdma): N spawned ranks serve the fields
+    of command line ``argv`` (``serve_rank``); rank 0's lines are printed
+    here as they come. Raises if any rank fails."""
+    if (cfg.w_pad_mode or "wrap") == "reflect":
+        raise NotImplementedError(
+            "reflect padding on a sharded width axis is not supported; use "
+            "'zero' or 'wrap' (periodic longitude)"
+        )
+    n = max(cfg.spatial_mesh, 1)
+    print(placement(n, cfg.device))
+    for note in routing_notices(cfg, None, sharded=True):
+        print(note)
+    result = spawn(serve_rank, n, (argv,), device=cfg.device)
+    print(f"spatial: kernel launches per rank {json.dumps(result['launches'])}")
+    return os.path.join(cfg.results_dir, cfg.resolved_name(), "fields")
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cfg = parse_config(argv, train=False)
+    print(format_config(cfg))
+    save_config(cfg)
+    if is_sharded(cfg):
+        return serve_sharded(cfg, argv)
+    device = torch.device(cfg.device)
+    dataset = create_dataset(cfg)
+    G = build_generator(cfg, device)
+
+    run = field_runner(G, *pad_multiples(cfg.netG, cfg.fused_blocks))
+    for note in routing_notices(cfg, G):
+        print(note)
+    return serve_fields(cfg, dataset, device, run)
 
 
 if __name__ == "__main__":

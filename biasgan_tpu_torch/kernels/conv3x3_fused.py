@@ -20,10 +20,19 @@ kernel on the card) and whose backward is ``_fused_diff_bwd`` (:972-1085)
 line by line, in torch ops as the JAX backward is in XLA ops. Where
 autograd records, ``conv3x3_fused`` goes through it.
 
+``w_mode='halo'`` is the spatially sharded path's form (the Pallas
+``w_mode='halo'``, pallas_conv.py:565, 714): x carries its two W pad
+columns, the halo-exchanged neighbour columns, at 0 and W+1 of an
+(N, H, W+2, C) input, and the output is (N, H, W, Cout). H is still padded
+in the kernel, and the prologue applies to the pad columns too (they carry
+the neighbour's raw conv output). The Pallas scratch layout of
+``embed_halo_w`` (seven zero columns on each side, for Mosaic's 8-aligned
+DMA) is not carried. ``conv3x3_fused_t`` refuses it: spatially sharded
+training is not ported.
+
 Differences from the Pallas wrapper: the input is at its logical height
 (no ``h_run`` tail: the kernel masks ragged tiles itself), there is no plan
-argument (the tiling is the kernel's own), and the weight is OIHW. The
-``halo`` W mode waits for the spatial-sharding part of the port.
+argument (the tiling is the kernel's own), and the weight is OIHW.
 """
 
 from __future__ import annotations
@@ -49,6 +58,9 @@ from biasgan_tpu_torch.kernels.common import (
     wants_grad,
 )
 from biasgan_tpu_torch.ops.padding import pad_hw
+
+# the W modes: the pad built in the kernel, or carried by the input
+W_CODE = {**PAD_CODE, "halo": 3}
 
 
 def instance_moments_to_affine(
@@ -91,11 +103,14 @@ def _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode) -> None:
                 raise ValueError(f"prologue tensors must be ({n}, {c}), got {tuple(t.shape)}")
     if act_pre not in ACT_CODE:
         raise ValueError(f"unknown act_pre {act_pre!r}")
-    for name, mode, size in (("h_mode", h_mode, h), ("w_mode", w_mode, w)):
-        if mode not in PAD_CODE:
-            raise ValueError(f"unknown {name} {mode!r}; expected one of {sorted(PAD_CODE)}")
+    for name, mode, size, codes in (("h_mode", h_mode, h, PAD_CODE),
+                                    ("w_mode", w_mode, w, W_CODE)):
+        if mode not in codes:
+            raise ValueError(f"unknown {name} {mode!r}; expected one of {sorted(codes)}")
         if mode == "reflect" and size < 2:
             raise ValueError(f"{name}='reflect' needs a size of at least 2, got {size}")
+    if w_mode == "halo" and w < 3:
+        raise ValueError(f"w_mode='halo' needs the two pad columns and data, got W {w}")
 
 
 def conv3x3_fused_plain(
@@ -116,8 +131,12 @@ def conv3x3_fused_plain(
     _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
     if prologue is not None:
         # cast back to the storage dtype before the taps, as the kernel does
+        # (in the halo mode, the pad columns too)
         x = affine_act(x, *prologue, act_pre)
-    xp = pad_hw(x, (1, 1), (1, 1), h_mode, w_mode)
+    if w_mode == "halo":
+        xp = pad_hw(x, (1, 1), (0, 0), h_mode)
+    else:
+        xp = pad_hw(x, (1, 1), (1, 1), h_mode, w_mode)
     w = weight.to(x.dtype).float()
     y = F.conv2d(xp.permute(0, 3, 1, 2).float(), w).permute(0, 2, 3, 1)
     if bias is not None:
@@ -131,6 +150,8 @@ _ARGTYPES = [PTR] * 8 + [INT] * 9
 
 def _launch(x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments):
     n, h, w, c = x.shape
+    if w_mode == "halo":
+        w -= 2  # the output's width
     cout = weight.shape[0]
     dtype = check_kernel_input("conv3x3_fused", x, n * h * w * cout)
     dev = x.device
@@ -149,7 +170,7 @@ def _launch(x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments):
     launch(
         "conv3x3_fused", "conv3x3_fused_launch", _ARGTYPES, dev,
         ptr(x), ptr(w9), ptr(b), ptr(pa), ptr(pb), ptr(y), ptr(part), ptr(moments),
-        n, h, w, c, cout, dtype, PAD_CODE[h_mode], PAD_CODE[w_mode], ACT_CODE[act_pre],
+        n, h, w, c, cout, dtype, PAD_CODE[h_mode], W_CODE[w_mode], ACT_CODE[act_pre],
     )
     conv3x3_fused.launches += 1
     if not want_moments:
@@ -174,8 +195,10 @@ def conv3x3_fused(
 
     ``h_mode`` in reflect/zero/wrap and ``w_mode`` in wrap/reflect/zero
     build the SAME pad (after the prologue: a zero pad is a zero of the
-    normalized input). Returns ``y`` (N, H, W, Cout) in x's dtype, and with
-    ``want_moments`` also ``(sum, sumsq)`` (N, Cout) f32 of the stored y.
+    normalized input); ``w_mode='halo'`` takes x as (N, H, W+2, C) with its
+    W pad columns at 0 and W+1 (module docstring). Returns ``y``
+    (N, H, W, Cout) in x's dtype, and with ``want_moments`` also
+    ``(sum, sumsq)`` (N, Cout) f32 of the stored y.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (and counts it in ``conv3x3_fused.launches``) or raises. Where autograd
@@ -280,8 +303,14 @@ def conv3x3_fused_t(
     kernel on the card, counted in ``conv3x3_fused.launches`` and
     ``conv3x3_fused_t.launches``; the plain version on the CPU), and the
     exact backward of pad + conv + bias + moments, with the prologue chain
-    to x, a and b. The ``--fused_blocks`` training route."""
+    to x, a and b. The ``--fused_blocks`` training route. The ``halo`` W
+    mode raises: spatially sharded training is not ported."""
     _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
+    if w_mode == "halo":
+        raise NotImplementedError(
+            "conv3x3_fused_t: w_mode='halo' (spatially sharded training) is not "
+            "ported; the halo mode runs in inference only"
+        )
     a, b = prologue if prologue is not None else (None, None)
     out = _FusedT.apply(x, weight, bias, a, b, act_pre, h_mode, w_mode, want_moments)
     return (out[0], (out[1], out[2])) if want_moments else out

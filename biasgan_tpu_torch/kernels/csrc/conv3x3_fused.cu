@@ -22,9 +22,13 @@
 //     alignment and there is no padded row tail;
 //   * per chunk of input channels, the (TH+2) x (TW+2) halo tile is staged
 //     in shared memory with the SAME pad resolved by index (reflect / zero /
-//     wrap on each axis); the prologue is applied to the staged values and
-//     its result cast back to the storage type before the taps (as the
-//     Pallas kernel does, pallas_conv.py:695-703);
+//     wrap on each axis), or, for the spatially sharded path, W taken from
+//     the neighbour columns the input carries (the halo mode: an input of
+//     W+2 columns, exchanged by halo_exchange.cu; the prologue applies to
+//     those columns too, since they hold the neighbour's raw conv output);
+//     the prologue is applied to the staged values and its result cast
+//     back to the storage type before the taps (as the Pallas kernel does,
+//     pallas_conv.py:695-703);
 //   * bf16: three shared-memory stages; the weights and input of chunks
 //     k+1 and k+2 stream in with cp.async while the tensor cores work on
 //     chunk k, and chunk k+1's prologue runs between chunk k's MMAs;
@@ -72,13 +76,21 @@ __device__ __forceinline__ int resolve(int g, int n, int mode) {
   return -1;
 }
 
+// W mode of an input that carries its own pad columns: the spatially
+// sharded path's halo-exchanged neighbour columns (the Pallas kernel's
+// w_mode='halo', pallas_conv.py:565, 714), at input columns 0 and Win-1.
+constexpr int W_HALO = 3;
+
 // The (th+2) x (TW+2) input halo of output tile (y0, x0): the SAME pad
-// resolved by index on each axis.
+// resolved by index on H, and on W too unless the input carries its pad
+// columns (W_HALO: output column x reads input columns x..x+2). Win is the
+// input's width: the output's, or the output's + 2 under W_HALO.
 struct SameMap {
-  int y0, x0, H, W, h_mode, w_mode;
+  int y0, x0, H, Win, h_mode, w_mode;
   __device__ __forceinline__ bool operator()(int pix, int* iy, int* ix) const {
     *iy = resolve(y0 + pix / HALO_W - 1, H, h_mode);
-    *ix = resolve(x0 + pix % HALO_W - 1, W, w_mode);
+    const int gx = x0 + pix % HALO_W;
+    *ix = w_mode == W_HALO ? (gx < Win ? gx : -1) : resolve(gx - 1, Win, w_mode);
     return *iy >= 0 && *ix >= 0;
   }
 };
@@ -111,8 +123,8 @@ __global__ void __launch_bounds__(NTH_BF16, 1)
                               const float* __restrict__ pb,
                               __nv_bfloat16* __restrict__ y,
                               float* __restrict__ part, int N, int H, int W,
-                              int C, int Cout, int tiles_x, int n_tiles,
-                              int h_mode, int w_mode, int act) {
+                              int Win, int C, int Cout, int tiles_x,
+                              int n_tiles, int h_mode, int w_mode, int act) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* stage0 = reinterpret_cast<__nv_bfloat16*>(smem);
 
@@ -140,17 +152,17 @@ __global__ void __launch_bounds__(NTH_BF16, 1)
 
   using Input =
       HaloChunk<__nv_bfloat16, (TH_BF16 + 2) * HALO_W, KC_BF16, A_STRIDE, NTH_BF16>;
-  const SameMap map{y0, x0, H, W, h_mode, w_mode};
+  const SameMap map{y0, x0, H, Win, h_mode, w_mode};
   auto stage = [&](int ch) { return stage0 + (ch % STAGES_BF16) * STAGE_BF16; };
   auto issue = [&](int ch) {  // start chunk ch's copies as one group
     __nv_bfloat16* st = stage(ch);
     issue_weights<__nv_bfloat16, KC_BF16, NT_BF16, NTH_BF16>(
         st + IN_ELEMS_BF16, LDW_BF16, w9, C, Cout, ch * KC_BF16, co0, vec_w);
-    Input::issue(st, x, pa, pb, map, n, H, W, C, ch * KC_BF16, act, vec_in);
+    Input::issue(st, x, pa, pb, map, n, H, Win, C, ch * KC_BF16, act, vec_in);
     cp_async_commit();
   };
   auto finish = [&](int ch) {
-    Input::finish(stage(ch), pa, pb, map, n, H, W, C, ch * KC_BF16, act, vec_in);
+    Input::finish(stage(ch), pa, pb, map, n, H, Win, C, ch * KC_BF16, act, vec_in);
   };
 
   issue(0);
@@ -269,8 +281,9 @@ __global__ void __launch_bounds__(NTHREADS)
                              const float* __restrict__ pa,
                              const float* __restrict__ pb,
                              float* __restrict__ y, float* __restrict__ part,
-                             int N, int H, int W, int C, int Cout, int tiles_x,
-                             int n_tiles, int h_mode, int w_mode, int act) {
+                             int N, int H, int W, int Win, int C, int Cout,
+                             int tiles_x, int n_tiles, int h_mode, int w_mode,
+                             int act) {
   constexpr int IN_ELEMS = (TH + 2) * HALO_W * KC;
   constexpr int W_ELEMS = 9 * KC * NT_F32;
   __shared__ __align__(128) float smem[IN_ELEMS + W_ELEMS];
@@ -292,14 +305,14 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   using Input = HaloChunk<float, (TH + 2) * HALO_W, KC, KC, NTHREADS>;
-  const SameMap map{y0, x0, H, W, h_mode, w_mode};
+  const SameMap map{y0, x0, H, Win, h_mode, w_mode};
   for (int k0 = 0; k0 < C; k0 += KC) {
     issue_weights<float, KC, NT_F32, NTHREADS>(s_w, NT_F32, w9, C, Cout, k0,
                                                co0, vec_w);
-    Input::issue(s_in, x, pa, pb, map, n, H, W, C, k0, act, vec_in);
+    Input::issue(s_in, x, pa, pb, map, n, H, Win, C, k0, act, vec_in);
     cp_async_commit();
     cp_async_wait_all();
-    Input::finish(s_in, pa, pb, map, n, H, W, C, k0, act, vec_in);
+    Input::finish(s_in, pa, pb, map, n, H, Win, C, k0, act, vec_in);
     __syncthreads();
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
@@ -360,11 +373,13 @@ int conv3x3_fused_num_tiles(int H, int W, int dtype) {
   return ((H + th - 1) / th) * ((W + TW - 1) / TW);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. h_mode / w_mode: 0 zero, 1 reflect,
-// 2 wrap. act: 0 none, 1 relu, 2 lrelu (only read with a prologue).
-// x (N, H, W, C) and y (N, H, W, Cout) NHWC; w9 (9, C, Cout); bias (Cout)
-// f32 or null; pa, pb (N, C) f32 or both null; part (2, N, n_tiles, Cout)
-// and moments (2, N, Cout) f32, or both null for no moments.
+// dtype: 0 = float32, 1 = bfloat16. h_mode: 0 zero, 1 reflect, 2 wrap;
+// w_mode the same, or 3 (W_HALO): x carries its W pad columns. act: 0 none,
+// 1 relu, 2 lrelu (only read with a prologue). x (N, H, W, C), or
+// (N, H, W+2, C) under W_HALO, and y (N, H, W, Cout) NHWC; w9 (9, C, Cout);
+// bias (Cout) f32 or null; pa, pb (N, C) f32 or both null; part
+// (2, N, n_tiles, Cout) and moments (2, N, Cout) f32, or both null for no
+// moments.
 int conv3x3_fused_launch(const void* x, const void* w9, const void* bias,
                          const void* pa, const void* pb, void* y, void* part,
                          void* moments, int N, int H, int W, int C, int Cout,
@@ -373,6 +388,7 @@ int conv3x3_fused_launch(const void* x, const void* w9, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_x = (W + TW - 1) / TW;
   const int n_tiles = conv3x3_fused_num_tiles(H, W, dtype);
+  const int Win = w_mode == W_HALO ? W + 2 : W;
   const float* b = static_cast<const float*>(bias);
   const float* a0 = static_cast<const float*>(pa);
   const float* b0 = static_cast<const float*>(pb);
@@ -386,14 +402,14 @@ int conv3x3_fused_launch(const void* x, const void* w9, const void* bias,
     conv3x3_fused_bf16_kernel<<<grid, NTH_BF16, SMEM_BF16, s>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w9), b, a0, b0,
-        static_cast<__nv_bfloat16*>(y), pp, N, H, W, C, Cout, tiles_x, n_tiles,
-        h_mode, w_mode, act);
+        static_cast<__nv_bfloat16*>(y), pp, N, H, W, Win, C, Cout, tiles_x,
+        n_tiles, h_mode, w_mode, act);
   } else if (dtype == 0) {
     dim3 grid(n_tiles, (Cout + NT_F32 - 1) / NT_F32, N);
     conv3x3_fused_f32_kernel<<<grid, NTHREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w9), b, a0, b0,
-        static_cast<float*>(y), pp, N, H, W, C, Cout, tiles_x, n_tiles, h_mode,
-        w_mode, act);
+        static_cast<float*>(y), pp, N, H, W, Win, C, Cout, tiles_x, n_tiles,
+        h_mode, w_mode, act);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -33,6 +33,13 @@ Four more routes follow the JAX generator's opt-in kernel paths:
 * ``conv7`` runs the 7x7 stem and head through ``conv7x7``;
 * ``fused_norm`` runs every ``norm_act`` that remains on the path through
   ``instance_norm_act`` (instance norm only).
+
+``forward(x, ctx=...)`` runs this rank's W shard of a spatially sharded
+forward (``parallel.spatial``): the W pads come by halo exchange, the
+instance norms' statistics are global over W, and of the routes only the
+fused block path engages, in the conv kernel's halo W mode with the moments
+summed over the shards (JAX generators.py:192-249); the others are off, as
+the JAX gates turn them off under a context.
 """
 
 from __future__ import annotations
@@ -54,6 +61,16 @@ from biasgan_tpu_torch.nn.layers import (
     norm_act,
     norm_uses_bias,
 )
+
+
+def _check_spatial(ctx, w: int, stride: int, where: str) -> None:
+    """A sharded local width must divide by the stride that follows (JAX
+    generators.py:42-47)."""
+    if ctx is not None and w % stride != 0:
+        raise ValueError(
+            f"{where}: sharded local width {w} not divisible by stride {stride}; "
+            "pad the global field to a multiple of n_shards * 2^n_downsamples"
+        )
 
 
 def fused_blocks_blocker(norm_type: str, use_dropout: bool) -> Optional[str]:
@@ -106,7 +123,10 @@ class ResNetBlock(nn.Module):
         fused: bool = False,
         fused_norm: bool = False,
         pallas_conv: bool = False,
+        ctx=None,
     ) -> torch.Tensor:
+        if fused and ctx is not None:
+            return self._forward_fused_sharded(x, ctx)
         if fused:
             # generators.py:253-264: conv0 -> moments -> affine -> conv1's
             # prologue -> moments -> affine + residual
@@ -116,12 +136,41 @@ class ResNetBlock(nn.Module):
             y1, m1 = self.conv1.forward_fused(y0, prologue=(a0, b0))
             a1, b1 = instance_moments_to_affine(*m1, count)
             return apply_affine(y1, a1, b1) + x
-        h = self.conv0(x, pallas_conv=pallas_conv)
-        h = norm_act(h, self.norm0, activation="relu", fused=fused_norm)
+        h = self.conv0(x, pallas_conv=pallas_conv, ctx=ctx)
+        h = norm_act(h, self.norm0, activation="relu", fused=fused_norm, ctx=ctx)
         if self.dropout is not None:
             h = self.dropout(h)
-        h = self.conv1(h, pallas_conv=pallas_conv)
-        return norm_act(h, self.norm1, residual=x, fused=fused_norm)
+        h = self.conv1(h, pallas_conv=pallas_conv, ctx=ctx)
+        return norm_act(h, self.norm1, residual=x, fused=fused_norm, ctx=ctx)
+
+    def _forward_fused_sharded(self, x: torch.Tensor, ctx) -> torch.Tensor:
+        """The fused block on this rank's W shard (JAX generators.py:
+        192-249): each conv takes its W pad columns from the ring
+        neighbours (the kernel's halo mode), and the moments are summed over
+        the shards, so the affine is W-global."""
+        count = x.shape[1] * x.shape[2] * ctx.n_shards
+
+        def exchange(h, edge_raw=None):
+            # A non-periodic global edge column is zero AFTER the prologue
+            # in the whole-field path, but the halo carries RAW conv output,
+            # so it gets the pre-image of that zero, the instance mean -b/a
+            # (ReLU keeps the 0), cast to h's dtype: in bf16 a seam of
+            # ~0.4% of |b| on the two global edge columns only.
+            hp = ctx.pad_w(h, 1, 1)
+            if edge_raw is not None and not ctx.periodic:
+                col = edge_raw[:, None, None, :].to(hp.dtype)
+                if ctx.rank == 0:
+                    hp[:, :, :1] = col
+                if ctx.rank == ctx.n_shards - 1:
+                    hp[:, :, -1:] = col
+            return hp
+
+        y0, m0 = self.conv0.forward_fused(exchange(x), halo=True)
+        a0, b0 = instance_moments_to_affine(*ctx.sum_w(torch.stack(m0)), count)
+        y1, m1 = self.conv1.forward_fused(exchange(y0, -b0 / a0), prologue=(a0, b0),
+                                          halo=True)
+        a1, b1 = instance_moments_to_affine(*ctx.sum_w(torch.stack(m1)), count)
+        return apply_affine(y1, a1, b1) + x
 
 
 class ResNetGenerator(nn.Module):
@@ -231,9 +280,11 @@ class ResNetGenerator(nn.Module):
     def _norm_act(self, h, norm, **kw):
         return norm_act(h, norm, fused=self.fused_norm, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fused_down, fused_up = self.updown_engaged(x)
-        h = self.stem(x, conv7=self.conv7)
+    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
+        """NHWC ``x`` -> NHWC output; under a spatial context ``ctx``, this
+        rank's W shard of both (module docstring)."""
+        fused_down, fused_up = self.updown_engaged(x) if ctx is None else (False, False)
+        h = self.stem(x, conv7=self.conv7, ctx=ctx)
         if fused_down:
             # the stem's norm + ReLU rides into down0, down0's into down1
             count = h.shape[1] * h.shape[2]
@@ -243,14 +294,17 @@ class ResNetGenerator(nn.Module):
                 a, b = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
             h = apply_affine(h, a, b, relu=True)
         else:
-            h = self._norm_act(h, self.stem_norm, activation="relu")
-            h = self._norm_act(self.down0(h), self.down_norm0, activation="relu")
-            h = self._norm_act(self.down1(h), self.down_norm1, activation="relu")
+            h = self._norm_act(h, self.stem_norm, activation="relu", ctx=ctx)
+            for i, (down, norm) in enumerate(
+                ((self.down0, self.down_norm0), (self.down1, self.down_norm1))
+            ):
+                _check_spatial(ctx, h.shape[2], 2, f"resnet down{i}")
+                h = self._norm_act(down(h, ctx=ctx), norm, activation="relu", ctx=ctx)
         fused = self.fused_engaged()
         for block in self.blocks:
             h = block(
                 h, fused=fused, fused_norm=self.fused_norm,
-                pallas_conv=self.pallas_conv,
+                pallas_conv=self.pallas_conv, ctx=ctx,
             )
         if fused_up:
             # up0's norm + ReLU rides into up1
@@ -260,7 +314,7 @@ class ResNetGenerator(nn.Module):
                 prologue = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
             h = apply_affine(h, *prologue, relu=True)
         else:
-            h = self._norm_act(self.up0(h), self.up_norm0, activation="relu")
-            h = self._norm_act(self.up1(h), self.up_norm1, activation="relu")
-        h = self.head(h, conv7=self.conv7).float()
+            h = self._norm_act(self.up0(h, ctx=ctx), self.up_norm0, activation="relu", ctx=ctx)
+            h = self._norm_act(self.up1(h, ctx=ctx), self.up_norm1, activation="relu", ctx=ctx)
+        h = self.head(h, conv7=self.conv7, ctx=ctx).float()
         return torch.tanh(h) if self.out_activation == "tanh" else h

@@ -17,6 +17,12 @@ What follows the JAX package exactly, because it moves the numbers:
   (``F.conv_transpose2d`` cannot wrap);
 * instance-norm statistics are f32 with var = max(E[x^2] - E[x]^2, 0).
 
+Under a spatial context ``ctx`` (``parallel.spatial.HaloCtx``: W sharded
+over ranks) the W pads come by halo exchange, the instance-norm statistics
+are global over W, the periodic conv-transpose dilates its local shard, and
+the kernel routes below stay off, as the JAX gates turn them off under a
+context (layers.py:399, 421, 781).
+
 The TPU rewrites of the JAX layers (cin padding, space-to-depth, the
 tiny-cin VJP, the phase-decomposed and one-buffer conv-transposes) are not
 carried: they reorganize the same arithmetic for the TPU's matrix unit.
@@ -134,9 +140,12 @@ def conv2d(
     compute_dtype: Optional[torch.dtype] = None,
     conv7: bool = False,
     pallas_conv: bool = False,
+    ctx=None,
 ) -> torch.Tensor:
     """torch ``Conv2d(k, stride, padding)`` on NHWC ``x`` with per-axis pad
-    modes. ``weight`` is OIHW.
+    modes. ``weight`` is OIHW. Under a spatial context ``ctx`` x is this
+    rank's W shard and W is padded by halo exchange; the two kernel routes
+    below are then off.
 
     ``pallas_conv`` routes a 3x3 stride-1 pad-1 conv through the
     ``conv3x3_valid`` kernel on the padded input (through ``conv3x3_op``,
@@ -160,11 +169,12 @@ def conv2d(
             f"{tuple(x.shape)} with k=({kh},{kw}) s={stride} p={padding} — "
             "input too small for this network"
         )
-    x = pad_hw(x, (ph, ph), (pw, pw), h_mode, w_mode)
+    x = pad_hw(x, (ph, ph), (pw, pw), h_mode, w_mode, ctx)
     x, weight = _in_compute_dtype(x, weight, compute_dtype)
+    pallas_conv = pallas_conv and ctx is None
     if pallas_conv and (kh, kw) == (3, 3) and tuple(stride) == (1, 1) and (ph, pw) == (1, 1):
         y = conv3x3_valid(x, weight)
-    elif conv7 and conv7_eligible(weight.shape, stride, padding):
+    elif conv7 and ctx is None and conv7_eligible(weight.shape, stride, padding):
         return conv7x7(x, weight, bias)
     else:
         y = _nhwc(F.conv2d(_nchw(x), weight, None, stride))
@@ -196,6 +206,7 @@ def conv_transpose2d(
     output_padding: Tuple[int, int] = (0, 0),
     compute_dtype: Optional[torch.dtype] = None,
     w_mode: str = "zero",
+    ctx=None,
 ) -> torch.Tensor:
     """torch ``ConvTranspose2d(k, stride, padding, output_padding)`` on NHWC
     ``x``; ``weight`` is IOHW. out = (in - 1) * s - 2p + k + op per axis.
@@ -205,11 +216,17 @@ def conv_transpose2d(
     spatially flipped, I/O-swapped kernel runs over it (H keeps the zero
     padded dilation), so the upsampled field is seamless across the
     dateline. This requires output width == W * s, i.e. 2p == k - s + op,
-    true for every conv-transpose in the zoo."""
+    true for every conv-transpose in the zoo.
+
+    Under a spatial context ``ctx`` (x is this rank's W shard) the same
+    holds with the local dilation to ``W_local * s`` padded by halo
+    exchange (wrap or zero by the context's edge rule), so the shards'
+    concatenation is the global dilation (JAX layers.py:650-656); H is then
+    the transposed conv as it stands, W a VALID correlation."""
     kh, kw = weight.shape[2:]
     (sh, sw), (ph, pw), (oph, opw) = stride, padding, output_padding
     x, weight = _in_compute_dtype(x, weight, compute_dtype)
-    if w_mode != "wrap":
+    if ctx is None and w_mode != "wrap":
         y = _nhwc(
             F.conv_transpose2d(_nchw(x), weight, None, stride, padding, output_padding)
         )
@@ -220,6 +237,16 @@ def conv_transpose2d(
                 f"stride (2p == k - s + op); got k={kw} s={sw} p={pw} op={opw}"
             )
         n, h, w, c = x.shape
+        if ctx is not None:
+            xw = x.new_zeros((n, h, w * sw, c))
+            xw[:, :, ::sw] = x
+            xw = ctx.pad_w(xw, kw - 1 - pw, pw)
+            y = _nhwc(F.conv_transpose2d(
+                _nchw(xw), weight, None, (sh, 1), (ph, kw - 1), (oph, 0)
+            ))
+            if bias is not None:
+                y = y + bias.to(y.dtype)
+            return y
         top = kh - 1 - ph
         # rows: the stride dilation with its zero pad (top, top + op);
         # columns: W * s with the values at multiples of s (the trailing
@@ -234,13 +261,17 @@ def conv_transpose2d(
     return y
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, ctx=None) -> torch.Tensor:
     """torch ``InstanceNorm2d(affine=False, track_running_stats=False)`` on
     NHWC ``x``, with the JAX package's arithmetic: f32 statistics, biased
-    variance max(E[x^2] - E[x]^2, 0), output in x's dtype."""
+    variance max(E[x^2] - E[x]^2, 0), output in x's dtype. Under a spatial
+    context ``ctx`` the statistics are global over the sharded W."""
     xf = x.float()
-    mean = xf.mean(dim=(1, 2), keepdim=True)
-    mean2 = xf.square().mean(dim=(1, 2), keepdim=True)
+    if ctx is None:
+        mean = xf.mean(dim=(1, 2), keepdim=True)
+        mean2 = xf.square().mean(dim=(1, 2), keepdim=True)
+    else:
+        mean, mean2 = ctx.mean_w(xf, xf.square(), dims=(1, 2))
     var = torch.clamp(mean2 - mean.square(), min=0.0)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
@@ -261,6 +292,7 @@ def norm_act(
     activation: str = "none",
     residual: Optional[torch.Tensor] = None,
     fused: bool = False,
+    ctx=None,
 ) -> torch.Tensor:
     """norm -> [+ residual] -> activation, the chain that follows every conv.
 
@@ -268,10 +300,14 @@ def norm_act(
     kernel (the JAX ``--force_pallas_norm`` route,
     biasgan_tpu/nn/layers.py:781-784): the residual is then added in f32
     and the result cast once, where this plain chain casts the norm to x's
-    dtype before the add."""
-    if fused and isinstance(norm, InstanceNorm):
-        return instance_norm_act(x, residual, activation, norm.eps)
-    h = norm(x)
+    dtype before the add. Under a spatial context ``ctx`` the instance
+    norm's statistics are global over W and ``fused`` is off."""
+    if isinstance(norm, InstanceNorm):
+        if fused and ctx is None:
+            return instance_norm_act(x, residual, activation, norm.eps)
+        h = instance_norm(x, norm.eps, ctx)
+    else:
+        h = norm(x)
     if residual is not None:
         h = h + residual
     return apply_activation(h, activation)
@@ -384,7 +420,7 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
     def forward(
-        self, x: torch.Tensor, conv7: bool = False, pallas_conv: bool = False
+        self, x: torch.Tensor, conv7: bool = False, pallas_conv: bool = False, ctx=None
     ) -> torch.Tensor:
         return conv2d(
             x,
@@ -397,19 +433,23 @@ class Conv2d(nn.Module):
             self.compute_dtype,
             conv7,
             pallas_conv,
+            ctx,
         )
 
     def forward_fused(
         self,
         x: torch.Tensor,
         prologue: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        halo: bool = False,
     ):
         """This 3x3 s1 p1 conv through ``kernels.conv3x3_fused``: SAME pad
         in the kernel, optional instance-norm + ReLU prologue ``(a, b)`` on
         the input, and the (sum, sumsq) moments of the output. Returns
         ``(y, (sum, sumsq))``. Where autograd records (training), the call
         takes ``conv3x3_fused_t``, the same kernel with its exact backward
-        (the JAX ``fused_diff`` branch, biasgan_tpu/nn/layers.py:866-879)."""
+        (the JAX ``fused_diff`` branch, biasgan_tpu/nn/layers.py:866-879).
+        ``halo``: x carries its halo-exchanged W pad columns (the kernel's
+        ``w_mode='halo'``, the spatially sharded path)."""
         if tuple(self.weight.shape[2:]) != (3, 3) or self.stride != (1, 1) or (
             self.padding != (1, 1)
         ):
@@ -417,7 +457,8 @@ class Conv2d(nn.Module):
         x, w = _in_compute_dtype(x, self.weight, self.compute_dtype)
         return conv3x3_fused(
             x, w, self.bias, prologue=prologue, act_pre="relu",
-            h_mode=self.h_mode, w_mode=self.w_mode, want_moments=True,
+            h_mode=self.h_mode, w_mode="halo" if halo else self.w_mode,
+            want_moments=True,
         )
 
     def forward_fused_s2(
@@ -473,7 +514,7 @@ class ConvTranspose2d(nn.Module):
         self.weight = nn.Parameter(hwio.permute(2, 3, 0, 1).contiguous())
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
         return conv_transpose2d(
             x,
             self.weight,
@@ -483,6 +524,7 @@ class ConvTranspose2d(nn.Module):
             self.output_padding,
             self.compute_dtype,
             self.w_mode,
+            ctx,
         )
 
     def forward_fused(

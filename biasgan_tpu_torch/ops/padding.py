@@ -1,8 +1,8 @@
 """Explicit per-axis padding of NHWC tensors with ``jnp.pad`` semantics.
 
-Counterpart of ``_pad_axis`` / ``pad_hw`` in ``biasgan_tpu/nn/layers.py``.
-It lives below nn/ and kernels/ because both pad: the layers before their
-convs, and the plain version of the fused block conv.
+Counterpart of ``_pad_axis`` / ``pad_hw`` in ``biasgan_tpu/nn/layers.py``
+(:63-97). It lives below nn/ and kernels/ because both pad: the layers
+before their convs, and the plain version of the fused block conv.
 """
 
 from __future__ import annotations
@@ -37,8 +37,19 @@ def pad_hw(
     pad_w: Tuple[int, int],
     h_mode: str = "zero",
     w_mode: str = "zero",
+    ctx=None,
 ) -> torch.Tensor:
     """Pad H (axis 1) and W (axis 2) of an NHWC tensor, each with its own
-    mode: 'zero' | 'reflect' | 'wrap'."""
+    mode: 'zero' | 'reflect' | 'wrap'. With a spatial context ``ctx``
+    (``parallel.spatial.HaloCtx``: W is sharded), W is padded by halo
+    exchange, whose edge rule (periodic or zero) is the context's; a
+    reflect pad of a sharded W raises."""
     x = pad_axis(x, 1, pad_h[0], pad_h[1], h_mode)
-    return pad_axis(x, 2, pad_w[0], pad_w[1], w_mode)
+    if ctx is None:
+        return pad_axis(x, 2, pad_w[0], pad_w[1], w_mode)
+    if w_mode == "reflect":
+        raise NotImplementedError(
+            "reflect padding on a sharded width axis is not supported; use "
+            "'zero' or 'wrap' (periodic longitude)"
+        )
+    return ctx.pad_w(x, pad_w[0], pad_w[1])

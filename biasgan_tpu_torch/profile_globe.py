@@ -43,16 +43,11 @@ import time
 import torch
 
 from biasgan_tpu_torch import infer
-from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
-from biasgan_tpu_torch.kernels.conv3x3s2_fused import conv3x3s2_fused
-from biasgan_tpu_torch.kernels.conv7x7 import conv7x7
-from biasgan_tpu_torch.kernels.convt3x3s2_fused import convt3x3s2_fused
-from biasgan_tpu_torch.kernels.instance_norm_act import instance_norm_act
+from biasgan_tpu_torch.kernels import launch_counts
 from biasgan_tpu_torch.nn.factory import define_G
 
 GLOBE = (1, 721, 1440, 3)
 FIELDS, WARMUP, FORWARDS, PROFILED, TOP = 20, 3, 10, 3, 14
-KERNELS = (conv3x3_fused, conv3x3s2_fused, convt3x3s2_fused, conv7x7, instance_norm_act)
 # the generator's routing attributes on each path
 PATHS = {
     "fused": dict(fused_blocks=True),
@@ -112,14 +107,12 @@ def profile_round(G, x, path: str) -> dict:
             G(xp)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / FORWARDS
-        before = [k.launches for k in KERNELS]
+        before = launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED):
                 G(xp)
             torch.cuda.synchronize()
-        launches = {
-            k.__name__: (k.launches - b) / PROFILED for k, b in zip(KERNELS, before)
-        }
+        launches = {k: (v - before[k]) / PROFILED for k, v in launch_counts().items()}
     busy, top = _device_rows(prof, PROFILED, TOP)
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the forwards")

@@ -9,8 +9,8 @@ checkout is missing, and at the first failure of any phase:
 
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA,
      nvcc and Triton versions;
-  2. build every kernel of the served and trained paths from csrc/ (nvcc,
-     sm_90a), one nvcc per source, all started together;
+  2. build every kernel of the served, sharded and trained paths from csrc/
+     (nvcc, sm_90a), one nvcc per source, all started together;
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
@@ -18,7 +18,13 @@ checkout is missing, and at the first failure of any phase:
      and residuals, with the moments held to those of the stored output;
      then, at those shapes in bf16, the kernel's time beside the plain
      version's, one PyTorch library call's, and the card's bound for the
-     same work;
+     same work; the fused block conv also in its halo W mode at the block
+     shape of a 4-way W shard; then the halo exchange inside four spawned
+     ranks on the card (gloo, ranks sharing the card): the kernel bitwise
+     against the plain ring at every exchange shape of the sharded globe
+     forward, periodic and zero-edge, and its time (CUDA events around
+     rank 0's launches), the exchange's wall time with its host-side
+     synchronisation, the plain ring's and the ring's messages alone;
   3b. the gradient phase: each differentiable kernel (the fused block conv
      of training, the VALID 3x3 op, the 7x7 conv, the fused instance norm)
      under autograd against autograd through its plain version on the
@@ -27,14 +33,22 @@ checkout is missing, and at the first failure of any phase:
      cuDNN's through autograd;
   4. a small-input reference: the generator's kernel paths on the card
      against its plain path on the CPU (which the CPU tests hold to the JAX
-     package), f32;
+     package), f32; and the sharded forward on four ranks on the card (the
+     plain ring and the halo kernel, with and without the fused blocks)
+     against the whole-field forward, f32, with its launch counts;
   5. a NetCDF-3 store of three 721x1440 fields per side and a seeded
      resnet_9blocks (ngf 64) checkpoint;
   6. serve the fields through ``biasgan_tpu_torch.infer.main`` on four
      paths, counting each kernel's launches: --fused_blocks; the plain
      path; --fused_blocks --fused_updown --conv7_pallas 1; and
-     --force_pallas_norm. Outputs must be finite, of the right shape, and
-     each kernel path must agree with the plain path;
+     --force_pallas_norm; then spatially sharded over four ranks on the
+     card: --spatial_mesh 4 (the plain ring), with --halo_rdma, and with
+     --halo_rdma --fused_blocks, each rank's launches counted in its own
+     process from 0. Outputs must be finite, of the right shape, and each
+     path must agree with the plain path padded to its own width (the
+     sharded --fused_blocks pads W 1440 to 1536, as the JAX CLI does, and
+     its distance from the unpadded plain field may not grow past
+     UNPADDED_LIMITS); --halo_rdma with the ring's;
   7. train full-width CycleGAN (resnet_9blocks ngf 64, basic D ndf 64,
      instance norm, lsgan, pool 50, 256x256, batch 1, 3 channels,
      synthetic data from a seed) in f32 and bf16 on four routes: plain;
@@ -45,6 +59,9 @@ checkout is missing, and at the first failure of any phase:
      six steps on the route, counting launches, with finite losses, and
      its samples/s over steps 2-6 is printed. The checkpoint of one run is
      loaded by the inference CLI's loader.
+
+On a host with a card per rank the sharded phases run over NCCL, the halo
+kernel writing across NVLink peers.
 
 Before its last line it prints one JSON object with the kernels' names,
 sources, launch counts on their main path, errors, times and bounds. The
@@ -72,9 +89,20 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # |y - ref| <= tol * (1 + |ref|)
 MOMENT_TOL = 1e-3  # relative, see moment_error
 MOMENT_SLACK = 1e-5  # f32 summation order, see stored_moment_ratio
 # the card's published peaks (H100 SXM, dense, at 700 W), for the bounds:
-# bf16 on the tensor cores, f32 outside them, device memory
+# bf16 on the tensor cores, f32 outside them, device memory, NVLink one way
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+NVLINK_BYTES = 450e9
+N_RANKS = 4  # the sharded paths: --spatial_mesh 4, rank r on cuda:(r % cards)
+# The sharded --fused_blocks path pads W 1440 to 1536 (the JAX CLI's
+# multiple), so it serves another function of the field: the padded
+# columns enter the norm statistics and move the periodic seam. Until both
+# CLIs stop padding into the statistics, its field 0 may be no further from
+# the unpadded plain path's (|dy| in std of the target variable: the
+# largest, the mean over the 96 columns at each end, the mean between) than
+# the first H100 reading (3.359, 0.07017, 0.03345), rounded up by about 1%,
+# so that a new fault cannot hide behind the known one.
+UNPADDED_LIMITS = {"max": 3.40, "ends_mean": 0.0710, "between_mean": 0.0338}
 
 # kernel -> (the TPU kernel it replaces, the main path it carries: a served
 # path, or for the VALID 3x3 conv a training route)
@@ -95,6 +123,35 @@ PATHS = {
         {"conv3x3_fused": 18, "conv3x3s2_fused": 2, "convt3x3s2_fused": 2, "conv7x7": 2},
     ),
     "plain_norm": (["--force_pallas_norm"], {"instance_norm_act": 23}),
+    # sharded over N_RANKS ranks: launches per field per rank
+    "spatial": (["--spatial_mesh", str(N_RANKS)], {}),
+    "spatial_rdma": (["--spatial_mesh", str(N_RANKS), "--halo_rdma"], {"halo_exchange_w": 24}),
+    "spatial_rdma_fused": (["--spatial_mesh", str(N_RANKS), "--halo_rdma", "--fused_blocks"],
+                           {"halo_exchange_w": 24, "conv3x3_fused": 18}),
+}
+# the halo exchanges of one sharded globe forward, per rank: (the local
+# tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
+# per rank (with --fused_blocks, padded to 1536: 384); bf16 compute, but
+# the stem pads the f32 input; H is padded before W.
+HALO_CALLS = {
+    "spatial_rdma": [
+        ((1, 730, 360, 3), "float32", 3, 3, 1),  # stem (H reflect 3)
+        ((1, 726, 360, 64), "bfloat16", 1, 1, 1),  # down0 (H zero 1)
+        ((1, 364, 180, 128), "bfloat16", 1, 1, 1),  # down1
+        ((1, 183, 90, 256), "bfloat16", 1, 1, 18),  # the block convs (H reflect 1)
+        ((1, 181, 180, 256), "bfloat16", 1, 1, 1),  # up0, on the W-dilated input
+        ((1, 362, 360, 128), "bfloat16", 1, 1, 1),  # up1
+        ((1, 730, 360, 64), "bfloat16", 3, 3, 1),  # head (H reflect 3)
+    ],
+    "spatial_rdma_fused": [
+        ((1, 730, 384, 3), "float32", 3, 3, 1),
+        ((1, 726, 384, 64), "bfloat16", 1, 1, 1),
+        ((1, 364, 192, 128), "bfloat16", 1, 1, 1),
+        ((1, 181, 96, 256), "bfloat16", 1, 1, 18),  # the fused convs: H padded in-kernel
+        ((1, 181, 192, 256), "bfloat16", 1, 1, 1),
+        ((1, 362, 384, 128), "bfloat16", 1, 1, 1),
+        ((1, 730, 384, 64), "bfloat16", 3, 3, 1),
+    ],
 }
 
 
@@ -147,8 +204,8 @@ def build_kernels() -> None:
     from biasgan_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        paths = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        paths = dict(zip(build.SOURCES, pool.map(build.build, build.SOURCES)))
     print(f"build {len(paths)} kernels: {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         build.load(name)
@@ -217,7 +274,8 @@ def make_case(torch, g, name, shape, dtype, **opt):
     pro = opt.get("prologue", False)
     if name in ("conv3x3_fused", "conv3x3s2_fused", "convt3x3s2_fused"):
         n, h, w, c, cout = shape
-        x = _randn(torch, g, (n, h, w, c)).to(dtype)
+        halo = opt.get("w_mode") == "halo"  # x carries its 2 W pad columns
+        x = _randn(torch, g, (n, h, w + 2 * halo, c)).to(dtype)
         wt = _randn(torch, g, (cout, c, 3, 3), (9 * c) ** -0.5).to(dtype)
         bias = _randn(torch, g, (cout,), 0.1)
         p = _prologue(torch, g, n, c) if pro else None
@@ -225,7 +283,8 @@ def make_case(torch, g, name, shape, dtype, **opt):
             args = (x, wt, bias, p, "relu", opt.get("h_mode", "reflect"),
                     opt.get("w_mode", "wrap"), True)
             out_px = n * h * w
-            lib = lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias.to(dtype), padding=1)
+            lib = lambda: F.conv2d(x.permute(0, 3, 1, 2), wt, bias.to(dtype),
+                                   padding=(1, 0) if halo else 1)
         elif name == "conv3x3s2_fused":
             args = (x, wt, bias, p, "relu", opt.get("w_mode", "wrap"), True)
             out_px = n * h * w // 4
@@ -238,7 +297,7 @@ def make_case(torch, g, name, shape, dtype, **opt):
             lib = lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, bias.to(dtype),
                                              stride=2, padding=1, output_padding=1)
         flops = 2 * (n * h * w if name != "conv3x3s2_fused" else out_px) * 9 * c * cout
-        nbytes = ((n * h * w * c + out_px * cout + 9 * c * cout) * es + 4 * cout
+        nbytes = ((x.numel() + out_px * cout + 9 * c * cout) * es + 4 * cout
                   + (8 * n * c if pro else 0) + 8 * n * cout)
     elif name == "conv3x3_valid":
         n, hp, wp, c, cout = shape
@@ -329,8 +388,17 @@ GLOBE_CALLS = {
 # what each kernel's calls above are counted per
 PER_UNIT = {name: "field" for name in GLOBE_CALLS}
 PER_UNIT["conv3x3_valid"] = "step"
-# shapes held besides the main path's: the globe block conv as a VALID conv
-EXTRA_CHECKS = {"conv3x3_valid": [((1, 183, 362, 256, 256), dict(bias=True))]}
+# the block convs of the sharded --fused_blocks path, per field per rank:
+# the halo W mode at the block shape of a 4-way shard (W 1536 / 4 / 4 = 96)
+SPATIAL_CALLS = {
+    "conv3x3_fused": [((1, 181, 96, 256, 256), dict(prologue=True, w_mode="halo"), 18)],
+}
+# shapes held besides the main path's: the globe block conv as a VALID
+# conv, and the sharded path's halo-mode block conv
+EXTRA_CHECKS = {
+    "conv3x3_valid": [((1, 183, 362, 256, 256), dict(bias=True))],
+    "conv3x3_fused": [(shape, opt) for shape, opt, _ in SPATIAL_CALLS["conv3x3_fused"]],
+}
 
 
 def sweep_cases(name):
@@ -339,7 +407,7 @@ def sweep_cases(name):
         i = 0
         for c, cout in ((3, 5), (32, 48), (256, 256)):
             for h_mode in PAD_MODES:
-                for w_mode in PAD_MODES:
+                for w_mode in PAD_MODES + ("halo",):
                     yield (2, 13, 37, c, cout), dict(prologue=i % 2 == 1, h_mode=h_mode,
                                                      w_mode=w_mode)
                     i += 1
@@ -393,18 +461,19 @@ def check_kernels(torch) -> dict:
     return errs
 
 
-def time_kernels(torch) -> dict:
-    """At each globe shape in bf16: the kernel, its plain version and the
-    library call, in turns (plain, library, kernel, kernel, library,
-    plain), CUDA events over 20 calls each after 3 warm-up calls, best of
-    each; and the bound. Per kernel, the per-field sums (each shape's time
-    times its calls per field) and the per-shape numbers."""
+def time_kernels(torch, shapes=GLOBE_CALLS) -> dict:
+    """At each of a kernel's ``shapes`` (the globe shapes) in bf16: the
+    kernel, its plain version and the library call, in turns (plain,
+    library, kernel, kernel, library, plain), CUDA events over 20 calls
+    each after 3 warm-up calls, best of each; and the bound. Per kernel,
+    the per-field sums (each shape's time times its calls per field) and
+    the per-shape numbers."""
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for name in KERNELS:
+    for name, kernel_calls in shapes.items():
         fn, plain = kernel_fns(name)
         calls = []
-        for shape, opt, count in GLOBE_CALLS[name]:
+        for shape, opt, count in kernel_calls:
             args, nbytes, op_s, lib = make_case(torch, g, name, shape, torch.bfloat16, **opt)
             fns = {"plain": lambda: plain(*args), "library": lib, "kernel": lambda: fn(*args)}
             runs = {k: [] for k in fns}
@@ -656,6 +725,175 @@ def check_small_generator(torch) -> None:
                   f"small generator, {path} path, off by {err:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# The halo exchange and the sharded forward, inside N_RANKS spawned ranks
+# ---------------------------------------------------------------------------
+
+HALO_ITERS = 20  # with 2 warm-up launches: an even count keeps the ping-pong in step
+
+
+def halo_rank(rank, n, device, say, calls):
+    """One rank of the halo phase (``parallel.spawn``). At each exchange
+    shape, periodic and zero-edge: the kernel's halos bitwise against the
+    plain ring's (every rank's mismatches and largest |kernel - ring|
+    gathered). Then on the periodic
+    ring, in turns: the kernel alone (CUDA events around rank 0's
+    launches while the other ranks wait, so no other process shares the
+    card), the exchange (launch, stream sync, barrier, read: host clock),
+    the plain ring (under gloo with host copies) and the ring's messages
+    alone (under gloo the plain ring on host tensors; under NCCL it is
+    the plain ring). Returns rank 0's timings."""
+    import torch
+    import torch.distributed as dist
+
+    from biasgan_tpu_torch.kernels import halo_exchange as hx
+    from biasgan_tpu_torch.parallel import HaloCtx
+
+    g = torch.Generator(device=device).manual_seed(100 + rank)
+    xs = [torch.randn(shape, generator=g, device=device).to(getattr(torch, dt))
+          for shape, dt, _, _, _ in calls]
+    mismatches, err = [], 0.0
+    for periodic in (True, False):
+        ctx = HaloCtx(n, periodic, rdma=True)
+        for x, (shape, dt, left, right, _) in zip(xs, calls):
+            got = hx.halo_exchange_w(x, left, right, ctx.ring)
+            ref = hx.halo_exchange_w_plain(x, left, right, ctx.ring)
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                mismatches.append(f"rank {rank}: {shape} {dt} ({left},{right}) "
+                                  f"periodic={periodic}")
+            err = max([err] + [float((a.float() - b.float()).abs().max())
+                               for a, b in zip(got, ref) if a.numel()])
+        ctx.close()
+    every = [None] * n
+    dist.all_gather_object(every, (mismatches, err))
+
+    def host_ms(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HALO_ITERS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / HALO_ITERS * 1e3
+
+    ctx = HaloCtx(n, True, rdma=True)
+    rows = []
+    for x, (shape, dt, left, right, count) in zip(xs, calls):
+        xh = x.cpu() if ctx.ring.via_host else x  # gloo takes host tensors, NCCL device ones
+        fns = {"plain": lambda: hx.halo_exchange_w_plain(x, left, right, ctx.ring),
+               "library": lambda: hx.halo_exchange_w_plain(xh, left, right, ctx.ring),
+               "exchange": lambda: hx.halo_exchange_w(x, left, right, ctx.ring)}
+        runs = {k: [] for k in ("plain", "library", "exchange", "kernel")}
+        for which in ("plain", "library", "exchange", "kernel", "kernel", "exchange",
+                      "library", "plain"):
+            if which != "kernel":
+                runs[which].append(host_ms(fns[which]))
+                continue
+            dist.barrier()
+            if rank == 0:
+                runs["kernel"].append(timed(
+                    torch, lambda: hx.launch_halo_kernel(x, left, right, ctx.ring),
+                    iters=HALO_ITERS, warmup=2))
+            dist.barrier()
+        moved = x.shape[0] * x.shape[1] * (left + right) * x.shape[3] * x.element_size()
+        rows.append({
+            "shape": list(shape), "dtype": dt, "left": left, "right": right, "count": count,
+            "bytes": moved, **{k + "_ms": min(v) for k, v in runs.items() if v},
+            "bound_ms": 2 * moved / PEAK_BYTES * 1e3, "nvlink_bound_ms": moved / NVLINK_BYTES * 1e3,
+        })
+    ctx.close()
+    return {"mismatches": [m for ms, _ in every for m in ms],
+            "max_abs_err": max(e for _, e in every), "rows": rows, "backend": dist.get_backend()}
+
+
+def check_halo_exchange(torch) -> dict:
+    """The halo phase on N_RANKS spawned ranks: every exchange shape of
+    both sharded paths, the kernel bitwise against the plain ring; the
+    timings per shape, and per path the per-field sums (each shape's time
+    times its exchanges per forward, per rank)."""
+    from biasgan_tpu_torch.parallel import placement, spawn
+
+    calls = list(dict.fromkeys(c for path in HALO_CALLS.values() for c in path))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = spawn(halo_rank, N_RANKS, (calls,), device="cuda", timeout=600, group_timeout=300)
+    check(not res["mismatches"], "halo_exchange_w differs from the plain ring: "
+          + "; ".join(res["mismatches"]))
+    print(f"halo_exchange_w: {placement(N_RANKS, 'cuda')}: {len(calls)} shapes x "
+          f"periodic/zero-edge bitwise equal to the plain ring "
+          f"({time.perf_counter() - t0:.1f} s)")
+    name = torch.cuda.get_device_name(0)
+    for r in res["rows"]:
+        print(f"halo_exchange_w {tuple(r['shape'])} {r['dtype']} ({r['left']},{r['right']}) "
+              f"x{r['count']}, ms per call: kernel {r['kernel_ms']:.4f}, exchange with sync "
+              f"{r['exchange_ms']:.4f}, plain ring {r['plain_ms']:.4f}, ring messages "
+              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.6f} (one card), "
+              f"{r['nvlink_bound_ms']:.6f} (NVLink) on {name}")
+    by_key = {(tuple(r["shape"]), r["dtype"], r["left"], r["right"]): r for r in res["rows"]}
+    totals = {}
+    for path, path_calls in HALO_CALLS.items():
+        rows = [by_key[c[:4]] for c in path_calls]
+        totals[path] = {k: sum(r[k] * r["count"] for r in rows)
+                        for k in ("kernel_ms", "exchange_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "nvlink_bound_ms", "bytes")}
+        totals[path]["calls"] = rows
+        print(f"halo_exchange_w per forward per rank, {path}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in totals[path].items() if k != "calls"))
+    return {"backend": res["backend"], "max_abs_err": res["max_abs_err"], "totals": totals}
+
+
+def sharded_rank(rank, n, device, say, *args):
+    """``parallel.checks.generator_cases`` on the card with TF32 off."""
+    import torch
+
+    from biasgan_tpu_torch.parallel.checks import generator_cases
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return generator_cases(rank, n, device, say, *args)
+
+
+def check_small_sharded(torch) -> None:
+    """resnet_3blocks (ngf 16, f32) sharded over N_RANKS ranks on this card,
+    through the plain ring and the halo kernel, with and without the fused
+    blocks (the conv kernel's halo W mode), against its whole-field forward
+    on the card; each rank's launches counted."""
+    from biasgan_tpu_torch.nn import define_G
+    from biasgan_tpu_torch.parallel import spawn
+
+    spec = dict(netG="resnet_3blocks", input_nc=3, output_nc=3, ngf=16, norm="instance",
+                out_activation="none")
+    g = torch.Generator().manual_seed(3)
+    G = define_G(**spec, w_mode="wrap", generator=g)
+    state = {k: v.numpy() for k, v in G.state_dict().items()}
+    x = torch.randn((1, 16, 32 * N_RANKS, 3), generator=g)  # block-resolution shard: 8 wide
+    cases = [dict(w_mode="wrap", fused=False, rdma=False),
+             dict(w_mode="wrap", fused=False, rdma=True),
+             dict(w_mode="zero", fused=True, rdma=True),
+             dict(w_mode="wrap", fused=True, rdma=True)]
+    torch.cuda.empty_cache()
+    res = spawn(sharded_rank, N_RANKS, (spec, state, x.numpy(), cases), device="cuda",
+                timeout=600, group_timeout=300)
+    for case, got in zip(cases, res["outputs"]):
+        Gw = define_G(**spec, w_mode=case["w_mode"])
+        Gw.load_state_dict(G.state_dict())
+        with torch.inference_mode():
+            ref = Gw.to("cuda").eval()(x.cuda()).cpu()
+        err = float((torch.from_numpy(got) - ref).abs().max())
+        print(f"resnet_3blocks (1,16,{32 * N_RANKS},3) f32 sharded over {N_RANKS} ranks {case}: "
+              f"vs whole field on the card max|dy| {err:.3g}")
+        check(err <= 2e-4 * (1 + float(ref.abs().max())), f"small sharded forward {case}: "
+              f"off by {err:.3g}")
+    # 12 exchanges per forward (stem, 2 downs, 6 block convs, 2 ups, head)
+    # in the three rdma cases; 6 fused block convs in the two fused ones
+    want = {"halo_exchange_w": 36, "conv3x3_fused": 12}
+    for r, counts in enumerate(res["launches"]):
+        got = {k: counts[k] for k in want}
+        check(got == want and sum(counts.values()) == sum(want.values()),
+              f"small sharded forward: rank {r} launches {counts}, expected {want}")
+    print(f"small sharded forward: every rank launched {want}")
+
+
 def make_store(root: str) -> None:
     """testA/ and testB/: one NetCDF-3 file each, N_VARS variables of
     (N_TIMES, 721, 1440) smooth fields; B is the synthetic 'model bias' of
@@ -682,16 +920,9 @@ def make_store(root: str) -> None:
                 var[:] = data[v]
 
 
-def serve(torch, work: str, path: str):
-    """One infer.main run over the store on ``path``; returns (fields,
-    per-field ms, per-field Mpx/s, kernel launches). Every kernel's count
-    is set to 0 just before the run and read just after it."""
-    import numpy as np
-
-    from biasgan_tpu_torch import infer
-
-    fns = {name: kernel_fns(name)[0] for name in KERNELS}
-    argv = [
+def serve_argv(work: str, path: str) -> list:
+    """The infer command line of served path ``path`` over the store."""
+    return [
         "--model", "pix2pix", "--dataset_mode", "climate",
         "--dataroot", os.path.join(work, "data"),
         "--checkpoints_dir", os.path.join(work, "ckpt"), "--name", "globe",
@@ -702,14 +933,65 @@ def serve(torch, work: str, path: str):
         "--input_nc", str(N_VARS), "--output_nc", str(N_VARS),
         "--num_test", str(N_TIMES), "--device", "cuda",
     ] + PATHS[path][0]
+
+
+def padded_width(path: str) -> int:
+    """The width the served field is padded to on ``path``: the JAX CLI's
+    multiple, x8 under --fused_blocks and x the ranks when sharded
+    (infer.pad_multiples)."""
+    from biasgan_tpu_torch import infer
+
+    flags = PATHS[path][0]
+    n = N_RANKS if "--spatial_mesh" in flags else 1
+    w_multiple = infer.pad_multiples("resnet_9blocks", "--fused_blocks" in flags, n)[1]
+    return -(-GLOBE_W // w_multiple) * w_multiple
+
+
+def plain_padded(torch, work: str, width: int):
+    """Field 0 through the one-card plain path with W padded to ``width``
+    (wrap), as a path that pads to that width serves it."""
+    from biasgan_tpu_torch import infer
+    from biasgan_tpu_torch.config import parse_config
+    from biasgan_tpu_torch.data import create_dataset
+
+    cfg = parse_config(serve_argv(work, "plain"))
+    dev = torch.device("cuda")
+    with contextlib.redirect_stdout(io.StringIO()):
+        G = infer.build_generator(cfg, dev)
+        data = next(iter(create_dataset(cfg)))
+    stats = [torch.as_tensor(data[f"{k}_{s}"][0], device=dev)
+             for k in "AB" for s in ("mean", "std")]
+    y = infer.field_runner(G, 4, width)(torch.as_tensor(data["A"], device=dev), *stats)
+    return y.cpu().numpy()
+
+
+def serve(torch, work: str, path: str):
+    """One infer.main run over the store on ``path``; returns (fields,
+    per-field ms, per-field Mpx/s, kernel launches). Every kernel's count
+    is set to 0 just before the run and read just after it; a sharded
+    path's ranks count in their own processes, from 0, and infer.main
+    prints their counts (rank 0's are returned)."""
+    import numpy as np
+
+    from biasgan_tpu_torch import infer
+    from biasgan_tpu_torch.kernels import launch_counts
+
+    argv = serve_argv(work, path)
     out = io.StringIO()
-    for fn in fns.values():
-        fn.launches = 0
+    sharded = "--spatial_mesh" in PATHS[path][0]
+    if sharded:
+        torch.cuda.empty_cache()
+    zero_counts()
     with contextlib.redirect_stdout(out):
         out_dir = infer.main(argv)
-    launches = {name: fn.launches for name, fn in fns.items()}
     log = out.getvalue()
-    lines = [ln for ln in log.splitlines() if ln.startswith(("[", "--"))]
+    per_rank = [launch_counts()]
+    if sharded:
+        m = re.search(r"spatial: kernel launches per rank (\[.*\])", log)
+        check(m is not None, f"{path}: no launch counts from the ranks")
+        per_rank = json.loads(m.group(1))
+        check(len(per_rank) == N_RANKS, f"{path}: launch counts of {len(per_rank)} ranks")
+    lines = [ln for ln in log.splitlines() if ln.startswith(("[", "--", "spatial:"))]
     print("\n".join(f"  {path}: {ln}" for ln in lines))
     stamps = re.findall(r"corrected in ([0-9.]+) ms \(([0-9.]+) Mpx/s\)", log)
     check(len(stamps) == N_TIMES, f"{path}: expected {N_TIMES} served fields, got {len(stamps)}")
@@ -719,10 +1001,11 @@ def serve(torch, work: str, path: str):
         check(y.shape == (1, GLOBE_H, GLOBE_W, N_VARS), f"{path}: field {i} shape {y.shape}")
         check(bool(np.isfinite(y).all()), f"{path}: field {i} has non-finite values")
         fields.append(y)
-    want = {name: PATHS[path][1].get(name, 0) * N_TIMES for name in KERNELS}
-    check(launches == want, f"{path}: kernel launches {launches}, expected {want} "
-          f"({N_TIMES} fields)")
-    return fields, [float(s[0]) for s in stamps], [float(s[1]) for s in stamps], launches
+    want = {name: PATHS[path][1].get(name, 0) * N_TIMES for name in per_rank[0]}
+    for r, launches in enumerate(per_rank):
+        check(launches == want, f"{path}: rank {r} kernel launches {launches}, expected "
+              f"{want} ({N_TIMES} fields)")
+    return fields, [float(s[0]) for s in stamps], [float(s[1]) for s in stamps], per_rank[0]
 
 
 def serve_globe(torch, work: str) -> dict:
@@ -754,25 +1037,53 @@ def serve_globe(torch, work: str) -> dict:
         os.path.join(work, "data", "stats_B.json"), [], [f"var{v}" for v in range(N_VARS)]
     )
     std = np.array([sd[f"var{v}"]["std"] for v in range(N_VARS)], np.float32)
-    plain = served["plain"][0][0]
+    # a path that pads W wider than the plain one (the sharded
+    # --fused_blocks) is held to the plain path at its own width, and its
+    # distance from the unpadded one to UNPADDED_LIMITS
+    plain = {GLOBE_W: served["plain"][0][0]}
     for path in PATHS:
         if path == "plain":
             continue
-        diff = np.abs(served[path][0][0] - plain)
-        excess = diff - (0.02 * np.abs(plain) + 0.1 * std)
+        width = padded_width(path)
+        if width not in plain:
+            plain[width] = plain_padded(torch, work, width)
+            diff = np.abs(served[path][0][0] - plain[GLOBE_W]) / std
+            ends = np.r_[0:96, GLOBE_W - 96:GLOBE_W]
+            far = {"max": float(diff.max()), "ends_mean": float(diff[:, :, ends].mean()),
+                   "between_mean": float(np.delete(diff, ends, axis=2).mean())}
+            print(f"field 0, {path} (W padded to {width}) vs the plain path unpadded: max "
+                  f"|dy| {far['max']:.4g} std at column "
+                  f"{int(np.unravel_index(diff.argmax(), diff.shape)[2])}, mean |dy| "
+                  f"{far['ends_mean']:.4g} std in the 96 columns at each end, "
+                  f"{far['between_mean']:.4g} between (limits {UNPADDED_LIMITS})")
+            check(all(far[k] <= UNPADDED_LIMITS[k] for k in far),
+                  f"{path}: further from the unpadded plain field than the known pad "
+                  f"effect: {far}, limits {UNPADDED_LIMITS}")
+        ref = plain[width]
+        diff = np.abs(served[path][0][0] - ref)
+        excess = diff - (0.02 * np.abs(ref) + 0.1 * std)
         print(
-            f"field 0, {path} vs plain path: max |dy| {float((diff / std).max()):.4g} std, "
-            f"mean |dy| {float((diff / std).mean()):.4g} std, "
-            f"worst margin to the bf16 bound {float(excess.max()):.4g}"
+            f"field 0, {path} vs plain path (W padded to {width}): max |dy| "
+            f"{float((diff / std).max()):.4g} std, mean |dy| {float((diff / std).mean()):.4g} "
+            f"std, worst margin to the bf16 bound {float(excess.max()):.4g}"
         )
         check(float(excess.max()) <= 0 and float((diff / std).mean()) <= 0.01,
               f"{path} and plain globe outputs disagree beyond bf16 tolerance")
+    # the halo kernel moves the same bytes as the ring: the same fields
+    rdma_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(served["spatial_rdma"][0], served["spatial"][0]))
+    print(f"spatial_rdma vs spatial (the plain ring), every field: max |dy| {rdma_err:.4g}")
+    check(rdma_err <= 2e-5, f"--halo_rdma fields differ from the ring's by {rdma_err:.3g}")
     name = torch.cuda.get_device_name(0)
     for path, (_, ms, mpx, _) in served.items():
+        shared = ""
+        if "--spatial_mesh" in PATHS[path][0] and torch.cuda.device_count() < N_RANKS:
+            shared = (f"; {N_RANKS} ranks time-slice this one card: a smoke reading of the "
+                      "path, not a multi-card speed")
         print(
             f"globe {GLOBE_H}x{GLOBE_W}x{N_VARS} bf16 {path}: ms/field {ms} "
             f"(field 0 warms up; median of the rest {statistics.median(ms[1:]):.1f}), "
-            f"Mpx/s {mpx} on {name}"
+            f"Mpx/s {mpx} on {name}{shared}"
         )
     return {path: s[3] for path, s in served.items()}
 
@@ -814,10 +1125,12 @@ TRAIN_ROUTES = {
 
 
 def _counters():
-    """Every launch count: name -> (function object, attribute)."""
+    """Every launch count: name -> (function object, attribute): each
+    kernel wrapper's, and the training-only ones."""
+    from biasgan_tpu_torch.kernels import wrappers
     from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_t
 
-    c = {name: (kernel_fns(name)[0], "launches") for name in KERNELS}
+    c = {name: (fn, "launches") for name, fn in wrappers().items()}
     c["conv3x3_fused_t"] = (conv3x3_fused_t, "launches")
     c["conv3x3_valid.bwd"] = (kernel_fns("conv3x3_valid")[0], "bwd_launches")
     return c
@@ -1037,11 +1350,13 @@ def train_phase(torch, work) -> dict:
     return out
 
 
-def kernel_report(times, errs, grad_times, grad_errs, launches, trained) -> list:
+def kernel_report(times, errs, grad_times, grad_errs, launches, trained, spatial_times,
+                  halo) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
-    routes."""
+    routes; the block conv's halo W mode on the sharded --fused_blocks
+    path; the halo exchange on the sharded --halo_rdma path."""
     per = {"field": "field: each globe call's best time times its calls per field",
            "step": "step: each call's best time times its launches per 256x256 CycleGAN "
                    "step at batch 1"}
@@ -1078,6 +1393,14 @@ def kernel_report(times, errs, grad_times, grad_errs, launches, trained) -> list
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
                 "max_grad_err": grad_errs[form], "per": train_per, "calls": g["calls"]})
         elif name == "conv3x3_fused":
+            t = spatial_times[name]
+            entry["halo"] = {
+                "path": "spatial_rdma_fused", "w_mode": "halo",
+                "launches": launches["spatial_rdma_fused"][name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "per": "field per rank: the halo-mode call's best time times its 18 calls",
+                "calls": t["calls"]}
             g = grad_times["conv3x3_fused_t"]
             entry["train"] = {
                 "name": "conv3x3_fused_t", "replaces": "biasgan_tpu/ops/pallas_conv.py:1091",
@@ -1088,6 +1411,25 @@ def kernel_report(times, errs, grad_times, grad_errs, launches, trained) -> list
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "per": train_per,
                 "calls": g["calls"]}
         kernels.append(entry)
+    h = halo["totals"]["spatial_rdma"]
+    kernels.append({
+        "name": "halo_exchange_w", "route": "cuda",
+        "source": "biasgan_tpu_torch/kernels/csrc/halo_exchange.cu",
+        "replaces": "biasgan_tpu/ops/pallas_halo.py:96",
+        "launches": launches["spatial_rdma"]["halo_exchange_w"],
+        "max_abs_err": halo["max_abs_err"],
+        "ms": h["kernel_ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+        "bound_by": "bytes", "library_ms": h["library_ms"], "path": "spatial_rdma",
+        "per": (f"field per rank of {N_RANKS} on this card: each exchange shape's best time "
+                "times its exchanges per forward; ms is the kernel alone (CUDA events), "
+                "exchange_ms the kernel with its stream sync, barrier and read, plain_ms the "
+                "plain ring (host copies under gloo), library_ms its messages alone "
+                "(batch_isend_irecv on host tensors)"),
+        "exchange_ms": h["exchange_ms"], "nvlink_bound_ms": h["nvlink_bound_ms"],
+        "backend": halo["backend"], "calls": h["calls"],
+        "fused": {k: v for k, v in halo["totals"]["spatial_rdma_fused"].items()
+                  if k != "calls"},
+    })
     return kernels
 
 
@@ -1110,9 +1452,12 @@ def main() -> int:
         build_kernels()
         errs = check_kernels(torch)
         times = time_kernels(torch)
+        spatial_times = time_kernels(torch, SPATIAL_CALLS)
+        halo = check_halo_exchange(torch)
         grad_errs = check_grads(torch)
         grad_times = time_grads(torch)
         check_small_generator(torch)
+        check_small_sharded(torch)
         launches = serve_globe(torch, work)
         trained = train_phase(torch, work)
     except SmokeFailure as e:
@@ -1122,7 +1467,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"training": trained}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs,
-                                               launches, trained)}))
+                                               launches, trained, spatial_times, halo)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -149,8 +149,10 @@ def test_cpu_path_launches_no_kernel_and_checks_arguments():
     assert tuple(y.shape) == (N, H, W, C)
     with pytest.raises(ValueError, match="OIHW"):
         conv3x3_fused(xt, torch.from_numpy(k.copy()))  # HWIO by mistake
-    with pytest.raises(ValueError, match="halo"):
-        conv3x3_fused(xt, kt, w_mode="halo")
+    with pytest.raises(ValueError, match="unknown w_mode 'bogus'"):
+        conv3x3_fused(xt, kt, w_mode="bogus")
+    with pytest.raises(ValueError, match="unknown h_mode 'halo'"):  # a W mode only
+        conv3x3_fused(xt, kt, h_mode="halo")
     with pytest.raises(ValueError, match="reflect"):
         conv3x3_fused(xt[:, :1], kt, h_mode="reflect")
     with pytest.raises(ValueError, match="runs on cpu or cuda"):

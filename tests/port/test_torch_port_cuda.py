@@ -266,3 +266,70 @@ def test_wrappers_never_return_detached_results_on_the_card():
         convt3x3s2_fused(x, k.transpose(0, 1))
     with torch.no_grad():
         conv3x3s2_fused(x, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cout", [(3, 5), (32, 48), (256, 256)])
+def test_conv3x3_fused_halo_mode_matches_plain(dtype, c, cout):
+    """The halo W mode: an input carrying its two W pad columns, every H
+    pad, with and without the prologue (which applies to the pad columns
+    too)."""
+    _needs_card()
+    for i, h_mode in enumerate(("reflect", "zero", "wrap")):
+        for pro_on in (False, True):
+            x, k, b, a, pb = _inputs(2, 13, 39, c, cout, dtype, seed=10 + i)
+            args = (x, k, b, (a, pb) if pro_on else None, "relu", h_mode, "halo", True)
+            y, m = conv3x3_fused(*args)
+            ry, rm = conv3x3_fused_plain(*args)
+            assert tuple(y.shape) == (2, 13, 37, cout)
+            _check_y(y, ry, dtype)
+            _check_moments(y, ry, m, rm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [True, False])
+def test_halo_exchange_self_ring_on_the_card(periodic):
+    """One shard, no process group: the kernel writes into its own receive
+    buffers; the halos equal the plain version's (wrap or zero) bitwise."""
+    _needs_card()
+    from biasgan_tpu_torch.kernels.halo_exchange import (
+        HaloRing,
+        halo_exchange_w,
+        halo_exchange_w_plain,
+    )
+
+    ring = HaloRing(1, periodic)
+    for shape, dtype, left, right in (((1, 730, 360, 3), torch.float32, 3, 3),
+                                      ((2, 13, 37, 256), torch.bfloat16, 1, 1),
+                                      ((1, 5, 7, 3), torch.bfloat16, 2, 0)):
+        x = torch.randn(shape, device="cuda").to(dtype)
+        before = halo_exchange_w.launches
+        got = halo_exchange_w(x, left, right, ring)
+        assert halo_exchange_w.launches == before + 1
+        for a, b in zip(got, halo_exchange_w_plain(x, left, right, ring)):
+            assert torch.equal(a, b)
+    ring.close()
+
+
+@pytest.mark.cuda
+def test_halo_exchange_kernel_matches_ring_across_ranks():
+    """Four spawned ranks on the card(s): for every case of the CPU test,
+    the kernel's padded shards equal the plain ring's bitwise, and shard 0's
+    equals the whole field's wrap or zero pad."""
+    _needs_card()
+    from biasgan_tpu_torch.parallel import spawn
+    from biasgan_tpu_torch.parallel.checks import halo_cases
+
+    x = np.random.default_rng(0).normal(size=(2, 6, 32, 3)).astype(np.float32)
+    cases = [(l, r, p) for p in (True, False) for l, r in ((1, 1), (2, 3), (3, 0), (0, 2))]
+    res = spawn(halo_cases, 4, (x, cases), device="cuda", timeout=300, group_timeout=120)
+    for left, right, periodic in cases:
+        ring, rdma = res[(left, right, periodic, False)], res[(left, right, periodic, True)]
+        np.testing.assert_array_equal(rdma, ring)
+        # shard 0 padded: the whole field's pad, cut after its right halo
+        whole = np.pad(x, ((0, 0), (0, 0), (left, right), (0, 0)),
+                       mode="wrap" if periodic else "constant")
+        np.testing.assert_array_equal(ring[:, :, :8 + left + right],
+                                      whole[:, :, :8 + left + right])
+    assert "wider than local shard" in res["guard"]

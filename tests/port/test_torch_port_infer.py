@@ -6,7 +6,11 @@ Pallas interpret mode; the port's conv3x3_fused on the CPU is its plain
 version), and the kernel routes --fused_blocks --fused_updown
 --conv7_pallas 1 and --force_pallas_norm (ngf 16, so that the 7x7 stem and
 head each have one tiny channel side). The corrected .npy fields agree to
-2e-4."""
+2e-4. Then spatial sharding: --spatial_mesh 2 (two spawned gloo ranks,
+with and without --fused_blocks) against the JAX CLI's --spatial_mesh 2,
+the sharded and the one-rank --halo_rdma self-ring fields against the
+one-device ones, --halo_rdma against the plain ring, and the refusal of a
+reflect pad on a sharded W."""
 
 import os
 
@@ -100,10 +104,103 @@ def test_port_cli_matches_jax_cli(store, fused, monkeypatch):
         np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
 
 
-def test_port_cli_refuses_spatial_sharding(store):
-    for flags in (["--spatial_mesh", "2"], ["--halo_rdma"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            port_infer.main(_infer_args(store, *flags, "--device", "cpu"))
+@pytest.fixture(scope="module")
+def port_sharded(store):
+    """The port CLI with --spatial_mesh 2 (two spawned gloo ranks)."""
+    return _fields(port_infer.main(_infer_args(
+        store, "--spatial_mesh", "2", "--results_dir", str(store / "port_sp2"),
+        "--device", "cpu",
+    )))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_port_cli_spatial_mesh_matches_jax_cli(store, port_sharded, fused, monkeypatch):
+    """--spatial_mesh 2 through both CLIs: the JAX one on two devices of the
+    conftest's virtual mesh, the port's on two spawned ranks; with
+    --fused_blocks, the JAX blocks in Pallas interpret mode and the port's
+    block conv in its halo W mode (W 64 = 2 shards x 4 x 8)."""
+    extra = ["--spatial_mesh", "2"] + (["--fused_blocks"] if fused else [])
+    if fused:
+        monkeypatch.setenv("BIASGAN_FUSED_BLOCK", "interpret")
+        monkeypatch.setenv("BIASGAN_FUSED_MIN_C", "1")  # toy ngf=8 -> C=32
+    tag = "fused" if fused else "plain"
+    want = _fields(jax_infer.main(
+        _infer_args(store, *extra, "--results_dir", str(store / f"jax_sp2_{tag}"))
+    ))
+    got = port_sharded if not fused else _fields(port_infer.main(_infer_args(
+        store, *extra, "--results_dir", str(store / f"port_sp2_{tag}"), "--device", "cpu"
+    )))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (1, H, W, NC) and g.dtype == np.float32
+        np.testing.assert_allclose(g, w, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("flags", [["--spatial_mesh", "2"], ["--spatial_mesh", "1", "--halo_rdma"]],
+                         ids=["2ranks", "self_ring"])
+def test_port_cli_sharded_equals_one_device(store, port_sharded, flags, capsys):
+    """--spatial_mesh 2, and the one-rank self-ring of --halo_rdma, serve
+    what one device serves (rtol 1e-4, atol 1e-5, as the sharded forward)."""
+    one = _fields(port_infer.main(_infer_args(
+        store, "--results_dir", str(store / "port_one"), "--device", "cpu"
+    )))
+    capsys.readouterr()
+    if flags == ["--spatial_mesh", "2"]:
+        got = port_sharded
+    else:
+        got = _fields(port_infer.main(_infer_args(
+            store, *flags, "--results_dir", str(store / "port_self"), "--device", "cpu"
+        )))
+        out = capsys.readouterr().out
+        assert "spatial: 1 rank(s) (rank->device 0->cpu), backend gloo" in out
+        assert "--halo_rdma: on the CPU the exchange is the halo_exchange_w" in out
+        assert out.count("] field (1, 24, 64, 2) -> corrected in") == 2
+    for g, w in zip(got, one):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_port_cli_halo_rdma_equals_ring(store, port_sharded):
+    """--halo_rdma: on the CPU the wrapper's plain version, the same ring,
+    so the fields are bitwise those of the ring path."""
+    got = _fields(port_infer.main(_infer_args(
+        store, "--spatial_mesh", "2", "--halo_rdma",
+        "--results_dir", str(store / "port_sp2_rdma"), "--device", "cpu",
+    )))
+    for g, w in zip(got, port_sharded):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_port_cli_spatial_refuses_reflect(store):
+    with pytest.raises(NotImplementedError, match="reflect padding on a sharded width"):
+        port_infer.main(_infer_args(
+            store, "--spatial_mesh", "2", "--w_pad_mode", "reflect", "--device", "cpu",
+        ))
+
+
+@pytest.mark.parametrize("flags,notes", [
+    (["--spatial_mesh", "2", "--fused_blocks", "--fused_updown", "--conv7_pallas", "1",
+      "--pallas_conv", "1", "--force_pallas_norm"],
+     ["--fused_updown: ignored — it cannot engage on a sharded W",
+      "--conv7_pallas: ignored — it cannot engage on a sharded W",
+      "--pallas_conv: ignored — it cannot engage on a sharded W",
+      "--force_pallas_norm: ignored — it cannot engage on a sharded W"]),
+    (["--spatial_mesh", "2", "--fused_blocks", "--halo_rdma", "--no-no_dropout"],
+     ["--fused_blocks: ignored — dropout is on",
+      "--halo_rdma: on the CPU the exchange is the halo_exchange_w kernel's plain version"]),
+    (["--fused_blocks", "--halo_rdma"],
+     ["--halo_rdma: ignored — with --spatial_mesh 1 and --fused_blocks"]),
+])
+def test_spatial_routing_notices(tmp_path, flags, notes):
+    """On a sharded W only the fused block path engages; every other kernel
+    flag says so. --spatial_mesh 1 --fused_blocks serves on one device, as
+    the JAX CLI, and --halo_rdma says it is ignored there."""
+    cfg = parse_config(_infer_args(tmp_path, *flags, "--device", "cpu", ngf=16))
+    sharded = port_infer.is_sharded(cfg)
+    assert sharded == ("--spatial_mesh" in flags)
+    G = None if sharded else define_G(cfg.netG, cfg.input_nc, cfg.output_nc, ngf=cfg.ngf).eval()
+    got = port_infer.routing_notices(cfg, G, sharded=sharded)
+    assert len(got) == len(notes)
+    for line, want in zip(got, notes):
+        assert line.startswith(want), (line, want)
 
 
 def test_port_cli_fused_notice_for_unfusable_generator(store, capsys):
