@@ -68,7 +68,9 @@ class BaseConfig:
     load_iter: int = 0
     # compute dtype of the convs: 'float32' | 'bfloat16'
     compute_dtype: str = "float32"
-    # width-axis sharding for full-globe inference (1 = single device)
+    # width-axis (longitude) sharding over this many ranks, one process each,
+    # for inference and training (1 = single device); --halo_rdma exchanges
+    # the halos with the halo_exchange_w kernel (inference only)
     spatial_mesh: int = 1
     halo_rdma: bool = False
     # periodic-longitude padding for global fields ('' = architecture default)

@@ -10,9 +10,10 @@ over W (longitude) with halo exchange.
 
 Counterpart of the repo-root ``infer.py``, with the same flags: read the
 fields, standardize with the source-domain stats, reflect-pad H to the
-2^downs multiple and wrap-pad W to the multiple ``infer.py`` uses
-(n_shards * 2^downs, x8 more under --fused_blocks; the padded columns enter
-the instance-norm statistics, so the multiple changes the output), run G,
+2^downs multiple and wrap-pad W to n_shards * 2^downs (the JAX CLI pads W
+x8 wider under --fused_blocks for its TPU kernel; the padded columns enter
+the instance-norm statistics, so the port, whose kernels need no
+alignment, does not), run G,
 crop, destandardize with the target-domain stats, and write
 ``<results_dir>/<name>/fields/corrected_%05d.npy``. G loads from
 ``<checkpoints_dir>/<name>/<epoch>_net_<G>.pth``; --direction picks G_A or
@@ -76,15 +77,15 @@ def generator_downs(netG: str) -> int:
     raise ValueError(netG)
 
 
-def pad_multiples(netG: str, fused_blocks: bool, n_shards: int = 1) -> tuple:
+def pad_multiples(netG: str, n_shards: int = 1) -> tuple:
     """(H, W) multiples the field is padded to before G: the 2^downs
-    multiple, for W times the shards, and x8 more when --fused_blocks is
-    asked for a resnet (the JAX infer.py widens the wrap pad so whenever
-    the fused path is requested, infer.py:64, 112; the padded columns enter
-    the instance-norm statistics, so the port widens the same way)."""
+    multiple, for W times the shards. The JAX infer.py widens the W
+    multiple x8 more under --fused_blocks (infer.py:64, 112), for its TPU
+    kernel's 8-aligned local width; the port's kernels mask ragged tiles,
+    so it does not, and serves the field with no wrapped columns in its
+    instance-norm statistics on every path."""
     h_multiple = 2 ** generator_downs(netG)
-    w_multiple = h_multiple * (8 if fused_blocks and netG.startswith("resnet") else 1)
-    return h_multiple, w_multiple * n_shards
+    return h_multiple, h_multiple * n_shards
 
 
 def pad_field(x: torch.Tensor, h_multiple: int, w_multiple: int) -> torch.Tensor:
@@ -292,7 +293,7 @@ def serve_rank(rank, n, device, say, argv):
         G = build_generator(cfg, device)
     say(loading.getvalue().rstrip())
     ctx = HaloCtx(n, periodic=(cfg.w_pad_mode or "wrap") == "wrap", rdma=cfg.halo_rdma)
-    run = field_runner(spatial_apply(G, ctx), *pad_multiples(cfg.netG, cfg.fused_blocks, n))
+    run = field_runner(spatial_apply(G, ctx), *pad_multiples(cfg.netG, n))
     serve_fields(cfg, dataset, device, run, say, before=ctx.barrier)
     launches = [None] * n
     dist.all_gather_object(launches, launch_counts())
@@ -329,7 +330,7 @@ def main(argv=None):
     dataset = create_dataset(cfg)
     G = build_generator(cfg, device)
 
-    run = field_runner(G, *pad_multiples(cfg.netG, cfg.fused_blocks))
+    run = field_runner(G, *pad_multiples(cfg.netG))
     for note in routing_notices(cfg, G):
         print(note)
     return serve_fields(cfg, dataset, device, run)

@@ -27,8 +27,11 @@ columns, the halo-exchanged neighbour columns, at 0 and W+1 of an
 in the kernel, and the prologue applies to the pad columns too (they carry
 the neighbour's raw conv output). The Pallas scratch layout of
 ``embed_halo_w`` (seven zero columns on each side, for Mosaic's 8-aligned
-DMA) is not carried. ``conv3x3_fused_t`` refuses it: spatially sharded
-training is not ported.
+DMA) is not carried. ``conv3x3_fused_t`` takes it too (spatially sharded
+training, ``_fused_diff_bwd``'s halo branch, pallas_conv.py:1025-1040): the
+backward pads H only and runs a VALID conv on W, so dx covers all W+2
+columns, and the cotangents of the two halo columns flow back through the
+exchange's reverse ring to the neighbours.
 
 Differences from the Pallas wrapper: the input is at its logical height
 (no ``h_run`` tail: the kernel masks ragged tiles itself), there is no plan
@@ -263,14 +266,17 @@ class _FusedT(torch.autograd.Function):
         else:
             u = x
         # dU and dW of pad + VALID conv in the compute dtype (the JAX
-        # backward's preferred_element_type=cdt), then the pad's adjoint
-        up = pad_hw(u, (1, 1), (1, 1), h_mode, w_mode)
+        # backward's preferred_element_type=cdt), then the pad's adjoint;
+        # the halo mode's W pad columns are x's own, so W is a VALID conv
+        halo = w_mode == "halo"
+        up = pad_hw(u, (1, 1), (0, 0) if halo else (1, 1), h_mode, "zero" if halo else w_mode)
         w = weight.to(cdt)
         dUp, dW, _ = torch.ops.aten.convolution_backward(
             dYf.to(cdt).permute(0, 3, 1, 2), up.permute(0, 3, 1, 2), w,
             None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False],
         )
-        dU = _unpad1(_unpad1(dUp.permute(0, 2, 3, 1), 2, w_mode), 1, h_mode)
+        dU = dUp.permute(0, 2, 3, 1)
+        dU = _unpad1(dU if halo else _unpad1(dU, 2, w_mode), 1, h_mode)
         dbias = None if bias is None else dYf.sum(dim=(0, 1, 2)).to(bias.dtype)
         da = db = None
         if a is not None:
@@ -303,14 +309,10 @@ def conv3x3_fused_t(
     kernel on the card, counted in ``conv3x3_fused.launches`` and
     ``conv3x3_fused_t.launches``; the plain version on the CPU), and the
     exact backward of pad + conv + bias + moments, with the prologue chain
-    to x, a and b. The ``--fused_blocks`` training route. The ``halo`` W
-    mode raises: spatially sharded training is not ported."""
+    to x, a and b. The ``--fused_blocks`` training route; in the ``halo``
+    W mode, that of spatially sharded training, dx covers the two halo
+    columns too."""
     _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
-    if w_mode == "halo":
-        raise NotImplementedError(
-            "conv3x3_fused_t: w_mode='halo' (spatially sharded training) is not "
-            "ported; the halo mode runs in inference only"
-        )
     a, b = prologue if prologue is not None else (None, None)
     out = _FusedT.apply(x, weight, bias, a, b, act_pre, h_mode, w_mode, want_moments)
     return (out[0], (out[1], out[2])) if want_moments else out

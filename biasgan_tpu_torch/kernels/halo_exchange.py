@@ -1,4 +1,4 @@
-"""Ring exchange of W halos between the ranks of spatially sharded inference.
+"""Ring exchange of W halos between the ranks of a spatially sharded forward.
 
 Counterpart of ``biasgan_tpu/ops/pallas_halo.py::halo_exchange_w`` (:96,
 body ``_halo_kernel`` :44). Rank r of an n-rank ring sends the last ``left``
@@ -18,7 +18,15 @@ through CUDA IPC; then the ranks synchronise on the host (stream sync, group
 barrier) and each reads its own buffers. ``halo_exchange_w.launches``
 counts the kernel launches.
 
-Inference only, as in JAX: neither transport has a backward.
+The plain ring is differentiable, as ``ppermute`` is in JAX: where autograd
+records, ``halo_exchange_w_plain`` goes through a ``torch.autograd.Function``
+whose backward is the reverse ring (the transpose of ``ppermute``,
+``biasgan_tpu/parallel/spatial.py:73-97``): the cotangent of a left halo goes
+back to the left neighbour, which adds it onto its last ``left`` columns, and
+that of a right halo to the right neighbour, onto its first ``right``
+columns; a cotangent of a global-edge halo that nobody sent is dropped. The
+kernel is inference only, as in JAX: ``halo_exchange_w`` refuses to run where
+autograd records.
 """
 
 from __future__ import annotations
@@ -29,7 +37,15 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from biasgan_tpu_torch.kernels.common import INT, PTR, check_device, launch, ptr, refuse_grad
+from biasgan_tpu_torch.kernels.common import (
+    INT,
+    PTR,
+    check_device,
+    launch,
+    ptr,
+    refuse_grad,
+    wants_grad,
+)
 
 # the two directions' messages, told apart where two ranks exchange both
 TAG_RIGHTWARD, TAG_LEFTWARD = 1, 2
@@ -182,7 +198,83 @@ def _check_args(x: torch.Tensor, left: int, right: int) -> None:
             f"halo ({left},{right}) wider than local shard width {x.shape[2]}; "
             "use fewer shards or a wider field"
         )
-    refuse_grad("halo_exchange_w", "inference only, as in JAX", x)
+
+
+def _swap(ring: HaloRing, like: torch.Tensor, legs) -> None:
+    """One ``batch_isend_irecv`` of the ring's ``legs``, each ``(k, send,
+    to, sends, out, frm, receives, tag)``: where ``k`` > 0, ``send`` goes to
+    rank ``to`` if ``sends``, and ``out`` is filled from rank ``frm`` if
+    ``receives`` (else it keeps what it holds). Under gloo a CUDA tensor
+    goes through host copies."""
+    where = torch.device("cpu") if ring.via_host and like.is_cuda else like.device
+    ops, landed = [], []
+    for k, send, to, sends, out, frm, receives, tag in legs:
+        if k == 0:
+            continue
+        if sends:
+            ops.append(dist.P2POp(dist.isend, send.contiguous().to(where), to, ring.group, tag))
+        if receives:
+            buf = torch.empty(out.shape, dtype=like.dtype, device=where)
+            ops.append(dist.P2POp(dist.irecv, buf, frm, ring.group, tag))
+            landed.append((out, buf))
+    for req in dist.batch_isend_irecv(ops) if ops else ():
+        req.wait()
+    for out, buf in landed:
+        out.copy_(buf)
+
+
+def _ring(x: torch.Tensor, left: int, right: int, ring: HaloRing):
+    n, h, w, c = x.shape
+    lh, rh = x.new_zeros((n, h, left, c)), x.new_zeros((n, h, right, c))
+    if ring.n == 1:  # a self-ring: wrap in place, or the zero pad
+        if ring.periodic:
+            lh.copy_(x[:, :, w - left:])
+            rh.copy_(x[:, :, :right])
+        return lh, rh
+    _swap(ring, x, (
+        (left, x[:, :, w - left:], ring.right, ring.has_right(), lh, ring.left,
+         ring.has_left(), TAG_RIGHTWARD),
+        (right, x[:, :, :right], ring.left, ring.has_left(), rh, ring.right,
+         ring.has_right(), TAG_LEFTWARD),
+    ))
+    return lh, rh
+
+
+def _reverse_ring(dlh: torch.Tensor, drh: torch.Tensor, shape, ring: HaloRing) -> torch.Tensor:
+    """The adjoint of ``_ring``: the cotangent of x (of ``shape``) that the
+    halos' cotangents give, each sent back to the rank it came from."""
+    n, h, w, c = shape
+    left, right = dlh.shape[2], drh.shape[2]
+    last = dlh.new_zeros((n, h, left, c))  # the cotangent of x's last `left` columns
+    first = drh.new_zeros((n, h, right, c))  # ... and of its first `right`
+    if ring.n == 1:
+        if ring.periodic:
+            last.copy_(dlh)
+            first.copy_(drh)
+    else:
+        _swap(ring, dlh, (
+            (left, dlh, ring.left, ring.has_left(), last, ring.right, ring.has_right(),
+             TAG_LEFTWARD),
+            (right, drh, ring.right, ring.has_right(), first, ring.left, ring.has_left(),
+             TAG_RIGHTWARD),
+        ))
+    dx = dlh.new_zeros(shape)
+    dx[:, :, w - left:] += last
+    dx[:, :, :right] += first
+    return dx
+
+
+class _RingExchange(torch.autograd.Function):
+    """The plain ring under autograd: backward is the reverse ring."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, ring):
+        ctx.shape, ctx.ring = x.shape, ring
+        return _ring(x, left, right, ring)
+
+    @staticmethod
+    def backward(ctx, dlh, drh):
+        return _reverse_ring(dlh, drh, ctx.shape, ctx.ring), None, None, None
 
 
 def halo_exchange_w_plain(
@@ -191,37 +283,13 @@ def halo_exchange_w_plain(
     """Plain version of ``halo_exchange_w``: the halos by point-to-point
     messages (one ``batch_isend_irecv``), the global-edge halos of a
     non-periodic W as zeros that nobody sends (``ppermute``'s missing
-    source). Under gloo a CUDA tensor goes through host copies."""
+    source). Under gloo a CUDA tensor goes through host copies. Where
+    autograd records, its backward is the reverse ring (module docstring):
+    collective as the forward is."""
     _check_args(x, left, right)
-    n, h, w, c = x.shape
-    lh, rh = x.new_zeros((n, h, left, c)), x.new_zeros((n, h, right, c))
-    if ring.n == 1:  # a self-ring: wrap in place, or the zero pad
-        if ring.periodic:
-            lh.copy_(x[:, :, w - left:])
-            rh.copy_(x[:, :, :right])
-        return lh, rh
-    stage = ring.via_host and x.is_cuda
-    where = torch.device("cpu") if stage else x.device
-    ops, landed = [], []
-    for k, send, to, sends, out, frm, receives, tag in (
-        (left, x[:, :, w - left:], ring.right, ring.has_right(), lh, ring.left,
-         ring.has_left(), TAG_RIGHTWARD),
-        (right, x[:, :, :right], ring.left, ring.has_left(), rh, ring.right,
-         ring.has_right(), TAG_LEFTWARD),
-    ):
-        if k == 0:
-            continue
-        if sends:
-            ops.append(dist.P2POp(dist.isend, send.contiguous().to(where), to, ring.group, tag))
-        if receives:
-            buf = torch.empty(out.shape, dtype=x.dtype, device=where)
-            ops.append(dist.P2POp(dist.irecv, buf, frm, ring.group, tag))
-            landed.append((out, buf))
-    for req in dist.batch_isend_irecv(ops) if ops else ():
-        req.wait()
-    for out, buf in landed:
-        out.copy_(buf)
-    return lh, rh
+    if wants_grad(x):
+        return _RingExchange.apply(x, left, right, ring)
+    return _ring(x, left, right, ring)
 
 
 _LAUNCH_ARGS = [PTR, PTR, PTR, INT, ctypes.c_longlong, INT, INT, INT, INT]
@@ -278,8 +346,10 @@ def halo_exchange_w(
     ``ring`` calls it with the same shapes.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``halo_exchange_w.launches``) or raises."""
+    (counted in ``halo_exchange_w.launches``) or raises. Inference only:
+    it raises where autograd records."""
     _check_args(x, left, right)
+    refuse_grad("halo_exchange_w", "inference only, as in JAX", x)
     if check_device("halo_exchange_w", x, []):
         return halo_exchange_w_plain(x, left, right, ring)
     if not x.is_contiguous():

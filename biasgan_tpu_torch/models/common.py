@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from biasgan_tpu_torch.data.transforms import in_step_augment, standardize
+from biasgan_tpu_torch.parallel.spatial import shard_w
 
 
 class Adam:
@@ -135,7 +136,10 @@ class GANTrainState:
 def prepare_batch(batch, generator: Optional[torch.Generator], cfg, train: bool = True):
     """Standardize A and B with the per-variable stats the dataset sent
     along (climate data), then, in training with --in_graph_aug, flip and
-    roll the pair with shared draws (``in_step_augment``)."""
+    roll the pair with shared draws (``in_step_augment``). Under spatial
+    sharding every rank prepares the same global batch, with the same
+    draws, and then takes its W shard (``shard_batch``): flip and roll are
+    not local to a shard (JAX parallel/spatial.py:185-214)."""
     out = dict(batch)
     for k in ("A", "B"):
         mk, sk = f"{k}_mean", f"{k}_std"
@@ -147,6 +151,12 @@ def prepare_batch(batch, generator: Optional[torch.Generator], cfg, train: bool 
             out, generator, flip=not cfg.no_flip, lon_roll=getattr(cfg, "aug_lon_roll", False)
         )
     return out
+
+
+def shard_batch(batch, ctx):
+    """This rank's W shard of every NHWC field of the batch (the rest as it
+    is)."""
+    return {k: shard_w(v, ctx) if getattr(v, "ndim", 0) == 4 else v for k, v in batch.items()}
 
 
 def resolve_direction(batch, direction: str):

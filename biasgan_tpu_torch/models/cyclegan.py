@@ -19,6 +19,16 @@ G_B([B; fake_B; A]), G_A(fake_A)), and each D pair as one 2B pass, exactly
 as the JAX step does; otherwise they run one by one. The kernel routes
 (--fused_blocks, --pallas_conv, --conv7_pallas, --force_pallas_norm) are
 attributes of the nets (``build_nets``).
+
+Under spatial sharding (``ctx``, a ``parallel.spatial.HaloCtx``; JAX
+:132-380 with ``spatial_train_step``) each rank prepares the global batch
+with the same draws and takes its W shard; the Gs run on the shards under
+the context, the PatchGAN Ds on the whole W gathered on every rank (their
+W-shrinking final convs cannot shard), the losses and both optimizers'
+grads are averaged over the ranks before Adam, and the replay pools hold
+this rank's W slice of every pooled fake, with the same decisions on every
+rank. So every rank takes the one-device step, and every rank's parameters
+stay equal to every other's.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from biasgan_tpu_torch.models.common import (
     named_params,
     prepare_batch,
     resolve_direction,
+    shard_batch,
 )
 from biasgan_tpu_torch.nn import compute_dtype_of, define_D, define_G
 from biasgan_tpu_torch.utils.image_pool import create_pool, pool_query
@@ -83,16 +94,20 @@ def build_nets(cfg, generator: Optional[torch.Generator] = None) -> Dict[str, to
     }
 
 
-def create_state(cfg, device, nets: Optional[Dict[str, torch.nn.Module]] = None) -> GANTrainState:
+def create_state(cfg, device, nets: Optional[Dict[str, torch.nn.Module]] = None,
+                 ctx=None) -> GANTrainState:
     """The training state on ``device``: the four nets (seeded from
     --seed unless given), one Adam over both Gs and one over both Ds, and
-    the two replay pools when --pool_size > 0."""
+    the two replay pools when --pool_size > 0 (under a spatial context
+    ``ctx``, of this rank's W shard)."""
     if nets is None:
         nets = build_nets(cfg, torch.Generator().manual_seed(cfg.seed))
     nets = {k: v.to(device).train() for k, v in nets.items()}
     pools = {}
     if cfg.pool_size > 0:
         h = w = cfg.crop_size
+        if ctx is not None:
+            w //= ctx.n_shards
         pools = {
             "fake_B": create_pool(cfg.pool_size, (h, w, cfg.output_nc), device),
             "fake_A": create_pool(cfg.pool_size, (h, w, cfg.input_nc), device),
@@ -116,13 +131,19 @@ def _grads(opt) -> Dict[str, torch.Tensor]:
     }
 
 
-def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = False):
+def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = False,
+                    ctx=None):
     """The CycleGAN step: ``step(state, batch, generator) -> (losses,
     visuals)``, updating ``state`` in place. ``batch`` holds device tensors
     (A, B and, for climate data, their stats); ``generator`` draws the
     step's augmentation and pool decisions. ``debug_grads`` adds the step's
     G and D gradients to the visuals (the JAX step's hook of the same name,
-    for equivalence tests)."""
+    for equivalence tests).
+
+    ``ctx``: the step of one rank of a spatially sharded run (module
+    docstring). ``batch`` is then the global batch, the same on every
+    rank, and the visuals are this rank's W shards; the losses and the
+    grads are the means over the ranks."""
     lr_fn = make_lr_schedule(cfg)
     gan_mode = cfg.gan_mode
     lam_A, lam_B, lam_idt = cfg.lambda_A, cfg.lambda_B, cfg.lambda_identity
@@ -130,10 +151,24 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
     if fuse_g is None:
         fuse_g = cfg.norm != "batch" and not cfg.dropout()
 
+    def for_d(t):
+        """What a D sees of a G's output: the whole W (gathered on every
+        rank, differentiably) under a context."""
+        return t if ctx is None else ctx.all_gather_w(t)
+
+    def mean_grads(opt):
+        if ctx is not None:
+            ctx.mean_grads_([p for _, p in opt.params])
+
     def step(state: GANTrainState, batch, generator: Optional[torch.Generator] = None):
         batch = prepare_batch(batch, generator, cfg, train=True)
+        # the Ds' real inputs: the whole W, which every rank holds
+        whole_A, whole_B = resolve_direction(batch, cfg.direction)
+        if ctx is not None:
+            batch = shard_batch(batch, ctx)
         real_A, real_B = resolve_direction(batch, cfg.direction)
-        G_A, G_B, D_A, D_B = (state.nets[k] for k in ("G_A", "G_B", "D_A", "D_B"))
+        G_A, G_B = (lambda x, G=state.nets[k]: G(x, ctx=ctx) for k in ("G_A", "G_B"))
+        D_A, D_B = state.nets["D_A"], state.nets["D_B"]
         lr = lr_fn(state.step, state.lr_scale)
         b = real_A.shape[0]
 
@@ -161,14 +196,15 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
             loss_idt_B = losses.l1_loss(idt_B, real_A) * lam_A * lam_idt
         else:
             loss_idt_A = loss_idt_B = zero
-        loss_G_A = losses.gan_loss(D_A(fake_B), True, gan_mode)
-        loss_G_B = losses.gan_loss(D_B(fake_A), True, gan_mode)
+        loss_G_A = losses.gan_loss(D_A(for_d(fake_B)), True, gan_mode)
+        loss_G_B = losses.gan_loss(D_B(for_d(fake_A)), True, gan_mode)
         loss_cycle_A = losses.l1_loss(rec_A, real_A) * lam_A
         loss_cycle_B = losses.l1_loss(rec_B, real_B) * lam_B
         loss_g = loss_G_A + loss_G_B + loss_cycle_A + loss_cycle_B + loss_idt_A + loss_idt_B
         for _, p in state.opts["G"].params:
             p.grad = None
         loss_g.backward()
+        mean_grads(state.opts["G"])
         for p in (*D_A.parameters(), *D_B.parameters()):
             p.requires_grad_(True)
         g_grads = _grads(state.opts["G"]) if debug_grads else None
@@ -189,11 +225,12 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
                 pr, pf = D(real), D(fake)
             return 0.5 * (losses.gan_loss(pr, True, gan_mode) + losses.gan_loss(pf, False, gan_mode))
 
-        loss_D_A = d_pair(D_A, real_B, fake_B_q)
-        loss_D_B = d_pair(D_B, real_A, fake_A_q)
+        loss_D_A = d_pair(D_A, whole_B, for_d(fake_B_q))
+        loss_D_B = d_pair(D_B, whole_A, for_d(fake_A_q))
         for _, p in state.opts["D"].params:
             p.grad = None
         (loss_D_A + loss_D_B).backward()
+        mean_grads(state.opts["D"])
         d_grads = _grads(state.opts["D"]) if debug_grads else None
         state.opts["D"].step(lr)
         for _, p in state.opts["G"].params + state.opts["D"].params:
@@ -202,7 +239,10 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
 
         vals = (loss_D_A, loss_G_A, loss_cycle_A, loss_idt_A,
                 loss_D_B, loss_G_B, loss_cycle_B, loss_idt_B)
-        loss_dict = {k: v.detach() for k, v in zip(LOSS_NAMES, vals)}
+        vals = torch.stack([v.detach().float() for v in vals])
+        if ctx is not None:
+            vals = ctx.mean(vals)
+        loss_dict = dict(zip(LOSS_NAMES, vals))
         visuals = {
             "real_A": real_A, "fake_B": fake_B, "rec_A": rec_A.detach(),
             "real_B": real_B, "fake_A": fake_A, "rec_B": rec_B.detach(),

@@ -38,8 +38,8 @@ Four more routes follow the JAX generator's opt-in kernel paths:
 forward (``parallel.spatial``): the W pads come by halo exchange, the
 instance norms' statistics are global over W, and of the routes only the
 fused block path engages, in the conv kernel's halo W mode with the moments
-summed over the shards (JAX generators.py:192-249); the others are off, as
-the JAX gates turn them off under a context.
+summed over the shards (JAX generators.py:192-249), in training as in eval;
+the others are off, as the JAX gates turn them off under a context.
 """
 
 from __future__ import annotations
@@ -155,14 +155,19 @@ class ResNetBlock(nn.Module):
             # in the whole-field path, but the halo carries RAW conv output,
             # so it gets the pre-image of that zero, the instance mean -b/a
             # (ReLU keeps the 0), cast to h's dtype: in bf16 a seam of
-            # ~0.4% of |b| on the two global edge columns only.
+            # ~0.4% of |b| on the two global edge columns only. Out of
+            # place and on every rank (the mask is all false between the
+            # edges): the fill stays differentiable, to a0 and b0, and every
+            # rank records the same operations, so the collectives of the
+            # backward pair up.
             hp = ctx.pad_w(h, 1, 1)
             if edge_raw is not None and not ctx.periodic:
-                col = edge_raw[:, None, None, :].to(hp.dtype)
-                if ctx.rank == 0:
-                    hp[:, :, :1] = col
-                if ctx.rank == ctx.n_shards - 1:
-                    hp[:, :, -1:] = col
+                w = hp.shape[2]
+                cols = torch.arange(w, device=hp.device)
+                edge = ((cols == 0) & (ctx.rank == 0)) | (
+                    (cols == w - 1) & (ctx.rank == ctx.n_shards - 1))
+                hp = torch.where(edge[None, None, :, None],
+                                 edge_raw[:, None, None, :].to(hp.dtype), hp)
             return hp
 
         y0, m0 = self.conv0.forward_fused(exchange(x), halo=True)

@@ -7,14 +7,33 @@ rank 0's return value is the result.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from biasgan_tpu_torch.kernels import launch_counts
+from biasgan_tpu_torch.kernels import launch_counts, wrappers
+from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_t
 from biasgan_tpu_torch.parallel.spatial import HaloCtx, shard_w, spatial_apply
+
+
+def _gathered(ctx: HaloCtx, t: torch.Tensor) -> Optional[np.ndarray]:
+    """The W shards of ``t`` concatenated on rank 0, as numpy (None on the
+    other ranks)."""
+    y = ctx.gather_w(t.detach())
+    return None if y is None else y.float().cpu().numpy()
+
+
+def kernel_counts() -> Dict[str, int]:
+    """This process's kernel launches, with the differentiable block
+    conv's (``conv3x3_fused_t``)."""
+    return {**launch_counts(), "conv3x3_fused_t": conv3x3_fused_t.launches}
+
+
+def _zero_counts() -> None:
+    for fn in (*wrappers().values(), conv3x3_fused_t):
+        fn.launches = 0
 
 
 def halo_cases(rank, n, device, say, x: np.ndarray, cases: Sequence[Tuple[int, int, bool]]):
@@ -66,3 +85,138 @@ def generator_cases(rank, n, device, say, spec: dict, state: Dict[str, np.ndarra
     launches = [None] * n
     dist.all_gather_object(launches, launch_counts())
     return {"outputs": outputs, "launches": launches}
+
+
+def adjoint_cases(rank, n, device, say, x: np.ndarray, cots: Dict, cases: Sequence):
+    """The gradients of ``HaloCtx``'s differentiable collectives on the
+    global NHWC ``x`` (each rank its W shard), with every rank's loss the
+    sum of its output times its cotangent in ``cots`` (rank-major arrays).
+    For each case ``("ring", left, right, periodic)``, ``("sum", )`` (the
+    instance norms' and moments' ``all_reduce``) or ``("gather", )``
+    (``all_gather_w``): the shards' gradients concatenated along W on rank
+    0. Their sum over the ranks is the gradient of the sum of the ranks'
+    losses, which the whole field's autograd gives."""
+    xt = torch.from_numpy(x).to(device)
+    out = {}
+    for case in cases:
+        ctx = HaloCtx(n, periodic=case[3] if case[0] == "ring" else True)
+        xl = shard_w(xt, ctx).requires_grad_(True)
+        if case[0] == "ring":
+            y = ctx.pad_w(xl, case[1], case[2])
+        elif case[0] == "sum":
+            y = ctx.sum_w(xl)
+        else:
+            y = ctx.all_gather_w(xl)
+        c = torch.from_numpy(cots[case][rank]).to(device)
+        (y * c).sum().backward()
+        out[case] = _gathered(ctx, xl.grad)
+        ctx.close()
+    return out
+
+
+def generator_grad_cases(rank, n, device, say, spec: dict, state: Dict[str, np.ndarray],
+                         x: np.ndarray, gy: np.ndarray, cases: Sequence[dict]):
+    """For each case ``{"w_mode", "fused"}``: ``define_G(**spec, ...)`` with
+    the weights ``state``, in train mode, on this rank's W shard of the
+    global NHWC ``x``, and the loss ``sum(G(x) * gy)`` over the shard. The
+    gradients summed over the ranks (the whole field's, as the JAX
+    ``spatial_apply`` under ``jax.grad`` gives them) and the input's,
+    gathered along W: ``[{"loss", "grads": {name: array}, "dx"}]`` on rank
+    0, with each rank's kernel launches."""
+    from biasgan_tpu_torch.nn import define_G
+
+    xt, gyt = (torch.from_numpy(a).to(device) for a in (x, gy))
+    out = []
+    for case in cases:
+        G = define_G(**spec, w_mode=case["w_mode"], fused_blocks=case["fused"])
+        G.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        G = G.to(device).train()
+        ctx = HaloCtx(n, case["w_mode"] == "wrap")
+        xl = shard_w(xt, ctx).requires_grad_(True)
+        loss = (G(xl, ctx=ctx) * shard_w(gyt, ctx)).sum()
+        loss.backward()
+        params = list(G.parameters())
+        ctx.mean_grads_(params)
+        res = {"loss": float(ctx.sum_w(loss.detach())),
+               "grads": {k: p.grad.cpu().numpy() * n for k, p in G.named_parameters()},
+               "dx": _gathered(ctx, xl.grad)}
+        ctx.close()
+        out.append(res)
+    launches = [None] * n
+    dist.all_gather_object(launches, kernel_counts())
+    return {"cases": out, "launches": launches}
+
+
+def train_cases(rank, n, device, say, argv: Sequence[str], cases: Sequence[dict],
+                nets: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+                batches: Optional[Sequence[Dict[str, np.ndarray]]] = None):
+    """Sharded CycleGAN steps, one rank of ``n``: for each case ``{"flags":
+    [...], "steps": k}`` (and optionally ``"grads": path``), the training
+    config of ``argv`` + flags, the state from the weights ``nets`` (net ->
+    state dict; else seeded from --seed, as ``create_state`` draws it),
+    ``k`` steps on ``batches`` (the global batches; else the dataset's
+    first ``k``) with the step generators of (--seed, step), as the
+    training loop draws them. Per case on rank 0: each step's losses; each
+    rank's kernel launches over the steps (counted from 0); whether every
+    rank's parameters are bitwise rank 0's; where ``nets`` is given, the
+    nets' parameters and the replay pools (gathered on W) after the steps.
+    With ``"grads"``, rank 0 saves step 1's mean G and D gradients there
+    (``torch.save``)."""
+    from biasgan_tpu_torch.config import parse_config
+    from biasgan_tpu_torch.data import create_dataset
+    from biasgan_tpu_torch.models.common import step_generator
+    from biasgan_tpu_torch.models.cyclegan import build_nets, create_state, make_train_step
+    from biasgan_tpu_torch.train import batch_to, params_equal_across_ranks, sharded_w_mode
+
+    out = []
+    for case in cases:
+        cfg = parse_config(list(argv) + list(case["flags"]), train=True)
+        steps = case["steps"]
+        if batches is None:
+            data = create_dataset(cfg)
+            cfg.steps_per_epoch = len(data)
+            run = [batch_to(d, device) for _, d in zip(range(steps), data)]
+        else:
+            cfg.steps_per_epoch = max(cfg.steps_per_epoch, len(batches))
+            run = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+                   for b in batches[:steps]]
+        ctx = HaloCtx(n, periodic=sharded_w_mode(cfg) == "wrap")
+        built = None
+        if nets is not None:
+            built = build_nets(cfg)
+            for name, net in built.items():
+                net.load_state_dict({k: torch.from_numpy(v) for k, v in nets[name].items()})
+        state = create_state(cfg, device, built, ctx)
+        step = make_train_step(cfg, debug_grads=bool(case.get("grads")), ctx=ctx)
+        _zero_counts()
+        losses, grads = [], None
+        for i, batch in enumerate(run):
+            ls, vis = step(state, batch, step_generator(cfg.seed, i))
+            losses.append({k: float(v) for k, v in ls.items()})
+            if i == 0 and case.get("grads"):
+                grads = {w: {k: v.cpu() for k, v in vis[f"_{w.lower()}_grads"].items()}
+                         for w in ("G", "D")}
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        launches = [None] * n
+        dist.all_gather_object(launches, kernel_counts())
+        res = {"losses": losses, "launches": launches,
+               "params_equal": params_equal_across_ranks(state, ctx)}
+        if nets is not None:  # the state after the steps, where it is small
+            res["pools"] = {k: _gathered(ctx, p.buffer) for k, p in state.pools.items()}
+            res["nets"] = {k: {name: t.detach().cpu().numpy()
+                               for name, t in v.state_dict().items()}
+                           for k, v in state.nets.items()}
+        if grads is not None and rank == 0:
+            torch.save(grads, case["grads"])
+        ctx.close()
+        del state, step, run
+        out.append(res)
+    return out
+
+
+def grad_checks(rank, n, device, say, adjoint: tuple, generator: tuple):
+    """``adjoint_cases(*adjoint)`` and ``generator_grad_cases(*generator)``
+    in one spawn."""
+    return (adjoint_cases(rank, n, device, say, *adjoint),
+            generator_grad_cases(rank, n, device, say, *generator))

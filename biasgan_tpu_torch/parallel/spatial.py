@@ -18,6 +18,20 @@ or 'zero').
 Under gloo (ranks sharing a card, or the CPU) collectives on CUDA tensors
 go through host copies. The halo exchange itself is the plain ring, or with
 ``rdma`` the ``halo_exchange_w`` kernel on the card.
+
+Training differentiates through the context, as JAX differentiates through
+``ppermute``, ``psum`` and ``all_gather``: the plain ring's backward is the
+reverse ring (``kernels/halo_exchange.py``), the sum over the ranks
+(``mean_w``, ``sum_w``) is an ``all_reduce`` whose backward is an
+``all_reduce`` of the cotangent (``psum``'s transpose), and ``all_gather_w``
+gives every rank the whole W with the backward of a tiled ``all_gather``:
+this rank's slice of the cotangent summed over the ranks. So each rank's
+backward computes the gradient of the sum of every rank's loss with respect
+to its own copy of the parameters, and their mean over the ranks is the
+gradient of the mean loss (``mean_grads_``), as ``pmean`` of the JAX step's
+grads. Every rank must record the same operations in the same order, or
+the collectives of the backward pair up wrongly. The halo kernel has no
+backward: ``pad_w`` with ``rdma`` raises where autograd records.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from biasgan_tpu_torch.kernels.common import wants_grad
 from biasgan_tpu_torch.kernels.halo_exchange import (
     HaloRing,
     halo_exchange_w,
@@ -57,20 +72,38 @@ class HaloCtx:
     def pad_w(self, x: torch.Tensor, left: int, right: int) -> torch.Tensor:
         """x (N, H, W_local, C) with ``left`` neighbour columns before and
         ``right`` after, from the ring; zeros past a non-periodic global
-        edge. A halo wider than the shard raises."""
+        edge. A halo wider than the shard raises, and so does ``rdma``
+        where autograd records (the kernel has no backward)."""
         if left == right == 0:
             return x
-        exchange = halo_exchange_w if self.rdma else halo_exchange_w_plain
-        lh, rh = exchange(x, left, right, self.ring)
+        if self.rdma:
+            if wants_grad(x):
+                raise RuntimeError(
+                    "HaloCtx(rdma=True): the halo_exchange_w kernel has no backward "
+                    "(inference only, as in JAX); train with the plain ring (rdma=False)"
+                )
+            lh, rh = halo_exchange_w(x, left, right, self.ring)
+        else:
+            lh, rh = halo_exchange_w_plain(x, left, right, self.ring)
         return torch.cat([lh, x, rh], dim=2)
 
-    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks (a new tensor on t's device)."""
-        if self.n_shards == 1:
-            return t
-        staged = t.detach().to("cpu" if self.ring.via_host else t.device, copy=True)
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """A copy of ``t`` where the group's collectives take it."""
+        return t.detach().to("cpu" if self.ring.via_host else t.device, copy=True).contiguous()
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, with no autograd (a new tensor
+        on t's device)."""
+        staged = self._staged(t)
         dist.all_reduce(staged, group=self.group)
         return staged.to(t.device)
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks (a new tensor on t's device);
+        differentiable, where autograd records (``_Sum``)."""
+        if self.n_shards == 1:
+            return t
+        return _Sum.apply(t, self)
 
     def mean_w(self, *xs: torch.Tensor, dims: Sequence[int] = (1, 2)) -> List[torch.Tensor]:
         """The mean of each of ``xs`` (of one shape) over ``dims`` (kept),
@@ -87,12 +120,49 @@ class HaloCtx:
         the shards."""
         return self._all_reduce(t)
 
-    def gather_w(self, y: torch.Tensor) -> Optional[torch.Tensor]:
-        """The shards of ``y`` concatenated along W on rank 0 (None on the
-        other ranks)."""
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the ranks, with no autograd (the step's
+        losses, ``pmean``)."""
+        return t if self.n_shards == 1 else self._sum(t) / self.n_shards
+
+    @torch.no_grad()
+    def mean_grads_(self, params: Sequence[torch.nn.Parameter]) -> None:
+        """Each parameter's ``.grad`` replaced by its mean over the ranks
+        (a missing grad counts as zeros), in one ``all_reduce``: ``pmean``
+        of the JAX step's grads. Every rank then holds the same grads."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.n_shards == 1 or not params:
+            return
+        flat = self._sum(torch.cat([p.grad.reshape(-1) for p in params])) / self.n_shards
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p))
+
+    def same_on_every_rank(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` is bitwise rank 0's on every rank (collective)."""
+        mine = self._staged(t)
+        ref = mine.clone()
+        dist.broadcast(ref, src=0, group=self.group)
+        every = [None] * self.n_shards
+        dist.all_gather_object(every, torch.equal(mine, ref), group=self.group)
+        return all(every)
+
+    def all_gather_w(self, y: torch.Tensor) -> torch.Tensor:
+        """The shards of ``y`` concatenated along W, on every rank (JAX
+        ``all_gather(..., axis=2, tiled=True)``); differentiable, where
+        autograd records: its backward is this rank's slice of the
+        cotangent summed over the ranks (``_GatherW``)."""
         if self.n_shards == 1:
             return y
-        staged = y.detach().to("cpu" if self.ring.via_host else y.device).contiguous()
+        return _GatherW.apply(y, self)
+
+    def gather_w(self, y: torch.Tensor) -> Optional[torch.Tensor]:
+        """The shards of ``y`` concatenated along W on rank 0 (None on the
+        other ranks); no autograd."""
+        if self.n_shards == 1:
+            return y
+        staged = self._staged(y)
         parts = [torch.empty_like(staged) for _ in range(self.n_shards)] if self.rank == 0 else None
         dist.gather(staged, parts, dst=0, group=self.group)
         return torch.cat(parts, dim=2).to(y.device) if self.rank == 0 else None
@@ -102,6 +172,42 @@ class HaloCtx:
 
     def close(self) -> None:
         self.ring.close()
+
+
+class _Sum(torch.autograd.Function):
+    """``psum``: the sum over the ranks; its backward sums the cotangent
+    over the ranks (``psum``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, t, hctx):
+        ctx.hctx = hctx
+        return hctx._sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.hctx._sum(g), None
+
+
+class _GatherW(torch.autograd.Function):
+    """The tiled ``all_gather`` on W; its backward is this rank's slice of
+    the cotangent summed over the ranks. Summed, not averaged: every rank
+    computes the same loss of the gathered field, and the n-fold sum of
+    its gradient is what the mean over the ranks of the parameters' grads
+    (``mean_grads_``) divides back out."""
+
+    @staticmethod
+    def forward(ctx, y, hctx):
+        ctx.hctx = hctx
+        staged = hctx._staged(y)
+        parts = [torch.empty_like(staged) for _ in range(hctx.n_shards)]
+        dist.all_gather(parts, staged, group=hctx.group)
+        return torch.cat(parts, dim=2).to(y.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        hctx = ctx.hctx
+        wl = g.shape[2] // hctx.n_shards
+        return hctx._sum(g)[:, :, hctx.rank * wl:(hctx.rank + 1) * wl].contiguous(), None
 
 
 def pad_to_multiple(

@@ -83,7 +83,7 @@ def profile_round(G, x, path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     set_path(G, path)
-    multiples = infer.pad_multiples("resnet_9blocks", G.fused_blocks)
+    multiples = infer.pad_multiples("resnet_9blocks")
     run = infer.field_runner(G, *multiples)
     zeros = torch.zeros(x.shape[-1], device=x.device)
     ones = torch.ones(x.shape[-1], device=x.device)

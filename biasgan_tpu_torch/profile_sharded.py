@@ -150,7 +150,7 @@ def main(argv=None) -> int:
     cards = min(n, torch.cuda.device_count())
     out = {}
     for path, (fused, rdma) in PATHS.items():
-        w_multiple = infer.pad_multiples("resnet_9blocks", fused, n)[1]
+        w_multiple = infer.pad_multiples("resnet_9blocks", n)[1]
         width = -(-GLOBE_W // w_multiple) * w_multiple
         r = spawn(breakdown_rank, n, (width, fused, rdma), device="cuda", timeout=600,
                   group_timeout=300)

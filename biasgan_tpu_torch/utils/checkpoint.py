@@ -10,6 +10,12 @@ and the full training state.
   ``utils/checkpoint.py::save_state`` (:49): an overwrite renames the
   committed file aside to ``<tag>.pt.old`` before the new one lands, and a
   load falls back to it, so a kill mid-save leaves a restorable state.
+
+A spatially sharded run (a ``parallel.spatial.HaloCtx``) saves from rank 0
+the checkpoint of the one-device run: the nets are the same on every rank,
+and the replay pools, which each rank holds for its W shard, are gathered
+on W. A load under a context takes each rank's W shard of the pools, so
+either run resumes from either's checkpoint.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from biasgan_tpu_torch.parallel.spatial import shard_w
 
 
 def load_tag(epoch: str, load_iter: int = 0) -> str:
@@ -59,11 +67,17 @@ def state_path(run_dir: str, tag: str) -> str:
     return os.path.join(run_dir, "ckpt", f"{tag}.pt")
 
 
-def save_state(run_dir: str, tag: str, state, meta: Optional[Dict] = None) -> str:
+def save_state(run_dir: str, tag: str, state, meta: Optional[Dict] = None, ctx=None) -> str:
     """Save the full training state (``models.common.GANTrainState``) and
     ``meta`` under ``<run_dir>/ckpt/<tag>.pt``, the committed file renamed
-    aside first; also each net's ``<tag>_net_<name>.pth``."""
+    aside first; also each net's ``<tag>_net_<name>.pth``. Under a spatial
+    context ``ctx`` every rank calls it (the pools are gathered) and rank 0
+    writes."""
     path = state_path(run_dir, tag)
+    pools = {k: {"buffer": p.buffer if ctx is None else ctx.gather_w(p.buffer),
+                 "count": p.count} for k, p in state.pools.items()}
+    if ctx is not None and ctx.rank != 0:
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     blob = {
         "step": state.step,
@@ -74,8 +88,8 @@ def save_state(run_dir: str, tag: str, state, meta: Optional[Dict] = None) -> st
                      "mu": {n: t.cpu() for n, t in o.mu.items()},
                      "nu": {n: t.cpu() for n, t in o.nu.items()}}
                  for k, o in state.opts.items()},
-        "pools": {k: {"buffer": p.buffer.cpu(), "count": p.count}
-                  for k, p in state.pools.items()},
+        "pools": {k: {"buffer": p["buffer"].cpu(), "count": p["count"]}
+                  for k, p in pools.items()},
         "meta": dict(meta or {}),
     }
     tmp = path + ".tmp"
@@ -88,10 +102,11 @@ def save_state(run_dir: str, tag: str, state, meta: Optional[Dict] = None) -> st
     return path
 
 
-def load_state(run_dir: str, tag: str, state) -> Dict:
+def load_state(run_dir: str, tag: str, state, ctx=None) -> Dict:
     """Load ``<run_dir>/ckpt/<tag>.pt`` (or its ``.old``, where a save was
     cut) into ``state`` in place, on the devices its tensors are on; returns
-    the saved meta."""
+    the saved meta. Under a spatial context ``ctx``, each pool takes this
+    rank's W shard."""
     path = state_path(run_dir, tag)
     if not os.path.exists(path):
         path += ".old"
@@ -105,6 +120,6 @@ def load_state(run_dir: str, tag: str, state) -> Dict:
     for k, o in blob["opts"].items():
         state.opts[k].load_state_dict(o)
     for k, p in blob["pools"].items():
-        state.pools[k].buffer.copy_(p["buffer"])
+        state.pools[k].buffer.copy_(p["buffer"] if ctx is None else shard_w(p["buffer"], ctx))
         state.pools[k].count = int(p["count"])
     return blob["meta"]

@@ -26,11 +26,13 @@ checkout is missing, and at the first failure of any phase:
      rank 0's launches), the exchange's wall time with its host-side
      synchronisation, the plain ring's and the ring's messages alone;
   3b. the gradient phase: each differentiable kernel (the fused block conv
-     of training, the VALID 3x3 op, the 7x7 conv, the fused instance norm)
-     under autograd against autograd through its plain version on the
-     card, f32 and bf16, with the JAX tests' bounds; then, at the training
-     shapes in bf16, each one's forward and backward times beside
-     cuDNN's through autograd;
+     of training, also in its halo W mode with wrap and zero-edge halo
+     columns at the sharded step's block shape and ragged widths; the
+     VALID 3x3 op, the 7x7 conv, the fused instance norm) under autograd
+     against autograd through its plain version on the card, f32 and bf16,
+     with the JAX tests' bounds; then, at the training shapes in bf16, each
+     one's forward and backward times beside cuDNN's through autograd, and
+     the card's forward and backward bounds;
   4. a small-input reference: the generator's kernel paths on the card
      against its plain path on the CPU (which the CPU tests hold to the JAX
      package), f32; and the sharded forward on four ranks on the card (the
@@ -45,10 +47,8 @@ checkout is missing, and at the first failure of any phase:
      card: --spatial_mesh 4 (the plain ring), with --halo_rdma, and with
      --halo_rdma --fused_blocks, each rank's launches counted in its own
      process from 0. Outputs must be finite, of the right shape, and each
-     path must agree with the plain path padded to its own width (the
-     sharded --fused_blocks pads W 1440 to 1536, as the JAX CLI does, and
-     its distance from the unpadded plain field may not grow past
-     UNPADDED_LIMITS); --halo_rdma with the ring's;
+     path must agree with the plain path by the globe bf16 rule (every
+     path serves the 1440 columns unpadded); --halo_rdma with the ring's;
   7. train full-width CycleGAN (resnet_9blocks ngf 64, basic D ndf 64,
      instance norm, lsgan, pool 50, 256x256, batch 1, 3 channels,
      synthetic data from a seed) in f32 and bf16 on four routes: plain;
@@ -58,7 +58,17 @@ checkout is missing, and at the first failure of any phase:
      exact kernel launch counts; then ``biasgan_tpu_torch.train.main`` runs
      six steps on the route, counting launches, with finite losses, and
      its samples/s over steps 2-6 is printed. The checkpoint of one run is
-     loaded by the inference CLI's loader.
+     loaded by the inference CLI's loader;
+  8. the same CycleGAN with --w_pad_mode wrap, spatially sharded over four
+     ranks on the card (--spatial_mesh 4), on two routes: --fused_blocks
+     (the block conv's halo W mode, 54 launches per rank per step) and the
+     plain one. Step 1 of each, f32 and bf16, from the seeded state and the
+     first batch, is held to the one-card plain step 1 of the same
+     configuration (losses and per-net gradients, by the rules of 7), with
+     exact launch counts per rank and every rank's parameters bitwise
+     equal; then ``train.main --spatial_mesh 4`` runs three bf16 steps on
+     each route (finite losses, exact launches, equal parameters), and
+     rank 0's ms/step is printed.
 
 On a host with a card per rank the sharded phases run over NCCL, the halo
 kernel writing across NVLink peers.
@@ -94,16 +104,6 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 NVLINK_BYTES = 450e9
 N_RANKS = 4  # the sharded paths: --spatial_mesh 4, rank r on cuda:(r % cards)
-# The sharded --fused_blocks path pads W 1440 to 1536 (the JAX CLI's
-# multiple), so it serves another function of the field: the padded
-# columns enter the norm statistics and move the periodic seam. Until both
-# CLIs stop padding into the statistics, its field 0 may be no further from
-# the unpadded plain path's (|dy| in std of the target variable: the
-# largest, the mean over the 96 columns at each end, the mean between) than
-# the first H100 reading (3.359, 0.07017, 0.03345), rounded up by about 1%,
-# so that a new fault cannot hide behind the known one.
-UNPADDED_LIMITS = {"max": 3.40, "ends_mean": 0.0710, "between_mean": 0.0338}
-
 # kernel -> (the TPU kernel it replaces, the main path it carries: a served
 # path, or for the VALID 3x3 conv a training route)
 KERNELS = {
@@ -131,27 +131,21 @@ PATHS = {
 }
 # the halo exchanges of one sharded globe forward, per rank: (the local
 # tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
-# per rank (with --fused_blocks, padded to 1536: 384); bf16 compute, but
-# the stem pads the f32 input; H is padded before W.
+# per rank; bf16 compute, but the stem pads the f32 input; H is padded
+# before W, except in the fused block convs, which pad H in the kernel.
+_EDGE_CALLS = [
+    ((1, 730, 360, 3), "float32", 3, 3, 1),  # stem (H reflect 3)
+    ((1, 726, 360, 64), "bfloat16", 1, 1, 1),  # down0 (H zero 1)
+    ((1, 364, 180, 128), "bfloat16", 1, 1, 1),  # down1
+]
+_UP_CALLS = [
+    ((1, 181, 180, 256), "bfloat16", 1, 1, 1),  # up0, on the W-dilated input
+    ((1, 362, 360, 128), "bfloat16", 1, 1, 1),  # up1
+    ((1, 730, 360, 64), "bfloat16", 3, 3, 1),  # head (H reflect 3)
+]
 HALO_CALLS = {
-    "spatial_rdma": [
-        ((1, 730, 360, 3), "float32", 3, 3, 1),  # stem (H reflect 3)
-        ((1, 726, 360, 64), "bfloat16", 1, 1, 1),  # down0 (H zero 1)
-        ((1, 364, 180, 128), "bfloat16", 1, 1, 1),  # down1
-        ((1, 183, 90, 256), "bfloat16", 1, 1, 18),  # the block convs (H reflect 1)
-        ((1, 181, 180, 256), "bfloat16", 1, 1, 1),  # up0, on the W-dilated input
-        ((1, 362, 360, 128), "bfloat16", 1, 1, 1),  # up1
-        ((1, 730, 360, 64), "bfloat16", 3, 3, 1),  # head (H reflect 3)
-    ],
-    "spatial_rdma_fused": [
-        ((1, 730, 384, 3), "float32", 3, 3, 1),
-        ((1, 726, 384, 64), "bfloat16", 1, 1, 1),
-        ((1, 364, 192, 128), "bfloat16", 1, 1, 1),
-        ((1, 181, 96, 256), "bfloat16", 1, 1, 18),  # the fused convs: H padded in-kernel
-        ((1, 181, 192, 256), "bfloat16", 1, 1, 1),
-        ((1, 362, 384, 128), "bfloat16", 1, 1, 1),
-        ((1, 730, 384, 64), "bfloat16", 3, 3, 1),
-    ],
+    "spatial_rdma": _EDGE_CALLS + [((1, 183, 90, 256), "bfloat16", 1, 1, 18)] + _UP_CALLS,
+    "spatial_rdma_fused": _EDGE_CALLS + [((1, 181, 90, 256), "bfloat16", 1, 1, 18)] + _UP_CALLS,
 }
 
 
@@ -172,12 +166,16 @@ def kernel_fns(name: str):
     return getattr(mod, name), getattr(mod, name + "_plain")
 
 
-def environment(torch) -> None:
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print(smi)
+
+
+def environment(torch) -> None:
+    print(card())
     from biasgan_tpu_torch.kernels import build
 
     nvcc = subprocess.run(
@@ -276,6 +274,10 @@ def make_case(torch, g, name, shape, dtype, **opt):
         n, h, w, c, cout = shape
         halo = opt.get("w_mode") == "halo"  # x carries its 2 W pad columns
         x = _randn(torch, g, (n, h, w + 2 * halo, c)).to(dtype)
+        if opt.get("halo_edge") == "wrap":  # the columns a periodic ring brings
+            x[:, :, 0], x[:, :, -1] = x[:, :, -2].clone(), x[:, :, 1].clone()
+        elif opt.get("halo_edge") == "zero":  # a non-periodic global edge
+            x[:, :, 0] = x[:, :, -1] = 0
         wt = _randn(torch, g, (cout, c, 3, 3), (9 * c) ** -0.5).to(dtype)
         bias = _randn(torch, g, (cout,), 0.1)
         p = _prologue(torch, g, n, c) if pro else None
@@ -389,9 +391,9 @@ GLOBE_CALLS = {
 PER_UNIT = {name: "field" for name in GLOBE_CALLS}
 PER_UNIT["conv3x3_valid"] = "step"
 # the block convs of the sharded --fused_blocks path, per field per rank:
-# the halo W mode at the block shape of a 4-way shard (W 1536 / 4 / 4 = 96)
+# the halo W mode at the block shape of a 4-way shard (W 1440 / 4 / 4 = 90)
 SPATIAL_CALLS = {
-    "conv3x3_fused": [((1, 181, 96, 256, 256), dict(prologue=True, w_mode="halo"), 18)],
+    "conv3x3_fused": [((1, 181, 90, 256, 256), dict(prologue=True, w_mode="halo"), 18)],
 }
 # shapes held besides the main path's: the globe block conv as a VALID
 # conv, and the sharded path's halo-mode block conv
@@ -538,10 +540,15 @@ def _in_norms(b_g, b_d):
 
 
 # differentiable form -> (kernel, its calls per 256x256 CycleGAN step at
-# batch 1 on the route that runs it: (make_case shape, options, count))
+# batch 1 on the route that runs it: (make_case shape, options, count)); the
+# block conv's halo W mode per rank of the --spatial_mesh 4 --fused_blocks
+# step (W 64 / 4 = 16 per shard)
 GRAD_CALLS = {
     "conv3x3_fused_t": ("conv3x3_fused", [((b, 64, 64, 256, 256), dict(prologue=True), 18)
                                           for b in (2, 3, 1)]),
+    "conv3x3_fused_t_halo": ("conv3x3_fused", [
+        ((b, 64, 16, 256, 256), dict(prologue=True, w_mode="halo", halo_edge="wrap"), 18)
+        for b in (2, 3, 1)]),
     "conv3x3_op": ("conv3x3_valid", [((b, 66, 66, 256, 256), {}, 18) for b in (2, 3, 1)]),
     "conv7x7": ("conv7x7", [((b, 262, 262, 3, 64), {}, 1) for b in (2, 3, 1)]
                 + [((b, 262, 262, 64, 3), {}, 1) for b in (2, 3, 1)]),
@@ -552,6 +559,14 @@ GRAD_CALLS = {
 GRAD_CHECKS = {
     "conv3x3_fused_t": [((2, 64, 64, 256, 256), dict(prologue=True)),
                         ((1, 64, 64, 256, 256), dict(prologue=False))],
+    # the sharded step's shape, wrap and zero-edge, and ragged widths
+    "conv3x3_fused_t_halo": [
+        ((2, 64, 16, 256, 256), dict(prologue=True, w_mode="halo", halo_edge="wrap")),
+        ((3, 64, 16, 256, 256), dict(prologue=False, w_mode="halo", halo_edge="zero")),
+        ((1, 64, 16, 256, 256), dict(prologue=True, w_mode="halo", halo_edge="zero")),
+        ((2, 13, 37, 32, 48), dict(prologue=True, w_mode="halo", halo_edge="wrap",
+                                   h_mode="zero")),
+        ((1, 9, 5, 256, 256), dict(prologue=False, w_mode="halo", halo_edge="zero"))],
     "conv3x3_op": [((2, 66, 66, 256, 256), {}), ((1, 15, 39, 32, 48), dict(bias=True))],
     "conv7x7": [((1, 262, 262, 3, 64), {}), ((1, 262, 262, 64, 3), {})],
     "instance_norm_act": [((2, 64, 64, 256), dict(act="none", residual=True)),
@@ -559,6 +574,29 @@ GRAD_CHECKS = {
                           ((2, 31, 31, 512), dict(act="lrelu"))],
 }
 GRAD_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (0.05, 0.1)}  # (atol x max(1,|ref|), rtol)
+
+
+def bwd_work(form, shape, opt, es, op_s):
+    """(bytes, seconds of operations at the card's peak) of one call's
+    backward: each of its inputs (the outputs' cotangents, and what it
+    reads again: x, the weight, and for the fused conv its stored y) read
+    once and each gradient written once; for a conv, the input and weight
+    gradients' operations (twice the forward's), for the norm ~10 f32
+    operations per element."""
+    if form.startswith("conv3x3_fused_t") or form in ("conv3x3_op", "conv7x7"):
+        n, h, w, c, cout = shape
+        k = 7 if form == "conv7x7" else 3
+        if form.startswith("conv3x3_fused_t"):
+            x = n * h * (w + 2 * (opt.get("w_mode") == "halo")) * c
+            out, reads_y = n * h * w * cout, True
+        else:
+            x, out, reads_y = n * h * w * c, n * (h - k + 1) * (w - k + 1) * cout, False
+        wt = k * k * c * cout
+        return (out * (1 + reads_y) + 2 * x + 2 * wt) * es, 2 * op_s
+    numel = 1
+    for d in shape:
+        numel *= d
+    return (3 + opt.get("residual", False)) * numel * es, 10 * numel / PEAK_FLOPS["float32"]
 
 
 def grad_case(torch, g, form, shape, dtype, **opt):
@@ -580,7 +618,7 @@ def grad_case(torch, g, form, shape, dtype, **opt):
     leaves = [t.detach().requires_grad_(True) if isinstance(t, torch.Tensor) else t
               for t in args]
     ins = [t for t in leaves if isinstance(t, torch.Tensor)]
-    if form == "conv3x3_fused_t":
+    if form.startswith("conv3x3_fused_t"):
         x, w, bias, pro, act, hm, wm, _ = leaves
         pro = tuple(t.detach().requires_grad_(True) for t in pro) if pro else None
         ins = [x, w, bias] + list(pro or ())
@@ -591,7 +629,8 @@ def grad_case(torch, g, form, shape, dtype, **opt):
 
         fn = lambda: flat(conv3x3_fused_t(x, w, bias, pro, act, hm, wm))
         plain = lambda: flat(conv3x3_fused_plain(x, w, bias, pro, act, hm, wm))
-        lib = lambda: [F.conv2d(x.permute(0, 3, 1, 2), w, bias.to(dtype), padding=1)]
+        lib = lambda: [F.conv2d(x.permute(0, 3, 1, 2), w, bias.to(dtype),
+                                padding=(1, 0) if wm == "halo" else 1)]
     elif form == "conv3x3_op":
         xp, w, bias = leaves[:3]
         fn = lambda: [conv3x3_op(xp, w, bias)]
@@ -678,19 +717,26 @@ def time_grads(torch) -> dict:
                 plain_ms = timed(torch, plain, iters=5, warmup=1)
             best = {k: min(v) for k, v in runs.items()}
             byte_ms, op_ms = nbytes / PEAK_BYTES * 1e3, op_s * 1e3
+            bwd_bytes, bwd_op_s = bwd_work(form, shape, opt, 2, op_s)
+            bwd_bytes_ms, bwd_op_ms = bwd_bytes / PEAK_BYTES * 1e3, bwd_op_s * 1e3
             rows.append({"shape": list(shape), "options": opt, "count": count,
                          "ms": best["fwd"], "bwd_ms": best["bwd"], "plain_ms": plain_ms,
                          "library_ms": best["library_fwd"],
                          "library_bwd_ms": best["library_bwd"],
                          "bound_ms": max(byte_ms, op_ms), "bytes_ms": byte_ms,
-                         "operations_ms": op_ms})
+                         "operations_ms": op_ms, "bwd_bound_ms": max(bwd_bytes_ms, bwd_op_ms),
+                         "bwd_bytes_ms": bwd_bytes_ms, "bwd_operations_ms": bwd_op_ms})
             print(f"{form} {shape} bf16 {opt} x{count}/step, ms per call (in turns): "
                   + "; ".join(f"{k} {v}" for k, v in runs.items())
-                  + f"; plain fwd {plain_ms:.4f}; fwd bound {max(byte_ms, op_ms):.4f}")
+                  + f"; plain fwd {plain_ms:.4f}; fwd bound {max(byte_ms, op_ms):.4f}; bwd "
+                  f"bound {max(bwd_bytes_ms, bwd_op_ms):.4f}")
         total = {k: sum(r[k] * r["count"] for r in rows)
                  for k in ("ms", "bwd_ms", "plain_ms", "library_ms", "library_bwd_ms",
-                           "bound_ms", "bytes_ms", "operations_ms")}
+                           "bound_ms", "bytes_ms", "operations_ms", "bwd_bound_ms",
+                           "bwd_bytes_ms", "bwd_operations_ms")}
         total["bound_by"] = "bytes" if total["bytes_ms"] >= total["operations_ms"] else "operations"
+        total["bwd_bound_by"] = ("bytes" if total["bwd_bytes_ms"] >= total["bwd_operations_ms"]
+                                 else "operations")
         total["calls"] = rows
         out[form] = total
     return out
@@ -935,36 +981,6 @@ def serve_argv(work: str, path: str) -> list:
     ] + PATHS[path][0]
 
 
-def padded_width(path: str) -> int:
-    """The width the served field is padded to on ``path``: the JAX CLI's
-    multiple, x8 under --fused_blocks and x the ranks when sharded
-    (infer.pad_multiples)."""
-    from biasgan_tpu_torch import infer
-
-    flags = PATHS[path][0]
-    n = N_RANKS if "--spatial_mesh" in flags else 1
-    w_multiple = infer.pad_multiples("resnet_9blocks", "--fused_blocks" in flags, n)[1]
-    return -(-GLOBE_W // w_multiple) * w_multiple
-
-
-def plain_padded(torch, work: str, width: int):
-    """Field 0 through the one-card plain path with W padded to ``width``
-    (wrap), as a path that pads to that width serves it."""
-    from biasgan_tpu_torch import infer
-    from biasgan_tpu_torch.config import parse_config
-    from biasgan_tpu_torch.data import create_dataset
-
-    cfg = parse_config(serve_argv(work, "plain"))
-    dev = torch.device("cuda")
-    with contextlib.redirect_stdout(io.StringIO()):
-        G = infer.build_generator(cfg, dev)
-        data = next(iter(create_dataset(cfg)))
-    stats = [torch.as_tensor(data[f"{k}_{s}"][0], device=dev)
-             for k in "AB" for s in ("mean", "std")]
-    y = infer.field_runner(G, 4, width)(torch.as_tensor(data["A"], device=dev), *stats)
-    return y.cpu().numpy()
-
-
 def serve(torch, work: str, path: str):
     """One infer.main run over the store on ``path``; returns (fields,
     per-field ms, per-field Mpx/s, kernel launches). Every kernel's count
@@ -1037,35 +1053,17 @@ def serve_globe(torch, work: str) -> dict:
         os.path.join(work, "data", "stats_B.json"), [], [f"var{v}" for v in range(N_VARS)]
     )
     std = np.array([sd[f"var{v}"]["std"] for v in range(N_VARS)], np.float32)
-    # a path that pads W wider than the plain one (the sharded
-    # --fused_blocks) is held to the plain path at its own width, and its
-    # distance from the unpadded one to UNPADDED_LIMITS
-    plain = {GLOBE_W: served["plain"][0][0]}
+    ref = served["plain"][0][0]
     for path in PATHS:
         if path == "plain":
             continue
-        width = padded_width(path)
-        if width not in plain:
-            plain[width] = plain_padded(torch, work, width)
-            diff = np.abs(served[path][0][0] - plain[GLOBE_W]) / std
-            ends = np.r_[0:96, GLOBE_W - 96:GLOBE_W]
-            far = {"max": float(diff.max()), "ends_mean": float(diff[:, :, ends].mean()),
-                   "between_mean": float(np.delete(diff, ends, axis=2).mean())}
-            print(f"field 0, {path} (W padded to {width}) vs the plain path unpadded: max "
-                  f"|dy| {far['max']:.4g} std at column "
-                  f"{int(np.unravel_index(diff.argmax(), diff.shape)[2])}, mean |dy| "
-                  f"{far['ends_mean']:.4g} std in the 96 columns at each end, "
-                  f"{far['between_mean']:.4g} between (limits {UNPADDED_LIMITS})")
-            check(all(far[k] <= UNPADDED_LIMITS[k] for k in far),
-                  f"{path}: further from the unpadded plain field than the known pad "
-                  f"effect: {far}, limits {UNPADDED_LIMITS}")
-        ref = plain[width]
         diff = np.abs(served[path][0][0] - ref)
         excess = diff - (0.02 * np.abs(ref) + 0.1 * std)
         print(
-            f"field 0, {path} vs plain path (W padded to {width}): max |dy| "
-            f"{float((diff / std).max()):.4g} std, mean |dy| {float((diff / std).mean()):.4g} "
-            f"std, worst margin to the bf16 bound {float(excess.max()):.4g}"
+            f"field 0, {path} vs plain path: max |dy| {float((diff / std).max()):.4g} std "
+            f"at column {int(np.unravel_index(diff.argmax(), diff.shape)[2])}, mean |dy| "
+            f"{float((diff / std).mean()):.4g} std, worst margin to the bf16 bound "
+            f"{float(excess.max()):.4g}"
         )
         check(float(excess.max()) <= 0 and float((diff / std).mean()) <= 0.01,
               f"{path} and plain globe outputs disagree beyond bf16 tolerance")
@@ -1145,11 +1143,11 @@ def read_counts() -> dict:
     return {k: getattr(obj, attr) for k, (obj, attr) in _counters().items()}
 
 
-def train_argv(route, dtype, work, name, save=False):
+def train_argv(route, dtype, work, name, save=False, extra=()):
     return TRAIN_ARGS + TRAIN_ROUTES[route][0] + [
         "--compute_dtype", dtype, "--checkpoints_dir", os.path.join(work, "train"),
         "--name", name, "--save_epoch_freq", "1" if save else "100",
-    ]
+    ] + list(extra)
 
 
 def _by_net_max(grads):
@@ -1161,18 +1159,19 @@ def _by_net_max(grads):
     return out
 
 
-def train_steps(torch, route, dtype, work, perturb=0.0, timed_steps=True) -> dict:
+def train_steps(torch, route, dtype, work, perturb=0.0, timed_steps=True, extra=()) -> dict:
     """Step 1 from the seeded state on the first batch (its A and B moved
     by ``perturb`` relative noise, for the noise floor), with the step's
     gradients and exact launch counts; then 5 more steps, timed (host
-    clock, synchronized), with finite losses."""
+    clock, synchronized), with finite losses. ``extra``: more flags."""
     from biasgan_tpu_torch.config import parse_config
     from biasgan_tpu_torch.data import create_dataset
     from biasgan_tpu_torch.models.common import step_generator
     from biasgan_tpu_torch.models.cyclegan import create_state, make_train_step
     from biasgan_tpu_torch.train import batch_to
 
-    cfg = parse_config(train_argv(route, dtype, work, f"steps_{route}_{dtype}"), train=True)
+    cfg = parse_config(train_argv(route, dtype, work, f"steps_{route}_{dtype}", extra=extra),
+                       train=True)
     cfg.steps_per_epoch = TRAIN_SAMPLES
     dev = torch.device(cfg.device)
     batches = [batch_to(d, dev) for d in create_dataset(cfg)]
@@ -1350,13 +1349,133 @@ def train_phase(torch, work) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sharded training: the same CycleGAN over N_RANKS W shards
+# ---------------------------------------------------------------------------
+
+# sharded training route -> (train flags, launches per rank per step)
+SHARDED_ROUTES = {
+    "spatial_fused": (["--fused_blocks"], {"conv3x3_fused": 54, "conv3x3_fused_t": 54}),
+    "spatial": ([], {}),
+}
+SHARDED_FLAGS = ["--spatial_mesh", str(N_RANKS), "--w_pad_mode", "wrap"]
+SHARDED_CLI_STEPS = 3  # the CLI's steps per route (bf16); ms/step over the last 2
+
+
+def sharded_train_rank(rank, n, device, say, *args):
+    """``parallel.checks.train_cases`` on the card with TF32 off."""
+    import torch
+
+    from biasgan_tpu_torch.parallel.checks import train_cases
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return train_cases(rank, n, device, say, *args)
+
+
+def sharded_train_phase(torch, work) -> dict:
+    """The CycleGAN of the training phase with --w_pad_mode wrap (sharding
+    cannot reflect W), sharded over N_RANKS ranks on the card(s), on each
+    route of SHARDED_ROUTES. Step 1, from the seeded state, the first batch
+    and the step's generator, is held to the one-card plain step 1 of the
+    same configuration by the training phase's rules (losses; per-net
+    gradients within the noise floor rule), f32 and bf16, with exact launch
+    counts per rank and parameters bitwise equal on every rank. Then
+    ``train.main`` runs SHARDED_CLI_STEPS steps per route in bf16: finite
+    losses, exact launches per rank, parameters bitwise equal, and rank 0's
+    ms/step."""
+    from biasgan_tpu_torch import train
+    from biasgan_tpu_torch.parallel import placement, spawn
+
+    name = card()
+    out = {"launches": {}, "ms_per_step": {}, "step_ms": {}, "grad_rel_l2": {}, "card": name}
+    cases, refs = [], {}
+    for dtype in ("float32", "bfloat16"):
+        ref = train_steps(torch, "plain", dtype, work, timed_steps=False,
+                          extra=["--w_pad_mode", "wrap"])
+        moved = train_steps(torch, "plain", dtype, work, perturb=NOISE_INPUT[dtype],
+                            timed_steps=False, extra=["--w_pad_mode", "wrap"])
+        floor = grad_distance(moved, ref)[1]
+        refs[dtype] = ({"losses": ref["losses"],
+                        **{w: {k: v.cpu() for k, v in ref[w].items()} for w in ("G", "D")}},
+                       floor)
+        del ref, moved
+        for route, (flags, _) in SHARDED_ROUTES.items():
+            cases.append(dict(flags=["--compute_dtype", dtype] + flags, steps=1,
+                              grads=os.path.join(work, f"grads_{route}_{dtype}.pt"),
+                              route=route, dtype=dtype))
+    torch.cuda.empty_cache()
+    argv = TRAIN_ARGS + SHARDED_FLAGS + ["--checkpoints_dir", os.path.join(work, "sharded")]
+    t0 = time.perf_counter()
+    res = spawn(sharded_train_rank, N_RANKS, (argv, cases), device="cuda", timeout=900,
+                group_timeout=600)
+    print(f"sharded training: {placement(N_RANKS, 'cuda')}: step 1 of {len(cases)} cases "
+          f"({time.perf_counter() - t0:.1f} s)")
+    fails = []
+    for case, got in zip(cases, res):
+        route, dtype = case["route"], case["dtype"]
+        want = SHARDED_ROUTES[route][1]
+        for r, counts in enumerate(got["launches"]):
+            counts = {k: v for k, v in counts.items() if v}
+            if counts != want:
+                fails.append(f"sharded {route} {dtype} step 1: rank {r} launches {counts}, "
+                             f"expected {want}")
+        if not got["params_equal"]:
+            fails.append(f"sharded {route} {dtype}: the ranks' parameters differ after step 1")
+        grads = torch.load(case["grads"], weights_only=True)
+        ref, floor = refs[dtype]
+        held = hold_first_step(route, dtype, {"losses": got["losses"][0], **grads}, ref, floor)
+        fails += held["fails"]
+        out["grad_rel_l2"][f"{route}/{dtype}"] = held["grad_rel_l2"]
+        print(f"sharded {route} {dtype}: step 1 held to the one-card plain step (wrap): "
+              f"losses {got['losses'][0]}; largest grad |d| {held['worst_grad_err']:.3g} of "
+              f"max(1, net max); relative L2 per net {held['grad_rel_l2']} (noise floor "
+              f"{floor}); launches per rank {got['launches'][0]}")
+    check(not fails, "; ".join(fails))
+    for route, (flags, per_step) in SHARDED_ROUTES.items():
+        log = io.StringIO()
+        zero_counts()
+        torch.cuda.empty_cache()
+        with contextlib.redirect_stdout(log):
+            result = train.main(train_argv("plain", "bfloat16", work, f"sharded_{route}",
+                                           extra=SHARDED_FLAGS + flags + [
+                                               "--synthetic_samples", str(SHARDED_CLI_STEPS)]))
+        lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("(epoch:")]
+        check(len(lines) == SHARDED_CLI_STEPS, f"sharded CLI {route}: {len(lines)} loss lines")
+        # --print_freq 1: each line's time is its step's, synchronised
+        ms = [float(re.search(r"time: ([0-9.]+)", ln).group(1)) * 1e3 for ln in lines]
+        check(not any("nan" in ln or "inf" in ln for ln in lines),
+              f"sharded CLI {route}: non-finite loss")
+        check(result["params_equal"], f"sharded CLI {route}: the ranks' parameters differ")
+        want = {k: v * SHARDED_CLI_STEPS for k, v in per_step.items()}
+        for r, counts in enumerate(result["launches"]):
+            counts = {k: v for k, v in counts.items() if v}
+            check(counts == want, f"sharded CLI {route}: rank {r} launches {counts}, "
+                  f"expected {want}")
+        out["launches"][route] = result["launches"][0]
+        out["step_ms"][route] = ms
+        out["ms_per_step"][route] = statistics.mean(ms[1:])
+        for ln in log.getvalue().splitlines():
+            if re.match(r"--\w|spatial:|\(epoch: 1, iters: 3,", ln):
+                print(f"  sharded cli {route}: {ln}")
+        shared = ("" if torch.cuda.device_count() >= N_RANKS else
+                  f"; {N_RANKS} ranks time-slice this one card: a smoke reading, not a "
+                  "multi-card speed")
+        print(f"sharded training {route}, 256x256 batch 1 bf16, --spatial_mesh {N_RANKS}: "
+              f"rank 0 ms/step {ms} (step 1 warms up; mean of the rest "
+              f"{out['ms_per_step'][route]:.1f}) on {name}{shared}")
+    return out
+
+
 def kernel_report(times, errs, grad_times, grad_errs, launches, trained, spatial_times,
-                  halo) -> list:
+                  halo, sharded) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
     routes; the block conv's halo W mode on the sharded --fused_blocks
-    path; the halo exchange on the sharded --halo_rdma path."""
+    path, and its differentiable form on the sharded --fused_blocks
+    training route; the halo exchange on the sharded --halo_rdma path.
+    Backward bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
            "step": "step: each call's best time times its launches per 256x256 CycleGAN "
                    "step at batch 1"}
@@ -1381,6 +1500,8 @@ def kernel_report(times, errs, grad_times, grad_errs, launches, trained, spatial
             entry.update(bwd_launches=trained["launches"][f"{path}/bfloat16"]["conv3x3_valid.bwd"],
                          bwd_kernel_ms=t["bwd_kernel_ms"], max_grad_err=grad_errs[form],
                          bwd_ms=grad_times[form]["bwd_ms"],
+                         bwd_bound_ms=grad_times[form]["bwd_bound_ms"],
+                         bwd_bound_by=grad_times[form]["bwd_bound_by"],
                          library_bwd_ms=grad_times[form]["library_bwd_ms"],
                          autograd_ms=grad_times[form]["ms"],
                          library_autograd_ms=grad_times[form]["library_ms"])
@@ -1391,6 +1512,7 @@ def kernel_report(times, errs, grad_times, grad_errs, launches, trained, spatial
                 "ms": g["ms"], "bwd_ms": g["bwd_ms"], "plain_ms": g["plain_ms"],
                 "library_ms": g["library_ms"], "library_bwd_ms": g["library_bwd_ms"],
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                "bwd_bound_ms": g["bwd_bound_ms"], "bwd_bound_by": g["bwd_bound_by"],
                 "max_grad_err": grad_errs[form], "per": train_per, "calls": g["calls"]})
         elif name == "conv3x3_fused":
             t = spatial_times[name]
@@ -1408,7 +1530,21 @@ def kernel_report(times, errs, grad_times, grad_errs, launches, trained, spatial
                     "conv3x3_fused_t"], "max_grad_err": grad_errs["conv3x3_fused_t"],
                 "ms": g["ms"], "bwd_ms": g["bwd_ms"], "plain_ms": g["plain_ms"],
                 "library_ms": g["library_ms"], "library_bwd_ms": g["library_bwd_ms"],
-                "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "per": train_per,
+                "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                "bwd_bound_ms": g["bwd_bound_ms"], "bwd_bound_by": g["bwd_bound_by"],
+                "per": train_per, "calls": g["calls"]}
+            g = grad_times["conv3x3_fused_t_halo"]
+            entry["train"]["halo"] = {
+                "route": "spatial_fused", "w_mode": "halo",
+                "launches": sharded["launches"]["spatial_fused"]["conv3x3_fused_t"],
+                "max_grad_err": grad_errs["conv3x3_fused_t_halo"],
+                "ms": g["ms"], "bwd_ms": g["bwd_ms"], "plain_ms": g["plain_ms"],
+                "library_ms": g["library_ms"], "library_bwd_ms": g["library_bwd_ms"],
+                "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                "bwd_bound_ms": g["bwd_bound_ms"], "bwd_bound_by": g["bwd_bound_by"],
+                "per": (f"step per rank of --spatial_mesh {N_RANKS}: each call's best time "
+                        f"times its count; launches per rank in the {SHARDED_CLI_STEPS}-step "
+                        "CLI run"),
                 "calls": g["calls"]}
         kernels.append(entry)
     h = halo["totals"]["spatial_rdma"]
@@ -1460,14 +1596,16 @@ def main() -> int:
         check_small_sharded(torch)
         launches = serve_globe(torch, work)
         trained = train_phase(torch, work)
+        sharded = sharded_train_phase(torch, work)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(json.dumps({"training": trained}))
+    print(json.dumps({"training": trained, "sharded_training": sharded}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs,
-                                               launches, trained, spatial_times, halo)}))
+                                               launches, trained, spatial_times, halo,
+                                               sharded)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -246,6 +246,26 @@ def test_functions_match_autograd_through_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_t_halo_mode_matches_autograd_through_plain(dtype):
+    """K2's halo W mode (spatially sharded training): the grads of x, its
+    two halo columns included, and of the weight, bias and prologue,
+    against autograd through the plain version; each forward launches the
+    kernel once."""
+    _needs_card()
+    for i, (h_mode, pro_on) in enumerate((("reflect", True), ("zero", False))):
+        x, k, b, a, pb = _inputs(2, 13, 39, 32, 48, dtype, seed=40 + i)
+        before = conv3x3_fused_t.launches
+        _grad_check(
+            lambda x, k, b, *pro: conv3x3_fused_t(x, k, b, pro or None, "relu", h_mode,
+                                                  "halo"),
+            lambda x, k, b, *pro: conv3x3_fused_plain(x, k, b, pro or None, "relu", h_mode,
+                                                      "halo"),
+            [x, k, b, a, pb] if pro_on else [x, k, b], dtype)
+        assert conv3x3_fused_t.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_wrappers_never_return_detached_results_on_the_card():
     """Every wrapper on a CUDA input that requires grad: a grad_fn, or (the
     inference-only K4 / K5) an error."""

@@ -184,9 +184,20 @@ def test_halo_mode_equals_inkernel_wrap():
 
 
 def test_halo_mode_checks_and_refuses_training():
+    """'halo' is a W mode only. The halo mode trains (the block conv's
+    backward covers the halo columns), but the halo kernel does not: it
+    has no backward, and neither it nor ``HaloCtx.pad_w`` with ``rdma``
+    runs where autograd records."""
+    from biasgan_tpu_torch.parallel import HaloCtx
+
     xp, k, b, _ = _conv_data(0, False)
     kt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())
     with pytest.raises(ValueError, match="unknown h_mode 'halo'"):
         conv3x3_fused(torch.from_numpy(xp), kt, h_mode="halo")
-    with pytest.raises(NotImplementedError, match="spatially sharded training"):
-        conv3x3_fused_t(torch.from_numpy(xp), kt, w_mode="halo")
+    xg = torch.from_numpy(xp).requires_grad_(True)
+    y, _ = conv3x3_fused_t(xg, kt, w_mode="halo")
+    assert y.grad_fn is not None and y.shape[2] == xp.shape[2] - 2
+    with pytest.raises(RuntimeError, match="no backward"):
+        halo_exchange_w(xg, 1, 1, HaloRing(1))
+    with pytest.raises(RuntimeError, match="no backward"):
+        HaloCtx(1, rdma=True).pad_w(xg, 1, 1)
