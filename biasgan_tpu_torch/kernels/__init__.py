@@ -10,8 +10,8 @@ def wrappers() -> dict:
     from biasgan_tpu_torch.kernels.build import SOURCES
 
     return {
-        wrapper: getattr(importlib.import_module(f"{__name__}.{source}"), wrapper)
-        for source, wrapper in SOURCES.items()
+        wrapper: getattr(importlib.import_module(f"{__name__}.{module}"), wrapper)
+        for module, wrapper in SOURCES.values()
     }
 
 

@@ -35,15 +35,16 @@ NVCC_FLAGS = (
 )
 
 # every kernel of the port, the one list of them: its source csrc/<name>.cu
-# -> the wrapper that launches it, kernels/<name>.py::<wrapper>
+# -> the wrapper that launches it, kernels/<module>.py::<wrapper>
 SOURCES = {
-    "conv3x3_fused": "conv3x3_fused",
-    "conv3x3s2_fused": "conv3x3s2_fused",
-    "convt3x3s2_fused": "convt3x3s2_fused",
-    "conv7x7": "conv7x7",
-    "instance_norm_act": "instance_norm_act",
-    "conv3x3_valid": "conv3x3_valid",
-    "halo_exchange": "halo_exchange_w",
+    "conv3x3_fused": ("conv3x3_fused", "conv3x3_fused"),
+    "conv3x3_fused_bwd": ("conv3x3_fused", "conv3x3_fused_bwd"),
+    "conv3x3s2_fused": ("conv3x3s2_fused", "conv3x3s2_fused"),
+    "convt3x3s2_fused": ("convt3x3s2_fused", "convt3x3s2_fused"),
+    "conv7x7": ("conv7x7", "conv7x7"),
+    "instance_norm_act": ("instance_norm_act", "instance_norm_act"),
+    "conv3x3_valid": ("conv3x3_valid", "conv3x3_valid"),
+    "halo_exchange": ("halo_exchange", "halo_exchange_w"),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

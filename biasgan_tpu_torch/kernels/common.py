@@ -115,7 +115,7 @@ def launch(name: str, fn: str, argtypes: Sequence, device: torch.device, *args) 
 
 def num_tiles(name: str, fn: str, *args: int) -> int:
     """An integer query of kernel library ``name`` (the tile count of its
-    moment partials)."""
+    moment partials, or the bytes of its workspace)."""
     from biasgan_tpu_torch.kernels import build
 
     f = getattr(build.load(name), fn)

@@ -16,9 +16,15 @@ kernel for a CUDA tensor; there is no fallback from one to the other.
 ``conv3x3_fused_t`` is its differentiable form, the counterpart of
 ``pallas_conv.py::conv3x3_fused_t`` (:1091, custom VJP ``_fused_diff``
 :950): a ``torch.autograd.Function`` whose forward is the same call (the
-kernel on the card) and whose backward is ``_fused_diff_bwd`` (:972-1085)
-line by line, in torch ops as the JAX backward is in XLA ops. Where
-autograd records, ``conv3x3_fused`` goes through it.
+kernel on the card) and whose backward is ``conv3x3_fused_bwd``, the
+counterpart of ``_fused_diff_bwd`` (:972-1085, XLA ops in the reference).
+For a CUDA tensor that is a second hand-written kernel
+(csrc/conv3x3_fused_bwd.cu: the moments' pullback, the conv's input and
+weight gradients with the pad's adjoint folded in, and the prologue's
+chain, in four launches, counted in ``conv3x3_fused_bwd.launches``); for
+a CPU tensor its plain version ``conv3x3_fused_bwd_plain``, the JAX
+backward line by line in torch ops (cuDNN's dgrad and wgrad for the conv).
+Where autograd records, ``conv3x3_fused`` goes through it.
 
 ``w_mode='halo'`` is the spatially sharded path's form (the Pallas
 ``w_mode='halo'``, pallas_conv.py:565, 714): x carries its two W pad
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 
 from biasgan_tpu_torch.kernels.common import (
     ACT_CODE,
+    DTYPE_CODE,
     PAD_CODE,
     INT,
     PTR,
@@ -231,6 +238,162 @@ def _unpad1(d: torch.Tensor, axis: int, mode: str) -> torch.Tensor:
     return core
 
 
+def _check_bwd_args(x, weight, bias, a, b, y, dy, ds, dq, act_pre, h_mode, w_mode) -> None:
+    _check_args(x, weight, bias, None if a is None else (a, b), act_pre, h_mode, w_mode)
+    n, h, w, _ = x.shape
+    cout = weight.shape[0]
+    out = (n, h, w - 2 if w_mode == "halo" else w, cout)
+    for name, t in (("y", y), ("dy", dy)):
+        if tuple(t.shape) != out:
+            raise ValueError(f"{name} must be {out}, got {tuple(t.shape)}")
+    if (ds is None) != (dq is None):
+        raise ValueError("ds and dq come together (the moments' cotangents) or not at all")
+    for name, t in (("ds", ds), ("dq", dq)):
+        if t is not None and tuple(t.shape) != (n, cout):
+            raise ValueError(f"{name} must be ({n}, {cout}), got {tuple(t.shape)}")
+
+
+def conv3x3_fused_bwd_plain(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    a: Optional[torch.Tensor],
+    b: Optional[torch.Tensor],
+    y: torch.Tensor,
+    dy: torch.Tensor,
+    ds: Optional[torch.Tensor],
+    dq: Optional[torch.Tensor],
+    act_pre: str = "relu",
+    h_mode: str = "reflect",
+    w_mode: str = "wrap",
+):
+    """Plain PyTorch version of ``conv3x3_fused_bwd``: pallas_conv.py's
+    ``_fused_diff_bwd`` (:972-1085) line by line, in torch ops as the JAX
+    backward is in XLA ops (cuDNN's dgrad and wgrad for the conv's VJP).
+    Set TF32 off to compare it with the kernel on the card."""
+    cdt = x.dtype
+    dYf = dy.float()
+    if ds is not None:
+        # pullback of the moments, f32, of the STORED output
+        dYf = dYf + (ds[:, None, None, :] + 2.0 * dq[:, None, None, :] * y.float())
+    # recompute the prologue'd input as the kernel does: f32 affine + act,
+    # one cast to the compute dtype before the taps
+    if a is not None:
+        af = a[:, None, None, :].float()
+        pre = x.float() * af + b[:, None, None, :].float()
+        u = act_f32(pre, act_pre).to(cdt)
+    else:
+        u = x
+    # dU and dW of pad + VALID conv in the compute dtype (the JAX backward's
+    # preferred_element_type=cdt), then the pad's adjoint; the halo mode's W
+    # pad columns are x's own, so W is a VALID conv
+    halo = w_mode == "halo"
+    up = pad_hw(u, (1, 1), (0, 0) if halo else (1, 1), h_mode, "zero" if halo else w_mode)
+    w = weight.to(cdt)
+    dUp, dW, _ = torch.ops.aten.convolution_backward(
+        dYf.to(cdt).permute(0, 3, 1, 2), up.permute(0, 3, 1, 2), w,
+        None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False],
+    )
+    dU = dUp.permute(0, 2, 3, 1)
+    dU = _unpad1(dU if halo else _unpad1(dU, 2, w_mode), 1, h_mode)
+    dbias = None if bias is None else dYf.sum(dim=(0, 1, 2)).to(bias.dtype)
+    da = db = None
+    if a is not None:
+        dUf = dU.float()
+        if act_pre == "relu":
+            dpre = dUf * (pre > 0)
+        elif act_pre == "lrelu":
+            dpre = dUf * torch.where(pre > 0, 1.0, 0.2)
+        else:
+            dpre = dUf
+        dx = (dpre * af).to(x.dtype)
+        da = (dpre * x.float()).sum(dim=(1, 2)).to(a.dtype)
+        db = dpre.sum(dim=(1, 2)).to(b.dtype)
+    else:
+        dx = dU.to(x.dtype)
+    return dx, dW.to(weight.dtype), dbias, da, db
+
+
+_BWD_ARGTYPES = [PTR] * 14 + [INT] * 10
+
+
+def _launch_bwd(x, weight, bias, a, b, y, dy, ds, dq, act_pre, h_mode, w_mode):
+    n, h, w, c = x.shape
+    if w_mode == "halo":
+        w -= 2  # the output's width
+    cout = weight.shape[0]
+    dtype = check_kernel_input("conv3x3_fused_bwd", x, n * h * w * cout)
+    # autograd hands over strided cotangents; the kernel takes NHWC
+    dy, y, weight = dy.contiguous(), y.contiguous(), weight.contiguous()
+    for name, t in (("y", y), ("dy", dy)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"conv3x3_fused_bwd kernel: {name} is {t.dtype}, x {x.dtype}")
+    if weight.dtype not in DTYPE_CODE:
+        raise TypeError(f"conv3x3_fused_bwd kernel takes a float32 or bfloat16 weight, "
+                        f"got {weight.dtype}")
+    f32 = [None if t is None else t.float().contiguous() for t in (a, b, ds, dq)]
+    dev = x.device
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(weight)
+    dbias = None if bias is None else torch.empty(cout, dtype=torch.float32, device=dev)
+    da = db = None
+    if a is not None:
+        da, db = (torch.empty((n, c), dtype=torch.float32, device=dev) for _ in range(2))
+    nbytes = num_tiles("conv3x3_fused_bwd", "conv3x3_fused_bwd_workspace", n, h, w, c,
+                       cout, dtype, W_CODE[w_mode], int(a is not None))
+    if nbytes < 0:
+        raise ValueError("conv3x3_fused_bwd kernel: workspace past 2**31 bytes")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    launch(
+        "conv3x3_fused_bwd", "conv3x3_fused_bwd_launch", _BWD_ARGTYPES, dev,
+        ptr(x), ptr(weight), *(ptr(t) for t in f32[:2]), ptr(y), ptr(dy),
+        *(ptr(t) for t in f32[2:]), ptr(dx), ptr(dw), ptr(dbias), ptr(da), ptr(db), ptr(work),
+        n, h, w, c, cout, dtype, DTYPE_CODE[weight.dtype], PAD_CODE[h_mode], W_CODE[w_mode],
+        ACT_CODE[act_pre],
+    )
+    conv3x3_fused_bwd.launches += 1
+    if dbias is not None:
+        dbias = dbias.to(bias.dtype)
+    if a is not None:
+        da, db = da.to(a.dtype), db.to(b.dtype)
+    return dx, dw, dbias, da, db
+
+
+def conv3x3_fused_bwd(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor],
+    a: Optional[torch.Tensor],
+    b: Optional[torch.Tensor],
+    y: torch.Tensor,
+    dy: torch.Tensor,
+    ds: Optional[torch.Tensor],
+    dq: Optional[torch.Tensor],
+    act_pre: str = "relu",
+    h_mode: str = "reflect",
+    w_mode: str = "wrap",
+):
+    """The backward of ``conv3x3_fused`` (``conv3x3_fused_t``'s): from the
+    forward's inputs ``x``, ``weight``, ``bias`` and prologue ``a``, ``b``
+    (or None), its stored output ``y``, and the cotangents ``dy`` of y and
+    ``ds``, ``dq`` ((N, Cout) f32) of its moments (None without moments),
+    returns ``(dx, dweight, dbias, da, db)`` (None where the input is None),
+    each in its input's dtype. In the halo W mode dx covers the two halo
+    columns too.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (csrc/conv3x3_fused_bwd.cu, four launches, counted once in
+    ``conv3x3_fused_bwd.launches``) or raises."""
+    args = (x, weight, bias, a, b, y, dy, ds, dq, act_pre, h_mode, w_mode)
+    _check_bwd_args(*args)
+    if check_device("conv3x3_fused_bwd", x, [weight, bias, a, b, y, dy, ds, dq]):
+        return conv3x3_fused_bwd_plain(*args)
+    return _launch_bwd(*args)
+
+
+conv3x3_fused_bwd.launches = 0
+
+
 class _FusedT(torch.autograd.Function):
     """conv3x3_fused with the exact VJP of pallas_conv.py:_fused_diff."""
 
@@ -252,47 +415,11 @@ class _FusedT(torch.autograd.Function):
     def backward(ctx, dy, ds=None, dq=None):
         act_pre, h_mode, w_mode, want_moments = ctx.cfg
         x, weight, bias, a, b, y = ctx.saved_tensors
-        cdt = x.dtype
-        dYf = dy.float()
-        if want_moments:
-            # pullback of the moments, f32, of the STORED output
-            dYf = dYf + (ds[:, None, None, :] + 2.0 * dq[:, None, None, :] * y.float())
-        # recompute the prologue'd input as the kernel does: f32 affine +
-        # act, one cast to the compute dtype before the taps
-        if a is not None:
-            af = a[:, None, None, :].float()
-            pre = x.float() * af + b[:, None, None, :].float()
-            u = act_f32(pre, act_pre).to(cdt)
-        else:
-            u = x
-        # dU and dW of pad + VALID conv in the compute dtype (the JAX
-        # backward's preferred_element_type=cdt), then the pad's adjoint;
-        # the halo mode's W pad columns are x's own, so W is a VALID conv
-        halo = w_mode == "halo"
-        up = pad_hw(u, (1, 1), (0, 0) if halo else (1, 1), h_mode, "zero" if halo else w_mode)
-        w = weight.to(cdt)
-        dUp, dW, _ = torch.ops.aten.convolution_backward(
-            dYf.to(cdt).permute(0, 3, 1, 2), up.permute(0, 3, 1, 2), w,
-            None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, [True, True, False],
-        )
-        dU = dUp.permute(0, 2, 3, 1)
-        dU = _unpad1(dU if halo else _unpad1(dU, 2, w_mode), 1, h_mode)
-        dbias = None if bias is None else dYf.sum(dim=(0, 1, 2)).to(bias.dtype)
-        da = db = None
-        if a is not None:
-            dUf = dU.float()
-            if act_pre == "relu":
-                dpre = dUf * (pre > 0)
-            elif act_pre == "lrelu":
-                dpre = dUf * torch.where(pre > 0, 1.0, 0.2)
-            else:
-                dpre = dUf
-            dx = (dpre * af).to(x.dtype)
-            da = (dpre * x.float()).sum(dim=(1, 2)).to(a.dtype)
-            db = dpre.sum(dim=(1, 2)).to(b.dtype)
-        else:
-            dx = dU.to(x.dtype)
-        return dx, dW.to(weight.dtype), dbias, da, db, None, None, None, None
+        if not want_moments:
+            ds = dq = None
+        grads = conv3x3_fused_bwd(x, weight, bias, a, b, y, dy, ds, dq, act_pre, h_mode,
+                                  w_mode)
+        return (*grads, None, None, None, None)
 
 
 def conv3x3_fused_t(

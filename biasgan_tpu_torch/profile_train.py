@@ -19,8 +19,9 @@ order, twice, each from a fresh state, and each round measures:
   ``torch.cuda.synchronize()`` calls, ms per step;
 * profile: ``torch.profiler`` over PROFILED steps: device busy ms per step
   (the sum of the kernels' self device time), the largest kernels, the
-  idle share 1 - busy / wall, and each hand-written kernel's launches per
-  step.
+  idle share 1 - busy / wall, the device kernels per step (every kernel the
+  card ran, library and hand-written), and each hand-written kernel's
+  launches per step.
 
 It prints one line per round and, with --out, writes every number to a
 JSON file.
@@ -38,7 +39,7 @@ import torch
 
 from biasgan_tpu_torch.config import parse_config
 from biasgan_tpu_torch.data import create_dataset
-from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused
+from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused, conv3x3_fused_bwd
 from biasgan_tpu_torch.kernels.conv3x3_valid import conv3x3_valid
 from biasgan_tpu_torch.kernels.conv7x7 import conv7x7
 from biasgan_tpu_torch.kernels.instance_norm_act import instance_norm_act
@@ -62,6 +63,7 @@ ROUTES = {
     "all": ["--fused_blocks", "--conv7_pallas", "1", "--force_pallas_norm"],
 }
 KERNELS = {"conv3x3_fused": (conv3x3_fused, "launches"),
+           "conv3x3_fused_bwd": (conv3x3_fused_bwd, "launches"),
            "conv3x3_valid": (conv3x3_valid, "launches"),
            "conv3x3_valid.bwd": (conv3x3_valid, "bwd_launches"),
            "conv7x7": (conv7x7, "launches"),
@@ -69,6 +71,7 @@ KERNELS = {"conv3x3_fused": (conv3x3_fused, "launches"),
 
 
 def profile_round(route: str, dtype: str) -> dict:
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = parse_config(ARGS + ROUTES[route] + ["--compute_dtype", dtype], train=True)
@@ -97,12 +100,15 @@ def profile_round(route: str, dtype: str) -> dict:
         torch.cuda.synchronize()
     launches = {k: (getattr(f, a) - before[k]) / PROFILED for k, (f, a) in KERNELS.items()}
     busy, top = _device_rows(prof, PROFILED, TOP)
+    device_kernels = sum(e.count for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the steps")
     return {
         "route": route, "dtype": dtype, "wall_ms_per_step": wall,
         "samples_per_s": cfg.batch_size * 1e3 / wall,
         "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall,
+        "device_kernels_per_step": device_kernels / PROFILED,
         "launches_per_step": launches, "top_kernels": top,
     }
 
@@ -130,7 +136,8 @@ def main(argv=None) -> int:
         print(
             f"{route} {args.dtype}: wall {r['wall_ms_per_step']:.3f} ms/step "
             f"({r['samples_per_s']:.3f} samples/s, {STEPS} steps), device busy "
-            f"{r['device_busy_ms_per_step']:.3f} ms/step, idle share {r['idle_share']:.3f}; "
+            f"{r['device_busy_ms_per_step']:.3f} ms/step, idle share {r['idle_share']:.3f}, "
+            f"{r['device_kernels_per_step']:g} device kernels/step; "
             f"launches/step: {kernels or 'none'}"
         )
         for ms, calls, key in r["top_kernels"]:

@@ -10,7 +10,8 @@ checkout is missing, and at the first failure of any phase:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA,
      nvcc and Triton versions;
   2. build every kernel of the served, sharded and trained paths from csrc/
-     (nvcc, sm_90a), one nvcc per source, all started together;
+     (nvcc, sm_90a), one nvcc per source, all started together (the fused
+     block conv's backward among them);
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
@@ -25,14 +26,23 @@ checkout is missing, and at the first failure of any phase:
      forward, periodic and zero-edge, and its time (CUDA events around
      rank 0's launches), the exchange's wall time with its host-side
      synchronisation, the plain ring's and the ring's messages alone;
-  3b. the gradient phase: each differentiable kernel (the fused block conv
-     of training, also in its halo W mode with wrap and zero-edge halo
-     columns at the sharded step's block shape and ragged widths; the
-     VALID 3x3 op, the 7x7 conv, the fused instance norm) under autograd
-     against autograd through its plain version on the card, f32 and bf16,
-     with the JAX tests' bounds; then, at the training shapes in bf16, each
-     one's forward and backward times beside cuDNN's through autograd, and
-     the card's forward and backward bounds;
+  3b. the gradient phase: the fused block conv's backward kernel
+     (conv3x3_fused_bwd) called directly against its plain version (the
+     torch-ops backward) on the same inputs and cotangents, over every H pad
+     with every W mode (the halo mode with wrap and zero-edge columns), the
+     prologue under each act and without, moments and bias on and off,
+     ragged and tiny shapes and the training shapes, f32 and bf16; each
+     differentiable kernel (the fused block conv of training, whose
+     backward is that kernel, also in its halo W mode with wrap and
+     zero-edge halo columns at the sharded step's block shape and ragged
+     widths; the VALID 3x3 op, the 7x7 conv, the fused instance norm) under
+     autograd against autograd through its plain version on the card, f32
+     and bf16, with the JAX tests' bounds; then, at the training shapes in
+     bf16, each one's forward and backward times beside cuDNN's through
+     autograd, and the card's forward and backward bounds; for the fused
+     block conv also, in turns, the backward kernel called directly and
+     the old torch-ops backward (the plain version), and the device
+     kernels each backward runs (torch.profiler);
   4. a small-input reference: the generator's kernel paths on the card
      against its plain path on the CPU (which the CPU tests hold to the JAX
      package), f32; and the sharded forward on four ranks on the card (the
@@ -55,15 +65,17 @@ checkout is missing, and at the first failure of any phase:
      --fused_blocks; --pallas_conv 1; and --fused_blocks --conv7_pallas 1
      --force_pallas_norm. Each route's first step, from the same state and
      batch, is held to the plain route's (losses and step-1 gradients) with
-     exact kernel launch counts; then ``biasgan_tpu_torch.train.main`` runs
-     six steps on the route, counting launches, with finite losses, and
-     its samples/s over steps 2-6 is printed. The checkpoint of one run is
+     exact kernel launch counts (the block conv's backward kernel: 54 per
+     step on the --fused_blocks routes, 0 elsewhere); then
+     ``biasgan_tpu_torch.train.main`` runs six steps on the route, counting
+     launches, with finite losses, and its samples/s over steps 2-6 is
+     printed. The checkpoint of one run is
      loaded by the inference CLI's loader;
   8. the same CycleGAN with --w_pad_mode wrap, spatially sharded over four
      ranks on the card (--spatial_mesh 4), on two routes: --fused_blocks
-     (the block conv's halo W mode, 54 launches per rank per step) and the
-     plain one. Step 1 of each, f32 and bf16, from the seeded state and the
-     first batch, is held to the one-card plain step 1 of the same
+     (the block conv's halo W mode, forward and backward kernel 54 launches
+     each per rank per step) and the plain one. Step 1 of each, f32 and
+     bf16, from the seeded state and the first batch, is held to the one-card plain step 1 of the same
      configuration (losses and per-net gradients, by the rules of 7), with
      exact launch counts per rank and every rank's parameters bitwise
      equal; then ``train.main --spatial_mesh 4`` runs three bf16 steps on
@@ -689,33 +701,171 @@ def check_grads(torch) -> dict:
     return worst
 
 
+# the fused block conv's backward kernel, held directly to its plain version
+# (the torch-ops backward): ragged tiles, H = 2 (reflect's rows 1 and n-2 on
+# the edges), a tiny W, the one-card training shape and the sharded one
+BWD_SHAPES = [(2, 13, 37, 32, 48), (1, 9, 5, 256, 256), (2, 2, 17, 16, 24),
+              (2, 64, 64, 256, 256), (3, 64, 16, 256, 256)]
+BWD_W_MODES = ("wrap", "reflect", "zero", "halo-wrap", "halo-zero")
+# (prologue, act, moments, bias): every act with the prologue, none without
+BWD_VARIANTS = [(True, "relu", True, True), (True, "lrelu", False, True),
+                (True, "none", True, False), (False, "relu", False, False)]
+
+
+def bwd_case(torch, g, shape, dtype, h_mode, w_mode, variant):
+    """The arguments of one ``conv3x3_fused_bwd`` call on random inputs and
+    cotangents (halo-wrap / halo-zero: the halo W mode with the columns a
+    periodic ring or a zero global edge brings)."""
+    n, h, w, c, cout = shape
+    pro, act, moments, bias = variant
+    halo = w_mode.startswith("halo")
+    x = _randn(torch, g, (n, h, w + 2 * halo, c))
+    if w_mode == "halo-wrap":
+        x[:, :, 0], x[:, :, -1] = x[:, :, -2].clone(), x[:, :, 1].clone()
+    elif w_mode == "halo-zero":
+        x[:, :, 0] = x[:, :, -1] = 0
+    a, b = _prologue(torch, g, n, c) if pro else (None, None)
+    return (x.to(dtype), _randn(torch, g, (cout, c, 3, 3), (9 * c) ** -0.5).to(dtype),
+            _randn(torch, g, (cout,), 0.1) if bias else None, a, b,
+            _randn(torch, g, (n, h, w, cout)).to(dtype),
+            _randn(torch, g, (n, h, w, cout)).to(dtype),
+            _randn(torch, g, (n, cout)) if moments else None,
+            _randn(torch, g, (n, cout), 0.01) if moments else None,
+            act, h_mode, "halo" if halo else w_mode)
+
+
+def check_bwd_kernel(torch) -> dict:
+    """``conv3x3_fused_bwd`` (the kernel) against ``conv3x3_fused_bwd_plain``
+    on the same arguments: every shape of BWD_SHAPES with every H pad and W
+    mode, the variants in turn (at the training shapes all of them for the
+    training routes' modes), f32 and bf16, under GRAD_TOL, one launch per
+    call. Returns the largest |d| in bf16 (absolute, and relative to
+    max(1, |ref|))."""
+    from biasgan_tpu_torch.kernels.conv3x3_fused import (
+        conv3x3_fused_bwd,
+        conv3x3_fused_bwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"max_abs_err": 0.0, "max_grad_err": 0.0}
+    n_cases = 0
+    for shape in BWD_SHAPES:
+        i = 0
+        for h_mode in PAD_MODES:
+            for w_mode in BWD_W_MODES:
+                variants = [BWD_VARIANTS[i % len(BWD_VARIANTS)]]
+                i += 1
+                if shape[1] == 64 and h_mode == "reflect" and w_mode in ("reflect", "halo-wrap"):
+                    variants = BWD_VARIANTS
+                for variant, dtype in ((v, d) for v in variants
+                                       for d in (torch.bfloat16, torch.float32)):
+                    args = bwd_case(torch, g, shape, dtype, h_mode, w_mode, variant)
+                    before = conv3x3_fused_bwd.launches
+                    got = conv3x3_fused_bwd(*args)
+                    torch.cuda.synchronize()
+                    check(conv3x3_fused_bwd.launches == before + 1,
+                          "conv3x3_fused_bwd: not one launch per call")
+                    ref = conv3x3_fused_bwd_plain(*args)
+                    atol, rtol = GRAD_TOL[str(dtype).replace("torch.", "")]
+                    where = f"{shape} {dtype} {h_mode}/{w_mode} {variant}"
+                    for name, a, b in zip(("dx", "dw", "dbias", "da", "db"), got, ref):
+                        check((a is None) == (b is None), f"conv3x3_fused_bwd {where}: {name}")
+                        if a is None:
+                            continue
+                        check(a.dtype == b.dtype and a.shape == b.shape,
+                              f"conv3x3_fused_bwd {where}: {name} dtype or shape")
+                        a, b = a.float(), b.float()
+                        scale = max(1.0, float(b.abs().max()))
+                        d = float((a - b).abs().max())
+                        check(bool(torch.isfinite(a).all()),
+                              f"conv3x3_fused_bwd {where}: non-finite {name}")
+                        check(bool(((a - b).abs() <= atol * scale + rtol * b.abs()).all()),
+                              f"conv3x3_fused_bwd {where}: {name} off by {d / scale:.3g} of "
+                              "max(1, |ref|)")
+                        if dtype == torch.bfloat16:
+                            worst["max_abs_err"] = max(worst["max_abs_err"], d)
+                            worst["max_grad_err"] = max(worst["max_grad_err"], d / scale)
+                    n_cases += 1
+    print(f"conv3x3_fused_bwd: {n_cases} cases (kernel vs plain backward) within the "
+          f"gradient bounds; bf16 largest |d| {worst['max_abs_err']:.3g}, "
+          f"{worst['max_grad_err']:.3g} of max(1, |ref|)")
+    return worst
+
+
+def device_kernels(torch, fn) -> int:
+    """The kernels the card runs in one call of ``fn`` (torch.profiler,
+    after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
 def time_grads(torch) -> dict:
     """At each training shape in bf16: the differentiable form's forward
     (autograd recording) and backward, beside cuDNN's (or the library
     norm's) through autograd, in turns, CUDA events, best of two; the
-    plain version's forward; the forward bound. Per form, the per-step sums
-    (each call's time times its count) and the per-call numbers."""
+    plain version's forward; the forward bound. For the fused block conv
+    also, in the same turns, its backward kernel called directly
+    (``kernel_bwd``) and the old torch-ops backward (``plain_bwd``, the
+    plain version at bf16), and the device kernels of one backward on each
+    of the three. Per form, the per-step sums (each call's time times its
+    count) and the per-call numbers."""
+    from biasgan_tpu_torch.kernels.conv3x3_fused import (
+        conv3x3_fused_bwd,
+        conv3x3_fused_bwd_plain,
+    )
+
     g = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for form, (_, calls) in GRAD_CALLS.items():
         rows = []
+        fused = form.startswith("conv3x3_fused_t")
         for shape, opt, count in calls:
             fn, plain, lib, ins, nbytes, op_s = grad_case(torch, g, form, shape,
                                                           torch.bfloat16, **opt)
-            runs = {k: [] for k in ("fwd", "bwd", "library_fwd", "library_bwd")}
-            for which, f in (("", fn), ("library_", lib), ("library_", lib), ("", fn)):
+            runs = {k: [] for k in ("fwd", "bwd", "library_fwd", "library_bwd", "kernel_bwd",
+                                    "plain_bwd")}
+            kernels = {}
+            for which, f in (("", fn), ("library_", lib), ("plain_", None), ("plain_", None),
+                             ("library_", lib), ("", fn)):
+                if which == "plain_":
+                    if fused:
+                        runs["plain_bwd"].append(timed(torch, lambda: conv3x3_fused_bwd_plain(
+                            *bwd_args), iters=10, warmup=2))
+                        kernels.setdefault("plain_bwd", device_kernels(
+                            torch, lambda: conv3x3_fused_bwd_plain(*bwd_args)))
+                    continue
                 outs = f()
                 cots = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
                         for o in outs]
                 runs[which + "fwd"].append(timed(torch, f, iters=10, warmup=2))
-                runs[which + "bwd"].append(timed(
-                    torch, lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True,
-                                                       allow_unused=True),
-                    iters=10, warmup=2))
+                def grad():
+                    return torch.autograd.grad(outs, ins, cots, retain_graph=True,
+                                               allow_unused=True)
+
+                runs[which + "bwd"].append(timed(torch, grad, iters=10, warmup=2))
+                kernels.setdefault(which + "bwd", device_kernels(torch, grad))
+                if fused and which == "":
+                    # the backward's own arguments: the stored y and the cotangents
+                    x, w, bias, *pro = ins
+                    a, b = pro if pro else (None, None)
+                    bwd_args = (x.detach(), w.detach(), bias.detach(),
+                                None if a is None else a.detach(),
+                                None if b is None else b.detach(), outs[0].detach(), *cots,
+                                "relu", opt.get("h_mode", "reflect"), opt.get("w_mode", "wrap"))
+                    runs["kernel_bwd"].append(timed(torch, lambda: conv3x3_fused_bwd(
+                        *bwd_args), iters=10, warmup=2))
                 del outs
             with torch.no_grad():
                 plain_ms = timed(torch, plain, iters=5, warmup=1)
-            best = {k: min(v) for k, v in runs.items()}
+            best = {k: min(v) for k, v in runs.items() if v}
             byte_ms, op_ms = nbytes / PEAK_BYTES * 1e3, op_s * 1e3
             bwd_bytes, bwd_op_s = bwd_work(form, shape, opt, 2, op_s)
             bwd_bytes_ms, bwd_op_ms = bwd_bytes / PEAK_BYTES * 1e3, bwd_op_s * 1e3
@@ -725,15 +875,19 @@ def time_grads(torch) -> dict:
                          "library_bwd_ms": best["library_bwd"],
                          "bound_ms": max(byte_ms, op_ms), "bytes_ms": byte_ms,
                          "operations_ms": op_ms, "bwd_bound_ms": max(bwd_bytes_ms, bwd_op_ms),
-                         "bwd_bytes_ms": bwd_bytes_ms, "bwd_operations_ms": bwd_op_ms})
+                         "bwd_bytes_ms": bwd_bytes_ms, "bwd_operations_ms": bwd_op_ms,
+                         "device_kernels_per_bwd": kernels,
+                         **({"kernel_bwd_ms": best["kernel_bwd"],
+                             "plain_bwd_ms": best["plain_bwd"]} if fused else {})})
             print(f"{form} {shape} bf16 {opt} x{count}/step, ms per call (in turns): "
-                  + "; ".join(f"{k} {v}" for k, v in runs.items())
+                  + "; ".join(f"{k} {v}" for k, v in runs.items() if v)
                   + f"; plain fwd {plain_ms:.4f}; fwd bound {max(byte_ms, op_ms):.4f}; bwd "
-                  f"bound {max(bwd_bytes_ms, bwd_op_ms):.4f}")
-        total = {k: sum(r[k] * r["count"] for r in rows)
-                 for k in ("ms", "bwd_ms", "plain_ms", "library_ms", "library_bwd_ms",
-                           "bound_ms", "bytes_ms", "operations_ms", "bwd_bound_ms",
-                           "bwd_bytes_ms", "bwd_operations_ms")}
+                  f"bound {max(bwd_bytes_ms, bwd_op_ms):.4f}; device kernels per backward "
+                  f"{kernels}")
+        keys = ["ms", "bwd_ms", "plain_ms", "library_ms", "library_bwd_ms", "bound_ms",
+                "bytes_ms", "operations_ms", "bwd_bound_ms", "bwd_bytes_ms",
+                "bwd_operations_ms"] + (["kernel_bwd_ms", "plain_bwd_ms"] if fused else [])
+        total = {k: sum(r[k] * r["count"] for r in rows) for k in keys}
         total["bound_by"] = "bytes" if total["bytes_ms"] >= total["operations_ms"] else "operations"
         total["bwd_bound_by"] = ("bytes" if total["bwd_bytes_ms"] >= total["bwd_operations_ms"]
                                  else "operations")
@@ -1108,17 +1262,19 @@ TRAIN_ARGS = [
     "--synthetic_samples", str(TRAIN_SAMPLES), "--n_epochs", "1", "--n_epochs_decay", "0",
     "--print_freq", "1", "--save_latest_freq", "1000000", "--device", "cuda",
 ]
-# training route -> (train flags, launches per step: each kernel's, the
-# differentiable fused conv's, and the VALID conv's input-gradient ones).
+# training route -> (train flags, launches per step: each kernel's (the
+# fused conv's backward kernel among them), the differentiable fused conv's,
+# and the VALID conv's input-gradient ones).
 # Per step: 3 G dispatches x 18 block convs; 3 x (stem + head); the
 # all-kernel route's norms: 3 x 5 in the Gs, 4 D forwards x 3 in the Ds.
 TRAIN_ROUTES = {
     "plain": ([], {}),
-    "fused": (["--fused_blocks"], {"conv3x3_fused": 54, "conv3x3_fused_t": 54}),
+    "fused": (["--fused_blocks"], {"conv3x3_fused": 54, "conv3x3_fused_t": 54,
+                                   "conv3x3_fused_bwd": 54}),
     "pallas_conv": (["--pallas_conv", "1"], {"conv3x3_valid": 54, "conv3x3_valid.bwd": 54}),
     "all": (["--fused_blocks", "--conv7_pallas", "1", "--force_pallas_norm"],
-            {"conv3x3_fused": 54, "conv3x3_fused_t": 54, "conv7x7": 6,
-             "instance_norm_act": 27}),
+            {"conv3x3_fused": 54, "conv3x3_fused_t": 54, "conv3x3_fused_bwd": 54,
+             "conv7x7": 6, "instance_norm_act": 27}),
 }
 
 
@@ -1355,7 +1511,8 @@ def train_phase(torch, work) -> dict:
 
 # sharded training route -> (train flags, launches per rank per step)
 SHARDED_ROUTES = {
-    "spatial_fused": (["--fused_blocks"], {"conv3x3_fused": 54, "conv3x3_fused_t": 54}),
+    "spatial_fused": (["--fused_blocks"], {"conv3x3_fused": 54, "conv3x3_fused_t": 54,
+                                           "conv3x3_fused_bwd": 54}),
     "spatial": ([], {}),
 }
 SHARDED_FLAGS = ["--spatial_mesh", str(N_RANKS), "--w_pad_mode", "wrap"]
@@ -1467,15 +1624,16 @@ def sharded_train_phase(torch, work) -> dict:
     return out
 
 
-def kernel_report(times, errs, grad_times, grad_errs, launches, trained, spatial_times,
-                  halo, sharded) -> list:
+def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, launches, trained,
+                  spatial_times, halo, sharded) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
     routes; the block conv's halo W mode on the sharded --fused_blocks
     path, and its differentiable form on the sharded --fused_blocks
-    training route; the halo exchange on the sharded --halo_rdma path.
-    Backward bounds are ``bwd_work``'s."""
+    training route; the block conv's backward kernel on both training
+    routes; the halo exchange on the sharded --halo_rdma path. Backward
+    bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
            "step": "step: each call's best time times its launches per 256x256 CycleGAN "
                    "step at batch 1"}
@@ -1547,6 +1705,34 @@ def kernel_report(times, errs, grad_times, grad_errs, launches, trained, spatial
                         "CLI run"),
                 "calls": g["calls"]}
         kernels.append(entry)
+    bwd = {}
+    for form, route, n in (("conv3x3_fused_t", "fused", trained["launches"]["fused/bfloat16"]),
+                           ("conv3x3_fused_t_halo", "spatial_fused",
+                            sharded["launches"]["spatial_fused"])):
+        g = grad_times[form]
+        bwd[form] = {
+            "route": route, "launches": n["conv3x3_fused_bwd"], "ms": g["kernel_bwd_ms"],
+            "plain_ms": g["plain_bwd_ms"], "bound_ms": g["bwd_bound_ms"],
+            "bound_by": g["bwd_bound_by"], "library_ms": g["library_bwd_ms"],
+            "autograd_ms": g["bwd_ms"],
+            "device_kernels_per_bwd": g["calls"][0]["device_kernels_per_bwd"],
+            "calls": [{k: c[k] for k in ("shape", "options", "count", "kernel_bwd_ms",
+                                         "plain_bwd_ms", "library_bwd_ms", "bwd_ms",
+                                         "bwd_bound_ms")} for c in g["calls"]]}
+    kernels.insert(1, {
+        "name": "conv3x3_fused_bwd", "route": "cuda",
+        "source": "biasgan_tpu_torch/kernels/csrc/conv3x3_fused_bwd.cu",
+        "replaces": "biasgan_tpu/ops/pallas_conv.py:972",
+        **{k: v for k, v in bwd["conv3x3_fused_t"].items() if k != "route"},
+        "max_abs_err": bwd_errs["max_abs_err"], "max_grad_err": bwd_errs["max_grad_err"],
+        "path": "fused (training)",
+        "per": ("step: each training-shape call's best time times its count per 256x256 "
+                "CycleGAN step at batch 1, bf16; ms the kernel called directly, plain_ms the "
+                "torch-ops backward (cuDNN dgrad and wgrad), library_ms cuDNN's conv backward "
+                "through autograd, autograd_ms the kernel through conv3x3_fused_t's autograd; "
+                "launches in the six-step bf16 CLI run"),
+        "halo": bwd["conv3x3_fused_t_halo"],
+    })
     h = halo["totals"]["spatial_rdma"]
     kernels.append({
         "name": "halo_exchange_w", "route": "cuda",
@@ -1590,6 +1776,7 @@ def main() -> int:
         times = time_kernels(torch)
         spatial_times = time_kernels(torch, SPATIAL_CALLS)
         halo = check_halo_exchange(torch)
+        bwd_errs = check_bwd_kernel(torch)
         grad_errs = check_grads(torch)
         grad_times = time_grads(torch)
         check_small_generator(torch)
@@ -1603,7 +1790,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"training": trained, "sharded_training": sharded}))
-    print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs,
+    print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                launches, trained, spatial_times, halo,
                                                sharded)}))
     print(json.dumps({"ok": True, "device": {

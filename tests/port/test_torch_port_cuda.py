@@ -353,3 +353,70 @@ def test_halo_exchange_kernel_matches_ring_across_ranks():
         np.testing.assert_array_equal(ring[:, :, :8 + left + right],
                                       whole[:, :, :8 + left + right])
     assert "wider than local shard" in res["guard"]
+
+
+# ---------------------------------------------------------------------------
+# K2's backward kernel (conv3x3_fused_bwd)
+# ---------------------------------------------------------------------------
+
+from biasgan_tpu_torch.kernels.conv3x3_fused import (  # noqa: E402
+    conv3x3_fused_bwd,
+    conv3x3_fused_bwd_plain,
+)
+
+# (prologue, act, moments, bias): every act with the prologue, none without
+BWD_VARIANTS = [(True, "relu", True, True), (True, "lrelu", False, True),
+                (True, "none", True, False), (False, "relu", False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 13, 37, 32, 48), (1, 9, 5, 256, 256),
+                                   (2, 2, 17, 16, 24), (2, 64, 64, 256, 256)])
+def test_fused_bwd_kernel_matches_plain(dtype, shape):
+    """The backward kernel against its plain version on the same inputs and
+    cotangents, over every H pad with every W mode (the halo mode with
+    periodic and zero-edge halo columns), the prologue under each act and
+    without, moments and bias on and off; ragged tiles, H = 2 (reflect's
+    rows 1 and n-2 on the edges), and the training block shape. Bounds of
+    the gradient checks: f32 2e-4 max(1, |ref|) + 2e-5 |ref|, bf16 0.05
+    max(1, |ref|) + 0.1 |ref|. One launch per call."""
+    _needs_card()
+    n, h, w, c, cout = shape
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    rnd = lambda *s, scale=1.0: scale * torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    atol, rtol = (2e-4, 2e-5) if dtype == torch.float32 else (0.05, 0.1)
+    i = 0
+    for h_mode in ("reflect", "zero", "wrap"):
+        for w_mode in ("wrap", "reflect", "zero", "halo-wrap", "halo-zero"):
+            pro, act, moments, bias = BWD_VARIANTS[i % len(BWD_VARIANTS)]
+            i += 1
+            halo = w_mode.startswith("halo")
+            x = rnd(n, h, w + 2 * halo, c)
+            if w_mode == "halo-wrap":
+                x[:, :, 0], x[:, :, -1] = x[:, :, -2].clone(), x[:, :, 1].clone()
+            elif w_mode == "halo-zero":
+                x[:, :, 0] = x[:, :, -1] = 0
+            args = (x.to(dtype), rnd(cout, c, 3, 3, scale=(9 * c) ** -0.5).to(dtype),
+                    rnd(cout, scale=0.1) if bias else None,
+                    0.5 + torch.rand((n, c), generator=g, device="cuda") if pro else None,
+                    rnd(n, c, scale=0.5) if pro else None,
+                    rnd(n, h, w, cout).to(dtype), rnd(n, h, w, cout).to(dtype),
+                    rnd(n, cout) if moments else None,
+                    rnd(n, cout, scale=0.01) if moments else None,
+                    act, h_mode, "halo" if halo else w_mode)
+            before = conv3x3_fused_bwd.launches
+            got = conv3x3_fused_bwd(*args)
+            assert conv3x3_fused_bwd.launches == before + 1
+            ref = conv3x3_fused_bwd_plain(*args)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("dx", "dw", "dbias", "da", "db"), got, ref):
+                assert (a is None) == (b is None), name
+                if a is None:
+                    continue
+                assert a.dtype == b.dtype and a.shape == b.shape, name
+                a, b = a.float(), b.float()
+                scale = max(1.0, float(b.abs().max()))
+                assert bool(torch.isfinite(a).all()), (name, h_mode, w_mode)
+                assert bool(((a - b).abs() <= atol * scale + rtol * b.abs()).all()), (
+                    name, h_mode, w_mode, float((a - b).abs().max()) / scale)
