@@ -43,6 +43,7 @@ SOURCES = {
     "convt3x3s2_fused": ("convt3x3s2_fused", "convt3x3s2_fused"),
     "conv7x7": ("conv7x7", "conv7x7"),
     "instance_norm_act": ("instance_norm_act", "instance_norm_act"),
+    "instance_norm_act_bwd": ("instance_norm_act", "instance_norm_act_bwd"),
     "conv3x3_valid": ("conv3x3_valid", "conv3x3_valid"),
     "halo_exchange": ("halo_exchange", "halo_exchange_w"),
 }

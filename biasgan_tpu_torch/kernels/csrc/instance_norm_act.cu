@@ -116,7 +116,10 @@ __global__ void __launch_bounds__(RED_CH * RED_LANES)
   const float q = sum_tiles(part + ((size_t)N + n) * tiles * C + c, tiles, C, active);
   if (threadIdx.y != 0 || !active) return;
   const float mean = s / HW;
-  const float var = fmaxf(q / HW - mean * mean, 0.f);
+  // mean^2 rounded before the subtraction, as the plain version computes
+  // it: a contracted fma would leave x^2's rounding error as the variance
+  // of a one-pixel plane
+  const float var = fmaxf(q / HW - __fmul_rn(mean, mean), 0.f);
   stats[(size_t)n * C + c] = mean;
   stats[((size_t)N + n) * C + c] = rsqrtf(var + eps);
 }

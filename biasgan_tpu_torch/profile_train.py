@@ -42,7 +42,7 @@ from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused, conv3x3_fused_bwd
 from biasgan_tpu_torch.kernels.conv3x3_valid import conv3x3_valid
 from biasgan_tpu_torch.kernels.conv7x7 import conv7x7
-from biasgan_tpu_torch.kernels.instance_norm_act import instance_norm_act
+from biasgan_tpu_torch.kernels.instance_norm_act import instance_norm_act, instance_norm_act_bwd
 from biasgan_tpu_torch.models.common import step_generator
 from biasgan_tpu_torch.models.cyclegan import create_state, make_train_step
 from biasgan_tpu_torch.profile_globe import _device_rows
@@ -67,7 +67,8 @@ KERNELS = {"conv3x3_fused": (conv3x3_fused, "launches"),
            "conv3x3_valid": (conv3x3_valid, "launches"),
            "conv3x3_valid.bwd": (conv3x3_valid, "bwd_launches"),
            "conv7x7": (conv7x7, "launches"),
-           "instance_norm_act": (instance_norm_act, "launches")}
+           "instance_norm_act": (instance_norm_act, "launches"),
+           "instance_norm_act_bwd": (instance_norm_act_bwd, "launches")}
 
 
 def profile_round(route: str, dtype: str) -> dict:

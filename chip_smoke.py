@@ -11,7 +11,7 @@ checkout is missing, and at the first failure of any phase:
      nvcc and Triton versions;
   2. build every kernel of the served, sharded and trained paths from csrc/
      (nvcc, sm_90a), one nvcc per source, all started together (the fused
-     block conv's backward among them);
+     block conv's and the instance norm's backward among them);
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
@@ -40,9 +40,14 @@ checkout is missing, and at the first failure of any phase:
      and bf16, with the JAX tests' bounds; then, at the training shapes in
      bf16, each one's forward and backward times beside cuDNN's through
      autograd, and the card's forward and backward bounds; for the fused
-     block conv also, in turns, the backward kernel called directly and
-     the old torch-ops backward (the plain version), and the device
-     kernels each backward runs (torch.profiler);
+     block conv and the instance norm also, in turns, the backward kernel
+     called directly and the old torch-ops backward (the plain version),
+     and the device kernels each backward runs (torch.profiler); the
+     instance norm's backward kernel (instance_norm_act_bwd) called
+     directly against its plain version on the forward kernel's output and
+     saved statistics, at every training shape of the all-kernel route,
+     H W = 1 and C = 12, every act with and without a residual, f32 and
+     bf16 (the residual's gradient bitwise);
   4. a small-input reference: the generator's kernel paths on the card
      against its plain path on the CPU (which the CPU tests hold to the JAX
      package), f32; and the sharded forward on four ranks on the card (the
@@ -66,7 +71,8 @@ checkout is missing, and at the first failure of any phase:
      --force_pallas_norm. Each route's first step, from the same state and
      batch, is held to the plain route's (losses and step-1 gradients) with
      exact kernel launch counts (the block conv's backward kernel: 54 per
-     step on the --fused_blocks routes, 0 elsewhere); then
+     step on the --fused_blocks routes, 0 elsewhere; the instance norm's
+     backward kernel: 27 per step on the all-kernel route); then
      ``biasgan_tpu_torch.train.main`` runs six steps on the route, counting
      launches, with finite losses, and its samples/s over steps 2-6 is
      printed. The checkpoint of one run is
@@ -792,9 +798,102 @@ def check_bwd_kernel(torch) -> dict:
     return worst
 
 
-def device_kernels(torch, fn) -> int:
-    """The kernels the card runs in one call of ``fn`` (torch.profiler,
-    after a warm-up call)."""
+# the instance norm's backward kernel, held directly to its plain version:
+# every training shape of the all-kernel route (with GRAD_CHECKS' K7 shapes
+# among them), H W = 1, and C = 12 (not a multiple of 8)
+NORM_BWD_SHAPES = sorted({s for s, _, _ in _in_norms((2, 3, 1), ((1, 2), (2, 2)))}
+                         | {s for s, _ in GRAD_CHECKS["instance_norm_act"]}) + [
+    (2, 1, 1, 8), (2, 13, 37, 12)]
+
+
+def norm_bwd_args(torch, g, shape, dtype, act, residual):
+    """The arguments of one ``instance_norm_act_bwd`` call as training makes
+    them: x, the forward kernel's output and the statistics it saved for
+    the backward (read from the autograd node), a random cotangent."""
+    from biasgan_tpu_torch.kernels.instance_norm_act import instance_norm_act
+
+    x = _randn(torch, g, shape, 3.0, 1.0).to(dtype)
+    r = _randn(torch, g, shape).to(dtype) if residual else None
+    y = instance_norm_act(x.requires_grad_(True), r, act)
+    x, out, stats = y.grad_fn.saved_tensors
+    return x.detach(), out.detach(), _randn(torch, g, shape).to(dtype), stats, act, residual
+
+
+def norm_bwd_paths(torch, shape, dtype) -> list:
+    """The kernel's paths at this shape: the one-launch cluster path where
+    the plan takes it, and the two-pass path always."""
+    from biasgan_tpu_torch.kernels.common import DTYPE_CODE, num_tiles
+
+    n, h, w, c = shape
+    cluster = num_tiles("instance_norm_act_bwd", "instance_norm_act_bwd_num_tiles", n, h * w,
+                        c, DTYPE_CODE[dtype], 0) == 0
+    return ([False] if cluster else []) + [True]
+
+
+def check_norm_bwd_kernel(torch) -> dict:
+    """``instance_norm_act_bwd`` (the kernel) against
+    ``instance_norm_act_bwd_plain`` on the same arguments (the forward
+    kernel's saved statistics among them): every shape of NORM_BWD_SHAPES,
+    every act with and without a residual, f32 and bf16, on the one-launch
+    cluster path where the shape takes it and on the two-pass path; dx
+    under GRAD_TOL (exactly 0 at H W = 1), d_res bitwise, one launch per
+    call. Returns the largest |d dx| in bf16 (absolute, and relative to
+    max(1, |ref|))."""
+    from biasgan_tpu_torch.kernels.instance_norm_act import (
+        instance_norm_act_bwd,
+        instance_norm_act_bwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    worst = {"max_abs_err": 0.0, "max_grad_err": 0.0}
+    n_cases, cluster_shapes = 0, []
+    for shape, dtype in ((s, d) for s in NORM_BWD_SHAPES
+                         for d in (torch.bfloat16, torch.float32)):
+        paths = norm_bwd_paths(torch, shape, dtype)
+        if len(paths) == 2:
+            cluster_shapes.append(f"{shape} {str(dtype)[6:]}")
+        for act, residual, two_pass in ((a, r, t) for a in ("none", "relu", "lrelu")
+                                        for r in (False, True) for t in paths):
+            args = norm_bwd_args(torch, g, shape, dtype, act, residual)
+            before = instance_norm_act_bwd.launches
+            dx, d_res = instance_norm_act_bwd(*args, two_pass=two_pass)
+            torch.cuda.synchronize()
+            check(instance_norm_act_bwd.launches == before + 1,
+                  "instance_norm_act_bwd: not one launch per call")
+            rdx, rd_res = instance_norm_act_bwd_plain(*args)
+            where = (f"instance_norm_act_bwd {shape} {dtype} {act} residual {residual} "
+                     f"{'two-pass' if two_pass else 'cluster'}")
+            check(dx.dtype == dtype and dx.shape == args[0].shape,
+                  f"{where}: dx dtype or shape")
+            a, b = dx.float(), rdx.float()
+            scale = max(1.0, float(b.abs().max()))
+            d = float((a - b).abs().max())
+            atol, rtol = GRAD_TOL[str(dtype).replace("torch.", "")]
+            check(bool(torch.isfinite(a).all()), f"{where}: non-finite dx")
+            check(bool(((a - b).abs() <= atol * scale + rtol * b.abs()).all()),
+                  f"{where}: dx off by {d / scale:.3g} of max(1, |ref|)")
+            if shape[1] * shape[2] == 1:
+                check(bool((dx == 0).all()), f"{where}: dx not 0 at H W = 1")
+            check((d_res is None) == (not residual), f"{where}: d_res")
+            if residual:
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                check(d_res.dtype == dtype and torch.equal(d_res.view(bits),
+                                                           rd_res.view(bits)),
+                      f"{where}: d_res not bitwise the plain version's")
+            if dtype == torch.bfloat16:
+                worst["max_abs_err"] = max(worst["max_abs_err"], d)
+                worst["max_grad_err"] = max(worst["max_grad_err"], d / scale)
+            n_cases += 1
+    print(f"instance_norm_act_bwd: {n_cases} cases (kernel vs plain backward) within the "
+          f"gradient bounds, d_res bitwise; bf16 largest |d| {worst['max_abs_err']:.3g}, "
+          f"{worst['max_grad_err']:.3g} of max(1, |ref|); the cluster path and the two-pass "
+          f"path both at {', '.join(cluster_shapes)}; the two-pass path alone elsewhere")
+    return worst
+
+
+def device_kernels(torch, fn):
+    """(the kernels the card runs in one call of ``fn``, the sum of their
+    device times in ms): torch.profiler, after a warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -802,9 +901,9 @@ def device_kernels(torch, fn) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset")))
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(ev), sum(e.device_time_total for e in ev) / 1e3
 
 
 def time_grads(torch) -> dict:
@@ -812,14 +911,19 @@ def time_grads(torch) -> dict:
     (autograd recording) and backward, beside cuDNN's (or the library
     norm's) through autograd, in turns, CUDA events, best of two; the
     plain version's forward; the forward bound. For the fused block conv
-    also, in the same turns, its backward kernel called directly
-    (``kernel_bwd``) and the old torch-ops backward (``plain_bwd``, the
-    plain version at bf16), and the device kernels of one backward on each
-    of the three. Per form, the per-step sums (each call's time times its
-    count) and the per-call numbers."""
+    and the instance norm also, in the same turns, the backward kernel
+    called directly (``kernel_bwd``) and the old torch-ops backward
+    (``plain_bwd``, the plain version at bf16), on the forward's output and
+    saved arguments, and the device kernels of one backward on each. Per
+    form, the per-step sums (each call's time times its count) and the
+    per-call numbers."""
     from biasgan_tpu_torch.kernels.conv3x3_fused import (
         conv3x3_fused_bwd,
         conv3x3_fused_bwd_plain,
+    )
+    from biasgan_tpu_torch.kernels.instance_norm_act import (
+        instance_norm_act_bwd,
+        instance_norm_act_bwd_plain,
     )
 
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -827,20 +931,24 @@ def time_grads(torch) -> dict:
     for form, (_, calls) in GRAD_CALLS.items():
         rows = []
         fused = form.startswith("conv3x3_fused_t")
+        direct = fused or form == "instance_norm_act"
+        bwd_fn, bwd_plain = ((conv3x3_fused_bwd, conv3x3_fused_bwd_plain) if fused else
+                             (instance_norm_act_bwd, instance_norm_act_bwd_plain))
         for shape, opt, count in calls:
             fn, plain, lib, ins, nbytes, op_s = grad_case(torch, g, form, shape,
                                                           torch.bfloat16, **opt)
             runs = {k: [] for k in ("fwd", "bwd", "library_fwd", "library_bwd", "kernel_bwd",
                                     "plain_bwd")}
-            kernels = {}
+            kernels, device_ms = {}, {}
             for which, f in (("", fn), ("library_", lib), ("plain_", None), ("plain_", None),
                              ("library_", lib), ("", fn)):
                 if which == "plain_":
-                    if fused:
-                        runs["plain_bwd"].append(timed(torch, lambda: conv3x3_fused_bwd_plain(
-                            *bwd_args), iters=10, warmup=2))
-                        kernels.setdefault("plain_bwd", device_kernels(
-                            torch, lambda: conv3x3_fused_bwd_plain(*bwd_args)))
+                    if direct:
+                        runs["plain_bwd"].append(timed(torch, lambda: bwd_plain(*bwd_args),
+                                                       iters=10, warmup=2))
+                        if "plain_bwd" not in kernels:
+                            kernels["plain_bwd"], device_ms["plain_bwd"] = device_kernels(
+                                torch, lambda: bwd_plain(*bwd_args))
                     continue
                 outs = f()
                 cots = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
@@ -851,7 +959,9 @@ def time_grads(torch) -> dict:
                                                allow_unused=True)
 
                 runs[which + "bwd"].append(timed(torch, grad, iters=10, warmup=2))
-                kernels.setdefault(which + "bwd", device_kernels(torch, grad))
+                if which + "bwd" not in kernels:
+                    kernels[which + "bwd"], device_ms[which + "bwd"] = device_kernels(torch,
+                                                                                      grad)
                 if fused and which == "":
                     # the backward's own arguments: the stored y and the cotangents
                     x, w, bias, *pro = ins
@@ -860,8 +970,17 @@ def time_grads(torch) -> dict:
                                 None if a is None else a.detach(),
                                 None if b is None else b.detach(), outs[0].detach(), *cots,
                                 "relu", opt.get("h_mode", "reflect"), opt.get("w_mode", "wrap"))
-                    runs["kernel_bwd"].append(timed(torch, lambda: conv3x3_fused_bwd(
-                        *bwd_args), iters=10, warmup=2))
+                elif direct and which == "":
+                    # x, the output and the statistics the forward saved
+                    x, y, stats = outs[0].grad_fn.saved_tensors
+                    bwd_args = (x.detach(), y.detach(), cots[0], stats, opt["act"],
+                                opt.get("residual", False))
+                if direct and which == "":
+                    runs["kernel_bwd"].append(timed(torch, lambda: bwd_fn(*bwd_args),
+                                                    iters=10, warmup=2))
+                    if "kernel_bwd" not in kernels:
+                        kernels["kernel_bwd"], device_ms["kernel_bwd"] = device_kernels(
+                            torch, lambda: bwd_fn(*bwd_args))
                 del outs
             with torch.no_grad():
                 plain_ms = timed(torch, plain, iters=5, warmup=1)
@@ -877,17 +996,21 @@ def time_grads(torch) -> dict:
                          "operations_ms": op_ms, "bwd_bound_ms": max(bwd_bytes_ms, bwd_op_ms),
                          "bwd_bytes_ms": bwd_bytes_ms, "bwd_operations_ms": bwd_op_ms,
                          "device_kernels_per_bwd": kernels,
+                         "device_ms_per_bwd": device_ms,
                          **({"kernel_bwd_ms": best["kernel_bwd"],
-                             "plain_bwd_ms": best["plain_bwd"]} if fused else {})})
+                             "plain_bwd_ms": best["plain_bwd"]} if direct else {})})
             print(f"{form} {shape} bf16 {opt} x{count}/step, ms per call (in turns): "
                   + "; ".join(f"{k} {v}" for k, v in runs.items() if v)
                   + f"; plain fwd {plain_ms:.4f}; fwd bound {max(byte_ms, op_ms):.4f}; bwd "
                   f"bound {max(bwd_bytes_ms, bwd_op_ms):.4f}; device kernels per backward "
-                  f"{kernels}")
+                  f"{kernels}, their device ms {device_ms}")
         keys = ["ms", "bwd_ms", "plain_ms", "library_ms", "library_bwd_ms", "bound_ms",
                 "bytes_ms", "operations_ms", "bwd_bound_ms", "bwd_bytes_ms",
-                "bwd_operations_ms"] + (["kernel_bwd_ms", "plain_bwd_ms"] if fused else [])
+                "bwd_operations_ms"] + (["kernel_bwd_ms", "plain_bwd_ms"] if direct else [])
         total = {k: sum(r[k] * r["count"] for r in rows) for k in keys}
+        total["device_ms_per_step"] = {
+            k: sum(r["device_ms_per_bwd"][k] * r["count"] for r in rows)
+            for k in rows[0]["device_ms_per_bwd"]}
         total["bound_by"] = "bytes" if total["bytes_ms"] >= total["operations_ms"] else "operations"
         total["bwd_bound_by"] = ("bytes" if total["bwd_bytes_ms"] >= total["bwd_operations_ms"]
                                  else "operations")
@@ -1263,8 +1386,8 @@ TRAIN_ARGS = [
     "--print_freq", "1", "--save_latest_freq", "1000000", "--device", "cuda",
 ]
 # training route -> (train flags, launches per step: each kernel's (the
-# fused conv's backward kernel among them), the differentiable fused conv's,
-# and the VALID conv's input-gradient ones).
+# fused conv's and the instance norm's backward kernels among them), the
+# differentiable fused conv's, and the VALID conv's input-gradient ones).
 # Per step: 3 G dispatches x 18 block convs; 3 x (stem + head); the
 # all-kernel route's norms: 3 x 5 in the Gs, 4 D forwards x 3 in the Ds.
 TRAIN_ROUTES = {
@@ -1274,7 +1397,7 @@ TRAIN_ROUTES = {
     "pallas_conv": (["--pallas_conv", "1"], {"conv3x3_valid": 54, "conv3x3_valid.bwd": 54}),
     "all": (["--fused_blocks", "--conv7_pallas", "1", "--force_pallas_norm"],
             {"conv3x3_fused": 54, "conv3x3_fused_t": 54, "conv3x3_fused_bwd": 54,
-             "conv7x7": 6, "instance_norm_act": 27}),
+             "conv7x7": 6, "instance_norm_act": 27, "instance_norm_act_bwd": 27}),
 }
 
 
@@ -1624,15 +1747,16 @@ def sharded_train_phase(torch, work) -> dict:
     return out
 
 
-def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, launches, trained,
-                  spatial_times, halo, sharded) -> list:
+def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
+                  trained, spatial_times, halo, sharded) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
     routes; the block conv's halo W mode on the sharded --fused_blocks
     path, and its differentiable form on the sharded --fused_blocks
     training route; the block conv's backward kernel on both training
-    routes; the halo exchange on the sharded --halo_rdma path. Backward
+    routes; the instance norm's backward kernel on the all-kernel training
+    route; the halo exchange on the sharded --halo_rdma path. Backward
     bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
            "step": "step: each call's best time times its launches per 256x256 CycleGAN "
@@ -1733,6 +1857,30 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, launches, traine
                 "launches in the six-step bf16 CLI run"),
         "halo": bwd["conv3x3_fused_t_halo"],
     })
+    g = grad_times["instance_norm_act"]
+    norm = next(i for i, k in enumerate(kernels) if k["name"] == "instance_norm_act")
+    kernels.insert(norm + 1, {
+        "name": "instance_norm_act_bwd", "route": "cuda",
+        "source": "biasgan_tpu_torch/kernels/csrc/instance_norm_act_bwd.cu",
+        "replaces": "biasgan_tpu/ops/pallas_fused.py:188",
+        "launches": trained["launches"]["all/bfloat16"]["instance_norm_act_bwd"],
+        "max_abs_err": norm_bwd_errs["max_abs_err"],
+        "max_grad_err": norm_bwd_errs["max_grad_err"],
+        "ms": g["kernel_bwd_ms"], "plain_ms": g["plain_bwd_ms"], "bound_ms": g["bwd_bound_ms"],
+        "bound_by": g["bwd_bound_by"], "library_ms": g["library_bwd_ms"],
+        "autograd_ms": g["bwd_ms"], "path": "all (training)",
+        "per": ("step: each training-shape call's best time times its count per 256x256 "
+                "CycleGAN step at batch 1, bf16; ms the kernel called directly, plain_ms the "
+                "torch-ops backward, library_ms F.instance_norm + act's backward through "
+                "autograd, autograd_ms the kernel through instance_norm_act's autograd; "
+                "launches in the six-step bf16 CLI run"),
+        "device_kernels_per_bwd": g["calls"][0]["device_kernels_per_bwd"],
+        "device_ms_per_step": g["device_ms_per_step"],
+        "calls": [{k: c[k] for k in ("shape", "options", "count", "kernel_bwd_ms",
+                                     "plain_bwd_ms", "library_bwd_ms", "bwd_ms", "bwd_bound_ms",
+                                     "device_kernels_per_bwd", "device_ms_per_bwd")}
+                  for c in g["calls"]],
+    })
     h = halo["totals"]["spatial_rdma"]
     kernels.append({
         "name": "halo_exchange_w", "route": "cuda",
@@ -1777,6 +1925,7 @@ def main() -> int:
         spatial_times = time_kernels(torch, SPATIAL_CALLS)
         halo = check_halo_exchange(torch)
         bwd_errs = check_bwd_kernel(torch)
+        norm_bwd_errs = check_norm_bwd_kernel(torch)
         grad_errs = check_grads(torch)
         grad_times = time_grads(torch)
         check_small_generator(torch)
@@ -1791,8 +1940,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"training": trained, "sharded_training": sharded}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
-                                               launches, trained, spatial_times, halo,
-                                               sharded)}))
+                                               norm_bwd_errs, launches, trained,
+                                               spatial_times, halo, sharded)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

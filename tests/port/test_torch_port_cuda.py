@@ -420,3 +420,62 @@ def test_fused_bwd_kernel_matches_plain(dtype, shape):
                 assert bool(torch.isfinite(a).all()), (name, h_mode, w_mode)
                 assert bool(((a - b).abs() <= atol * scale + rtol * b.abs()).all()), (
                     name, h_mode, w_mode, float((a - b).abs().max()) / scale)
+
+
+# ---------------------------------------------------------------------------
+# K7's backward kernel (instance_norm_act_bwd)
+# ---------------------------------------------------------------------------
+
+from biasgan_tpu_torch.kernels import instance_norm_act as k7_mod  # noqa: E402
+from biasgan_tpu_torch.kernels.instance_norm_act import (  # noqa: E402
+    instance_norm_act_bwd,
+    instance_norm_act_bwd_plain,
+    instance_norm_stats_plain,
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 13, 37, 64), (1, 1, 1, 8)])
+def test_norm_bwd_kernel_matches_plain(dtype, shape):
+    """The backward kernel against its plain version on the same arguments:
+    x, the forward kernel's output and saved statistics, a random
+    cotangent; every act with and without a residual. dx within the
+    gradient bounds (f32 2e-4 max(1, |ref|) + 2e-5 |ref|, bf16 0.05
+    max(1, |ref|) + 0.1 |ref|); d_res, an elementwise g x {0, 0.2, 1} in f32
+    cast once, bitwise; at H W = 1, dx exactly 0. One launch per call, on
+    the one-launch cluster path (which both shapes take) and the two-pass
+    one."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    atol, rtol = (2e-4, 2e-5) if dtype == torch.float32 else (0.05, 0.1)
+    for act in ("none", "relu", "lrelu"):
+        for has_res in (False, True):
+            x = (3 * torch.randn(shape, generator=g, device="cuda") + 1).to(dtype)
+            r = torch.randn(shape, generator=g, device="cuda").to(dtype) if has_res else None
+            stats = torch.empty((2, shape[0], shape[3]), device="cuda")
+            out = k7_mod._launch(x, r, act, 1e-5, stats)
+            ref_stats = instance_norm_stats_plain(x)
+            assert bool(((stats - ref_stats).abs() <= 1e-4 * (1 + ref_stats.abs())).all())
+            cot = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            rdx, rd_res = instance_norm_act_bwd_plain(x, out, cot, stats, act, has_res)
+            for two_pass in (False, True):
+                where = (act, has_res, two_pass)
+                before = instance_norm_act_bwd.launches
+                dx, d_res = instance_norm_act_bwd(x, out, cot, stats, act, has_res,
+                                                  two_pass=two_pass)
+                assert instance_norm_act_bwd.launches == before + 1
+                torch.cuda.synchronize()
+                assert dx.dtype == dtype and dx.shape == x.shape
+                a, b = dx.float(), rdx.float()
+                scale = max(1.0, float(b.abs().max()))
+                assert bool(torch.isfinite(a).all()), where
+                assert bool(((a - b).abs() <= atol * scale + rtol * b.abs()).all()), (
+                    where, float((a - b).abs().max()) / scale)
+                if shape[1] * shape[2] == 1:
+                    assert bool((dx == 0).all()), where
+                assert (d_res is None) == (not has_res)
+                if has_res:
+                    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                    assert d_res.dtype == dtype and torch.equal(d_res.view(bits),
+                                                                rd_res.view(bits)), where
