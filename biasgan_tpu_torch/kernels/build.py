@@ -33,6 +33,16 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",  # register / shared-memory / spill report, kept beside the library
 )
+# BIASGAN_KERNEL_WATCHDOG=1 makes a check build: an mbarrier wait that
+# never ends traps instead of holding the card (csrc/common.cuh, mbar_wait)
+WATCHDOG_FLAGS = ("-DPORT_MBAR_WATCHDOG",)
+
+
+def nvcc_flags() -> tuple:
+    """NVCC_FLAGS, with WATCHDOG_FLAGS under BIASGAN_KERNEL_WATCHDOG=1."""
+    watchdog = os.environ.get("BIASGAN_KERNEL_WATCHDOG") == "1"
+    return NVCC_FLAGS + (WATCHDOG_FLAGS if watchdog else ())
+
 
 # every kernel of the port, the one list of them: its source csrc/<name>.cu
 # -> the wrapper that launches it, kernels/<module>.py::<wrapper>
@@ -73,7 +83,8 @@ def build(name: str) -> str:
     and return its path. The compiler's output, with ptxas's register and
     shared-memory report per kernel, is kept in ``<library>.log``."""
     src = os.path.join(_CSRC, name + ".cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = nvcc_flags()
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -87,7 +98,7 @@ def build(name: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [find_nvcc(), *flags, "-o", tmp, src]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -4,14 +4,26 @@ padded, with an optional instance-norm + activation prologue on the input
 and the per-(N, Cout) moments of the output.
 
 Counterpart of ``biasgan_tpu/ops/pallas_conv.py::conv3x3s2_fused`` (:1663).
-The kernel is CUDA C++ for sm_90a (csrc/conv3x3s2_fused.cu, which says what
-bounds it and how it is built up), compiled with nvcc on first use and
-bound with ctypes.
+The kernels are CUDA C++ for sm_90a (csrc/conv3x3s2_fused.cu, which says
+what bounds them and how they are built up), compiled with nvcc on first
+use and bound with ctypes.
 
 ``conv3x3s2_fused`` takes its plain PyTorch version
-(``conv3x3s2_fused_plain``) for a tensor on the CPU and launches the kernel
-for a CUDA tensor; there is no fallback from one to the other.
-``conv3x3s2_fused.launches`` counts the kernel launches.
+(``conv3x3s2_fused_plain``) for a tensor on the CPU and launches a kernel
+for a CUDA tensor; there is no fallback from one to the other. The rule
+for a CUDA tensor: bf16 launches the TMA / wgmma kernel, f32 the
+CUDA-core checker. The bf16 kernel reads x through its phase view and
+stores y with TMA, which needs C and Cout multiples of 8 and a 16-byte
+aligned x: the wrapper zero-pads C up to a multiple of 8 (zero weights,
+zero prologue a and b: act(0) = 0 adds nothing) and Cout likewise (zero
+weights and bias, the extra couts sliced off y and the moments), and
+raises for a misaligned x. ``conv3x3s2_fused.launches``
+counts every kernel launch, ``conv3x3s2_fused.wgmma_launches`` those of
+the bf16 kernel.
+
+``pack_phase_weight`` lays the OIHW weight out as the bf16 kernel's B
+operand: the merged tap matrices of the phase view, k-block by k-block
+(``phase_k_blocks``).
 
 As in the Pallas kernel, the moments are those of the stored, down-cast
 output. Differences from the Pallas wrapper: no plan argument (the tiling
@@ -24,7 +36,8 @@ that rounding moves the served generator past the repository's bf16 rule
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +59,70 @@ from biasgan_tpu_torch.kernels.common import (
 from biasgan_tpu_torch.ops.padding import pad_hw
 
 W_MODES = ("wrap", "zero")
+KW = 64  # merged channels per k-block of the bf16 kernel (one 128-byte row)
+
+
+def tile_geometry(cout: int) -> Tuple[int, int, int]:
+    """(BN couts, BW pair columns, BH pair rows) of the bf16 kernel's tile,
+    as csrc/conv3x3s2_fused.cu's Geom sets them: 128 pixels of one pair row
+    by 128 couts for Cout <= 128, by 256 above (the packed weight's couts
+    are padded to BN)."""
+    return (128 if cout <= 128 else 256), 128, 1
+
+
+def phase_k_blocks(c: int) -> List[Tuple[int, int, int]]:
+    """The bf16 kernel's k-blocks for C input channels (C % 8 == 0), in
+    order: (row tap dy, pair-column offset, channel block). In the phase
+    view (N, H/2, 2, W/2, 2C) output pixel (a, b) reads, for row tap dy,
+    plane 0 at pair row a (dy 1) or plane 1 at pair row a - 1 (dy 0) or a
+    (dy 2); at offset 0 every 64-channel block of pair column b (merged
+    channels c' < C: tap dx 1, c' >= C: dx 2), at offset -1 the blocks of
+    pair column b - 1 that hold its odd half (dx 0)."""
+    nb2, nb_lo = -(-2 * c // KW), c // KW
+    per_tap = [(0, cb) for cb in range(nb2)] + [(-1, cb) for cb in range(nb_lo, nb2)]
+    return [(dy, off, cb) for dy in range(3) for off, cb in per_tap]
+
+
+def pack_phase_weight(weight: torch.Tensor, bn: int) -> torch.Tensor:
+    """OIHW ``weight`` (Cout, C, 3, 3), C % 8 == 0, as the bf16 kernel's B:
+    (k-blocks, Cout rounded up to ``bn``, 64), slab kb the K-major merged
+    tap matrix of ``phase_k_blocks(C)[kb]``: [W[dy, 1]; W[dy, 2]] over the
+    2C merged channels at offset 0, [0; W[dy, 0]] at offset -1, zero past
+    2C and past Cout. Pure data movement, so it gathers as well as it
+    copies: ``_phase_index`` runs it on indices."""
+    cout, c = weight.shape[:2]
+    nb2, nb_lo = -(-2 * c // KW), c // KW
+    wt = weight.permute(2, 3, 0, 1)  # (dy, dx, Cout, C)
+    m = torch.cat([wt[:, 1], wt[:, 2]], dim=2)  # (3, Cout, 2C)
+    n = torch.cat([torch.zeros_like(wt[:, 0]), wt[:, 0]], dim=2)
+    k = F.pad(torch.stack([m, n], 1), (0, nb2 * KW - 2 * c))
+    k = k.reshape(3, 2, cout, nb2, KW)
+    blocks = torch.cat([k[:, 0], k[:, 1, :, nb_lo:]], dim=2)  # (3, Cout, kbw, 64)
+    blocks = F.pad(blocks.permute(0, 2, 1, 3), (0, 0, 0, -(-cout // bn) * bn - cout))
+    return blocks.reshape(-1, blocks.shape[2], KW).contiguous()
+
+
+@functools.lru_cache(maxsize=32)
+def _phase_index(cout: int, c: int, bn: int, device: torch.device) -> torch.Tensor:
+    """pack_phase_weight as a gather: index 1 + i of the flat OIHW weight,
+    0 where the packed slab holds a zero."""
+    idx = torch.arange(1, cout * c * 9 + 1, dtype=torch.int64).reshape(cout, c, 3, 3)
+    return pack_phase_weight(idx, bn).to(device)
+
+
+def _packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """pack_phase_weight(weight) in ``dtype`` on weight's device, as one
+    gather from the flat weight with a zero in front."""
+    cout, c = weight.shape[:2]
+    flat = F.pad(weight.to(dtype).reshape(-1), (1, 0))
+    return flat[_phase_index(cout, c, tile_geometry(cout)[0], weight.device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The bf16 kernel's persistent grid at most, one block per SM, and its
+    moment slots per image: one per block."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_args(x, weight, bias, prologue, act_pre, w_mode) -> None:
@@ -92,34 +169,69 @@ def conv3x3s2_fused_plain(
     return (y, stored_moments(y)) if want_moments else y
 
 
-_ARGTYPES = [PTR] * 8 + [INT] * 8
+_ARGTYPES = [PTR] * 8 + [INT] * 9
+
+
+def _pad_channels(x, weight, prologue):
+    """C zero-padded up to a multiple of 8 for the bf16 kernel's TMA loads:
+    zero channels of x, zero input channels of the weight, zero a and b."""
+    pad = -x.shape[3] % 8
+    if pad == 0:
+        return x, weight, prologue
+    x = F.pad(x, (0, pad))
+    weight = F.pad(weight, (0, 0, 0, 0, 0, pad))
+    if prologue is not None:
+        prologue = tuple(F.pad(t, (0, pad)) for t in prologue)
+    return x, weight, prologue
 
 
 def _launch(x, weight, bias, prologue, act_pre, w_mode, want_moments):
-    n, h, w, c = x.shape
+    n, h, w, _ = x.shape
     cout = weight.shape[0]
     dtype = check_kernel_input("conv3x3s2_fused", x, n * h * w * cout // 4)
     dev = x.device
-    w9 = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
+    wgmma = x.dtype == torch.bfloat16
+    cout_k = cout  # the kernel's Cout: a multiple of 8 for the bf16 kernel's TMA stores
+    if wgmma:
+        if x.data_ptr() % 16:
+            raise ValueError("conv3x3s2_fused bf16 kernel needs a 16-byte aligned x "
+                             "(TMA loads)")
+        x, weight, prologue = _pad_channels(x, weight, prologue)
+        cout_k = -(-cout // 8) * 8
+        if cout_k != cout:  # zero couts, zero bias: y and its moments are 0 there
+            weight = F.pad(weight, (0, 0, 0, 0, 0, 0, 0, cout_k - cout))
+            bias = None if bias is None else F.pad(bias.float(), (0, cout_k - cout))
+        wk = _packed_weight(weight, x.dtype)
+    else:
+        wk = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, x.shape[3], cout).contiguous()
     b = None if bias is None else bias.float().contiguous()
     pa = pb = None
     if prologue is not None:
         pa, pb = (t.float().contiguous() for t in prologue)
-    y = torch.empty((n, h // 2, w // 2, cout), dtype=x.dtype, device=dev)
+        if wgmma and (pa.data_ptr() % 16 or pb.data_ptr() % 16):
+            pa, pb = pa.clone(), pb.clone()  # the kernel loads them in pairs
+    y = torch.empty((n, h // 2, w // 2, cout_k), dtype=x.dtype, device=dev)
+    # bf16: a grid block per SM, each adding into a zeroed moment slot of
+    # its own; f32: a slot per pixel tile
+    n_parts = (_sm_count(dev) if wgmma
+               else num_tiles("conv3x3s2_fused", "conv3x3s2_fused_num_tiles", h, w))
     part = moments = None
     if want_moments:
-        tiles = num_tiles("conv3x3s2_fused", "conv3x3s2_fused_num_tiles", h, w, cout, dtype)
-        part = torch.empty((2, n, tiles, cout), dtype=torch.float32, device=dev)
-        moments = torch.empty((2, n, cout), dtype=torch.float32, device=dev)
+        part = (torch.zeros if wgmma else torch.empty)(
+            (2, n, n_parts, cout_k), dtype=torch.float32, device=dev)
+        moments = torch.empty((2, n, cout_k), dtype=torch.float32, device=dev)
     launch(
         "conv3x3s2_fused", "conv3x3s2_fused_launch", _ARGTYPES, dev,
-        ptr(x), ptr(w9), ptr(b), ptr(pa), ptr(pb), ptr(y), ptr(part), ptr(moments),
-        n, h, w, c, cout, dtype, PAD_CODE[w_mode], ACT_CODE[act_pre],
+        ptr(x), ptr(wk), ptr(b), ptr(pa), ptr(pb), ptr(y), ptr(part), ptr(moments),
+        n, h, w, x.shape[3], cout_k, n_parts, dtype, PAD_CODE[w_mode], ACT_CODE[act_pre],
     )
     conv3x3s2_fused.launches += 1
+    conv3x3s2_fused.wgmma_launches += wgmma
+    if cout_k != cout:
+        y = y[..., :cout].contiguous()
     if not want_moments:
         return y
-    return y, (moments[0], moments[1])
+    return y, (moments[0, :, :cout], moments[1, :, :cout])
 
 
 def conv3x3s2_fused(
@@ -140,8 +252,9 @@ def conv3x3s2_fused(
     dtype, and with ``want_moments`` also ``(sum, sumsq)`` (N, Cout) f32 of
     the stored y.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts it in ``conv3x3s2_fused.launches``) or raises; it also raises
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
+    (bf16: the TMA / wgmma kernel, counted also in ``.wgmma_launches``;
+    f32: the CUDA-core one; both in ``.launches``) or raises; it also raises
     where autograd would record, since the kernel has no backward (the JAX
     kernel has none either: its route is inference-only)."""
     _check_args(x, weight, bias, prologue, act_pre, w_mode)
@@ -154,3 +267,4 @@ def conv3x3s2_fused(
 
 
 conv3x3s2_fused.launches = 0
+conv3x3s2_fused.wgmma_launches = 0

@@ -1,11 +1,14 @@
 // Device helpers shared by the port's convolution kernels: element
 // conversion, 16-byte vector moves, cp.async staging, the tensor-core
-// primitives (ldmatrix, mma.sync m16n8k16 bf16), weight staging and the
-// fixed-order moment reduction. Header-only; each kernel source includes it
+// primitives (ldmatrix, mma.sync m16n8k16 bf16), weight staging, the
+// fixed-order moment reduction, and Hopper's asynchronous machinery (port::
+// sm90: TMA tensor maps and loads, mbarrier rings, wgmma descriptors,
+// fences and named barriers). Header-only; each kernel source includes it
 // and build.py hashes it with the source.
 
 #pragma once
 
+#include <cuda.h>  // the CUtensorMap type and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,6 +44,30 @@ __device__ __forceinline__ T affine_act(T x, float a, float b, int act) {
   if (act == ACT_RELU) f = fmaxf(f, 0.f);
   else if (act == ACT_LRELU) f = f > 0.f ? f : 0.2f * f;
   return from_f<T>(f);
+}
+
+// The prologue on a packed pair of bf16 (low half first), activation fixed
+// at compile time, for the tensor-core kernels' register path: a*x + b in
+// f32 as one fused multiply-add (f32 a and b, one rounding in f32), then
+// one rounding of the pair to bf16 (cvt.rn.bf16x2, which also applies a
+// ReLU). affine_act's separate multiply and add may differ from it by one
+// f32 ulp before that rounding.
+template <int ACT>
+__device__ __forceinline__ uint32_t affine_act_bf16x2(uint32_t w, float a0,
+                                                      float b0, float a1,
+                                                      float b1) {
+  float lo = fmaf(__uint_as_float(w << 16), a0, b0);
+  float hi = fmaf(__uint_as_float(w & 0xffff0000u), a1, b1);
+  if (ACT == ACT_LRELU) {
+    lo = fmaxf(lo, 0.2f * lo);
+    hi = fmaxf(hi, 0.2f * hi);
+  }
+  uint32_t r;
+  if (ACT == ACT_RELU)
+    asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  else
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // Eight consecutive elements; 16-byte vector moves when aligned.
@@ -316,6 +343,247 @@ inline cudaError_t launch_reduce_moments(const float* part, float* moments,
       part, moments, N, n_tiles, Cout);
   return cudaGetLastError();
 }
+
+
+// ---------------------------------------------------------------------------
+// Hopper (sm_90a): TMA, mbarriers, wgmma. The pieces a warp-specialised
+// kernel is built from: one producer thread keeps TMA loads of a ring of
+// shared-memory stages in flight, each stage guarded by a "full" mbarrier
+// (the loads' bytes have landed) and an "empty" one (every consumer warp
+// is done with it); consumer warpgroups run wgmma on the stages that have
+// landed. K4 (conv3x3s2_fused.cu) is the first kernel built on them.
+// ---------------------------------------------------------------------------
+namespace sm90 {
+
+// Host: cuTensorMapEncodeTiled, fetched through the runtime's entry-point
+// query (no -lcuda at link time). Null where the installed CUDA lacks it.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                   void*, const cuuint64_t*, const cuuint64_t*,
+                                   const cuuint32_t*, const cuuint32_t*,
+                                   CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn tensor_map_encoder() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A tiled tensor map over a bf16 tensor of `rank` dimensions, innermost
+// first: dims[rank], byte strides of dims 1.. (strides[rank - 1]), the box
+// a load brings (box[rank]). With `swizzle128` the box's inner extent must
+// be 128 bytes and shared memory receives it in the 128-byte swizzle that
+// sw128_desc describes; without, row after row. Out-of-bounds elements of
+// a box (negative coordinates included) arrive as zeros.
+inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                                   const cuuint64_t* dims,
+                                   const cuuint64_t* strides,
+                                   const cuuint32_t* box, bool swizzle128) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers (64-bit words in shared memory).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// after the inits, before any thread uses the barriers (then a block sync)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// arrive once and expect `bytes` more from the TMA loads that name it
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// Wait until the barrier's phase of this parity has completed. A ring
+// whose arrivals were miscounted would wait forever. A check build
+// (PORT_MBAR_WATCHDOG, see kernels/build.py) traps after 20 s instead of
+// holding the card; a trap is sticky, the process's CUDA context is lost
+// and every later call fails, and a slow but valid wait (a card shared in
+// time slices) could trip it, so the program's own build leaves it out.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+#ifdef PORT_MBAR_WATCHDOG
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(a, parity))
+    if (global_ns() - t0 > 20000000000ull) __trap();
+#else
+  while (!mbar_try_wait(a, parity)) {
+  }
+#endif
+}
+
+// TMA loads of one box into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// TMA store of one box from shared memory (bulk-group completion): issue,
+// commit, and wait until the reads of shared memory (wait_read) or the
+// whole stores (wait) of all but N committed groups are done.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy (wgmma operand reads, TMA): after the writes, before the
+// barrier that orders them with the reader.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// bar.sync on named barrier `id` (1..15; 0 is __syncthreads) by `count`
+// threads, a multiple of 32.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// Where chunk `cc` (16 bytes) of row `row` of a 128-byte-swizzled tile
+// lies, in bytes from the tile's start (1024-aligned): what TMA writes
+// under CU_TENSOR_MAP_SWIZZLE_128B and what sw128_desc reads.
+__device__ __forceinline__ int sw128_offset(int row, int cc) {
+  return row * 128 + ((cc ^ (row & 7)) << 4);
+}
+
+// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of
+// 64 bf16 (128 bytes), eight-row groups 1024 bytes apart (SBO), the tile
+// 1024-aligned. A step of 16 along K adds 2 (32 bytes >> 4); a step of 128
+// rows adds 1024.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |            // LBO (unused here)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
+         (static_cast<uint64_t>(1) << 62);             // SWIZZLE_128B
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D (64 x 128, f32) += A (64 x 16) B (16 x 128), bf16 in: A from registers,
+// B from shared memory through its descriptor (K-major). Thread t of the
+// warpgroup holds a[0..3] as mma.sync's m16n8k16 A fragment of rows
+// 16 (t / 32) .. + 15 (ldmatrix_x4 of those rows gives it), and d[j] at row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((j / 2) % 2) and column 8 (j / 4) +
+// 2 (t % 4) + j % 2. A register written since the last wgmma_fence needs
+// one before this reads it.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+}  // namespace sm90
 
 }  // namespace port
 

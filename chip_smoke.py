@@ -10,16 +10,26 @@ checkout is missing, and at the first failure of any phase:
   1. environment: the card (nvidia-smi name and power limit), torch, CUDA,
      nvcc and Triton versions;
   2. build every kernel of the served, sharded and trained paths from csrc/
-     (nvcc, sm_90a), one nvcc per source, all started together (the fused
-     block conv's and the instance norm's backward among them);
+     (nvcc, sm_90a) as a check build (BIASGAN_KERNEL_WATCHDOG=1: an mbarrier
+     wait that never ends traps), one nvcc per source, all started together (the fused
+     block conv's and the instance norm's backward among them); the down
+     conv's bf16 kernel must hold wgmma (HGMMA) and TMA (UTMALDG, UTMASTG)
+     instructions (cuobjdump);
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
      over a sweep of small odd shapes, pad modes, prologues, activations
-     and residuals, with the moments held to those of the stored output;
+     and residuals, with the moments held to those of the stored output
+     (the stride-2 down conv on the path its wrapper's rule gives: every bf16
+     call on the TMA / wgmma kernel, counted apart, printed per globe shape);
      then, at those shapes in bf16, the kernel's time beside the plain
      version's, one PyTorch library call's, and the card's bound for the
-     same work; the fused block conv also in its halo W mode at the block
+     same work, and the kernel call's device time by kernel from
+     torch.profiler beside its CUDA-event time (the host work of the call,
+     such as a weight repack, apart from the kernels); where the parent
+     commit's tree is unpacked in .chip_archive/parent, the down conv's
+     call there and here in turns, each turn a fresh process; the fused
+     block conv also in its halo W mode at the block
      shape of a 4-way W shard; then the halo exchange inside four spawned
      ranks on the card (gloo, ranks sharing the card): the kernel bitwise
      against the plain ring at every exchange shape of the sharded globe
@@ -56,7 +66,8 @@ checkout is missing, and at the first failure of any phase:
   5. a NetCDF-3 store of three 721x1440 fields per side and a seeded
      resnet_9blocks (ngf 64) checkpoint;
   6. serve the fields through ``biasgan_tpu_torch.infer.main`` on four
-     paths, counting each kernel's launches: --fused_blocks; the plain
+     paths, counting each kernel's launches (the down conv's also on its
+     bf16 path: all of them): --fused_blocks; the plain
      path; --fused_blocks --fused_updown --conv7_pallas 1; and
      --force_pallas_norm; then spatially sharded over four ranks on the
      card: --spatial_mesh 4 (the plain ring), with --halo_rdma, and with
@@ -147,6 +158,10 @@ PATHS = {
     "spatial_rdma_fused": (["--spatial_mesh", str(N_RANKS), "--halo_rdma", "--fused_blocks"],
                            {"halo_exchange_w": 24, "conv3x3_fused": 18}),
 }
+# kernel -> the wrapper's count of launches on its bf16 path, where the
+# wrapper routes by a rule (K4: bf16 takes the TMA / wgmma kernel, f32 the
+# CUDA-core checker); every bf16 call must take it
+PATH_COUNTERS = {"conv3x3s2_fused": "wgmma_launches"}
 # the halo exchanges of one sharded globe forward, per rank: (the local
 # tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
 # per rank; bf16 compute, but the stem pads the f32 input; H is padded
@@ -234,6 +249,14 @@ def build_kernels() -> None:
         for fn, u, sp in zip(fns, used, spills):
             short = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", fn)[:70]
             print(f"    {short}: {u} registers, {sp} bytes spilled")
+    # the down conv's bf16 kernel runs on wgmma and TMA: its machine code says so
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", paths["conv3x3s2_fused"]],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    body = "".join(f for f in re.split(r"\n\s*Function : ", sass) if "down_tma_kernel" in f)
+    ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    print(f"  conv3x3s2_fused bf16 kernel (cuobjdump --dump-sass): {ops}")
+    check(all(ops.values()), f"conv3x3s2_fused bf16 kernel lacks wgmma or TMA instructions: {ops}")
 
 
 def moment_error(got, ref, count: int) -> float:
@@ -386,6 +409,24 @@ def hold(torch, name, args, where: str):
     return err, ratio
 
 
+def path_launches(name: str) -> int:
+    """The launches so far on kernel ``name``'s bf16 path (PATH_COUNTERS),
+    or 0 for a kernel with one path."""
+    attr = PATH_COUNTERS.get(name)
+    return getattr(kernel_fns(name)[0], attr) if attr else 0
+
+
+def path_taken(name: str, before: int, dtype, where: str) -> str:
+    """Check that the call since ``before`` took the bf16 path exactly when
+    x was bf16; returns the words to print ('' for a kernel with one path)."""
+    if name not in PATH_COUNTERS:
+        return ""
+    bf16 = str(dtype) == "torch.bfloat16"
+    moved = path_launches(name) - before
+    check(moved == int(bf16), f"{name} {where}: {moved} launches on the bf16 path")
+    return ", path: TMA / wgmma kernel" if bf16 else ", path: f32 CUDA-core kernel"
+
+
 # the globe shapes each kernel takes on its served path: (shape, options,
 # calls per field)
 GLOBE_CALLS = {
@@ -433,10 +474,16 @@ def sweep_cases(name):
                     i += 1
     elif name in ("conv3x3s2_fused", "convt3x3s2_fused"):
         h, w = (26, 38) if name == "conv3x3s2_fused" else (13, 19)
-        for c, cout in ((3, 5), (64, 128), (256, 64)):
+        shapes = [(2, h, w, c, cout) for c, cout in ((3, 5), (64, 128), (256, 64))]
+        if name == "conv3x3s2_fused":
+            # batch 2 with 135 tiles per image, more than the card's SMs:
+            # blocks of the bf16 kernel's persistent grid walk from one image
+            # into the next (its prologue table and moment slots change image)
+            shapes += [(2, 90, 600, 64, 128), (2, 90, 600, 128, 256)]
+        for shape in shapes:
             for w_mode in ("wrap", "zero"):
                 for pro in (False, True):
-                    yield (2, h, w, c, cout), dict(prologue=pro, w_mode=w_mode)
+                    yield shape, dict(prologue=pro, w_mode=w_mode)
     elif name == "conv7x7":
         for c, cout in ((1, 5), (3, 64), (8, 16), (64, 3), (9, 8), (24, 1)):
             yield (2, 19, 41, c, cout), {}
@@ -465,16 +512,21 @@ def check_kernels(torch) -> dict:
             for dtype in (torch.bfloat16, torch.float32):
                 args = make_case(torch, g, name, shape, dtype, **opt)[0]
                 where = f"main {shape} {dtype} {opt}"
+                before = path_launches(name)
                 err, ratio = hold(torch, name, args, where)
                 print(f"{name} {where}: max|dy| {err:.3g}"
-                      + (f", moments at {ratio:.3g} of the stored-value bound" if ratio else ""))
+                      + (f", moments at {ratio:.3g} of the stored-value bound" if ratio else "")
+                      + path_taken(name, before, dtype, where))
                 if dtype == torch.bfloat16:
                     errs[name] = max(errs[name], err)
         n_cases, worst = 0, 0.0
         for shape, opt in sweep_cases(name):
             for dtype in (torch.bfloat16, torch.float32):
                 args = make_case(torch, g, name, shape, dtype, **opt)[0]
-                worst = max(worst, hold(torch, name, args, f"{shape} {dtype} {opt}")[1])
+                where = f"{shape} {dtype} {opt}"
+                before = path_launches(name)
+                worst = max(worst, hold(torch, name, args, where)[1])
+                path_taken(name, before, dtype, where)
                 n_cases += 1
         print(f"{name} sweep: {n_cases} cases within tolerance"
               + (f"; moments at most {worst:.3g} of the stored-value bound" if worst else ""))
@@ -501,16 +553,21 @@ def time_kernels(torch, shapes=GLOBE_CALLS) -> dict:
                 runs[which].append(timed(torch, fns[which]))
             best = {k: min(v) for k, v in runs.items()}
             byte_ms, op_ms = nbytes / PEAK_BYTES * 1e3, op_s * 1e3
+            device = device_time(torch, fns["kernel"])
             calls.append({
                 "shape": list(shape), "options": opt, "count": count,
                 "ms": best["kernel"], "plain_ms": best["plain"],
                 "library_ms": best["library"], "bound_ms": max(byte_ms, op_ms),
                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                 "bytes_ms": byte_ms, "operations_ms": op_ms,
+                "device_ms": sum(device.values()), "device_ms_by_kernel": device,
             })
             print(f"{name} {shape} bf16 {opt}, ms per call (in turns): "
                   + "; ".join(f"{k} {v}" for k, v in runs.items())
-                  + f"; bound {max(byte_ms, op_ms):.4f} ms ({calls[-1]['bound_by']})")
+                  + f"; bound {max(byte_ms, op_ms):.4f} ms ({calls[-1]['bound_by']})"
+                  + f"; the kernel call's device ms (torch.profiler) "
+                  f"{sum(device.values()):.4f}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in device.items()))
         fwd = [c for c in calls if not c["options"].get("bwd")]
         total = {k: sum(c[k] * c["count"] for c in fwd)
                  for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
@@ -522,6 +579,28 @@ def time_kernels(torch, shapes=GLOBE_CALLS) -> dict:
         total["calls"] = calls
         out[name] = total
     return out
+
+
+def device_time(torch, fn, iters=10) -> dict:
+    """ms per call of ``fn`` on the card by kernel name (the first 48
+    characters), from torch.profiler over ``iters`` calls after a warm-up:
+    what the card ran, apart from the host work of the call (the CUDA-event
+    time includes the host's when it is the slower)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(
+                ("Memcpy", "Memset")):
+            k = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)[:48]
+            out[k] = out.get(k, 0.0) + e.device_time_total / 1e3 / iters
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def timed(torch, fn, iters=20, warmup=3):
@@ -537,6 +616,71 @@ def timed(torch, fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The parent commit's tree, where one is unpacked there (git archive into a
+# directory that .gitignore lists): compare_parent times the kernels of
+# COMPARE_KERNELS in both trees in turns. A plain checkout has none.
+PARENT_TREE = os.path.join(HERE, ".chip_archive", "parent")
+COMPARE_KERNELS = ("conv3x3s2_fused",)
+COMPARE_ROUNDS = 2  # of the turns this, parent, parent, this
+
+
+def kernel_turn(torch) -> dict:
+    """One turn of compare_parent, in the tree this process imports the
+    port from: each COMPARE_KERNELS kernel at its globe shapes in bf16 on
+    seeded inputs, ms per call (best of three timed runs) and the call's
+    device ms by kernel."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for name in COMPARE_KERNELS:
+        fn = kernel_fns(name)[0]
+        for shape, opt, _ in GLOBE_CALLS[name]:
+            args = make_case(torch, g, name, shape, torch.bfloat16, **opt)[0]
+            ms = min(timed(torch, lambda: fn(*args)) for _ in range(3))
+            device = device_time(torch, lambda: fn(*args))
+            out[f"{name} {tuple(shape)}"] = {"ms": ms, "device_ms": sum(device.values()),
+                                             "device_ms_by_kernel": device}
+    return out
+
+
+def compare_parent(torch) -> dict:
+    """This tree's kernels against PARENT_TREE's, if it is there: each turn
+    a fresh process that imports the port from one tree and runs this
+    file's kernel_turn, so both sides see the same inputs and timing.
+    Returns the best ms and device ms of each side per shape ({} without a
+    parent tree)."""
+    if not os.path.isdir(os.path.join(PARENT_TREE, "biasgan_tpu_torch")):
+        print(f"parent comparison: skipped, no parent tree in {PARENT_TREE}")
+        return {}
+    trees = {"this": HERE, "parent": PARENT_TREE}
+    best = {}
+    for _ in range(COMPARE_ROUNDS):
+        for side in ("this", "parent", "parent", "this"):
+            code = ("import importlib.util, json, sys\n"
+                    f"sys.path.insert(0, {trees[side]!r})\n"
+                    f"spec = importlib.util.spec_from_file_location('smoke', {os.path.abspath(__file__)!r})\n"
+                    "smoke = importlib.util.module_from_spec(spec)\n"
+                    "spec.loader.exec_module(smoke)\n"
+                    "import torch\n"
+                    "print('RESULT ' + json.dumps(smoke.kernel_turn(torch)))\n")
+            proc = subprocess.run([sys.executable, "-c", code], cwd=trees[side],
+                                  capture_output=True, text=True, timeout=600)
+            line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")),
+                        None)
+            check(proc.returncode == 0 and line is not None,
+                  f"parent comparison: the {side} turn failed ({proc.returncode}): "
+                  f"{proc.stderr[-2000:]}")
+            for key, r in json.loads(line[len("RESULT "):]).items():
+                print(f"  {side:6s} {key}: {r['ms']:.4f} ms per call (CUDA events), "
+                      f"{r['device_ms']:.4f} on the card (torch.profiler): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms_by_kernel"].items()))
+                b = best.setdefault(key, {}).setdefault(side, {"ms": r["ms"],
+                                                               "device_ms": r["device_ms"]})
+                b["ms"] = min(b["ms"], r["ms"])
+                b["device_ms"] = min(b["device_ms"], r["device_ms"])
+    print(f"parent comparison, best of {2 * COMPARE_ROUNDS} turns a side: {json.dumps(best)}")
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -1298,6 +1442,14 @@ def serve(torch, work: str, path: str):
     for r, launches in enumerate(per_rank):
         check(launches == want, f"{path}: rank {r} kernel launches {launches}, expected "
               f"{want} ({N_TIMES} fields)")
+    if not sharded:  # the served fields are bf16: each launch on the bf16 path
+        for name in PATH_COUNTERS:
+            check(path_launches(name) == want[name],
+                  f"{path}: {path_launches(name)} of {want[name]} {name} launches on its "
+                  "bf16 path")
+        taken = {name: path_launches(name) for name in PATH_COUNTERS if want[name]}
+        if taken:
+            print(f"  {path}: launches on the bf16 (TMA / wgmma) path {taken}")
     return fields, [float(s[0]) for s in stamps], [float(s[1]) for s in stamps], per_rank[0]
 
 
@@ -1410,6 +1562,8 @@ def _counters():
     c = {name: (fn, "launches") for name, fn in wrappers().items()}
     c["conv3x3_fused_t"] = (conv3x3_fused_t, "launches")
     c["conv3x3_valid.bwd"] = (kernel_fns("conv3x3_valid")[0], "bwd_launches")
+    for name, attr in PATH_COUNTERS.items():
+        c[f"{name}.{attr}"] = (kernel_fns(name)[0], attr)
     return c
 
 
@@ -1748,7 +1902,7 @@ def sharded_train_phase(torch, work) -> dict:
 
 
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
-                  trained, spatial_times, halo, sharded) -> list:
+                  trained, spatial_times, halo, sharded, parent) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
@@ -1756,8 +1910,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
     path, and its differentiable form on the sharded --fused_blocks
     training route; the block conv's backward kernel on both training
     routes; the instance norm's backward kernel on the all-kernel training
-    route; the halo exchange on the sharded --halo_rdma path. Backward
-    bounds are ``bwd_work``'s."""
+    route; the halo exchange on the sharded --halo_rdma path; with a
+    parent tree, a kernel's best times there and here (compare_parent).
+    Backward bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
            "step": "step: each call's best time times its launches per 256x256 CycleGAN "
                    "step at batch 1"}
@@ -1776,6 +1931,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "path": path, "per": per[unit], "calls": t["calls"],
         }
+        against = {k: v for k, v in parent.items() if k.split()[0] == name}
+        if against:
+            entry["parent"] = against
         form = {"conv3x3_valid": "conv3x3_op", "conv7x7": "conv7x7",
                 "instance_norm_act": "instance_norm_act"}.get(name)
         if name == "conv3x3_valid":
@@ -1915,6 +2073,9 @@ def main() -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # a check build: a kernel's mbarrier wait that never ends traps (and
+    # fails the phase) instead of holding the card
+    os.environ["BIASGAN_KERNEL_WATCHDOG"] = "1"
     work = os.path.join(HERE, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     try:
@@ -1923,6 +2084,7 @@ def main() -> int:
         errs = check_kernels(torch)
         times = time_kernels(torch)
         spatial_times = time_kernels(torch, SPATIAL_CALLS)
+        parent = compare_parent(torch)
         halo = check_halo_exchange(torch)
         bwd_errs = check_bwd_kernel(torch)
         norm_bwd_errs = check_norm_bwd_kernel(torch)
@@ -1941,7 +2103,7 @@ def main() -> int:
     print(json.dumps({"training": trained, "sharded_training": sharded}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
-                                               spatial_times, halo, sharded)}))
+                                               spatial_times, halo, sharded, parent)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

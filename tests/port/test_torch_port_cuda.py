@@ -114,22 +114,54 @@ def test_conv3x3_fused_kernel_refuses_bad_input():
 @pytest.mark.parametrize("which", ["down", "up"])
 def test_updown_kernels_match_plain(which, dtype, c, cout):
     """Ragged tiles (output H 13 or input H 13), both W modes, with and
-    without the prologue."""
+    without the prologue. The down conv also over several tiles of its bf16
+    kernel (128 pixels of one pair row), the last of each row ragged
+    (output 13 x 300), at batch 2 and 1, and at batch 2 with more tiles
+    than the card has SMs (output 45 x 300), so that blocks of the
+    persistent grid walk from one image into the next (the prologue's a and
+    b and the moment slots change image mid-walk); every bf16 call on its
+    TMA / wgmma path, every f32 call off it."""
     _needs_card()
     fn, plain = ((conv3x3s2_fused, conv3x3s2_fused_plain) if which == "down"
                  else (convt3x3s2_fused, convt3x3s2_fused_plain))
-    for i, w_mode in enumerate(("wrap", "zero", "wrap", "zero")):
-        h, w = (26, 38) if which == "down" else (13, 19)
-        x, k, b, a, pb = _inputs(2, h, w, c, cout, dtype, seed=10 + i)
-        if which == "up":
-            k = k.transpose(0, 1).contiguous()  # IOHW
-        args = (x, k, b, (a, pb) if i >= 2 else None, "relu", w_mode, True)
-        before = fn.launches
-        y, m = fn(*args)
-        assert fn.launches == before + 1
-        ry, rm = plain(*args)
-        _check_y(y, ry, dtype)
-        _check_moments(y, ry, m, rm)
+    sizes = [(2, 26, 38) if which == "down" else (2, 13, 19)]
+    if which == "down" and (c, cout) in ((64, 128), (128, 256)):
+        sizes += [(2, 26, 600), (1, 26, 600), (2, 90, 600)]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert 2 * 45 * 3 > sms  # (2, 90, 600): 135 tiles per image
+    for n, h, w in sizes:
+        for i, w_mode in enumerate(("wrap", "zero", "wrap", "zero")):
+            x, k, b, a, pb = _inputs(n, h, w, c, cout, dtype, seed=10 + i)
+            if which == "up":
+                k = k.transpose(0, 1).contiguous()  # IOHW
+            args = (x, k, b, (a, pb) if i >= 2 else None, "relu", w_mode, True)
+            before = fn.launches
+            on_path = getattr(fn, "wgmma_launches", 0)
+            y, m = fn(*args)
+            assert fn.launches == before + 1
+            if which == "down":
+                assert fn.wgmma_launches == on_path + (dtype == torch.bfloat16)
+            ry, rm = plain(*args)
+            _check_y(y, ry, dtype)
+            _check_moments(y, ry, m, rm)
+
+
+@pytest.mark.cuda
+def test_down_kernel_refuses_strided_or_misaligned_input():
+    """The bf16 kernel loads x with TMA: a non-contiguous x, or one whose
+    address is not 16-byte aligned, raises and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU form)")
+    x, k, b, _, _ = _inputs(1, 8, 16, 64, 128, torch.bfloat16, 0)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    shifted = shifted.view(x.shape).copy_(x)  # contiguous, 2 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    before = (conv3x3s2_fused.launches, conv3x3s2_fused.wgmma_launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3s2_fused(x.transpose(1, 2), k.transpose(2, 3), b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv3x3s2_fused(shifted, k, b)
+    assert (conv3x3s2_fused.launches, conv3x3s2_fused.wgmma_launches) == before
 
 
 @pytest.mark.cuda
