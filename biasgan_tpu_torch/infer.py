@@ -28,7 +28,10 @@ times each field host to host and saves it. With a CUDA device rank r runs
 on cuda:(r % device_count), over NCCL when every rank has a card of its
 own, else over gloo with host copies (a notice line says which).
 --halo_rdma exchanges the halos with the hand-written halo_exchange_w
-kernel in place of the plain point-to-point ring; --spatial_mesh 1
+kernel in place of the plain point-to-point ring: signalled on the device
+where every rank has a card of its own, synchronised on the host where
+ranks share one (the notice line says which; the last line, each rank's
+exchanges, signalled ones and host syncs); --spatial_mesh 1
 --halo_rdma is a one-rank self-ring, as in the JAX CLI (with --fused_blocks
 that serves on one device, as there). --fused_blocks composes with
 sharding (the block conv kernel's halo W mode); the other kernel flags
@@ -61,6 +64,7 @@ from biasgan_tpu_torch.config import format_config, parse_config, route_on, save
 from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.data.transforms import standardize
 from biasgan_tpu_torch.kernels import launch_counts
+from biasgan_tpu_torch.kernels.halo_exchange import halo_counts
 from biasgan_tpu_torch.nn import compute_dtype_of, define_G
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
@@ -295,10 +299,11 @@ def serve_rank(rank, n, device, say, argv):
     ctx = HaloCtx(n, periodic=(cfg.w_pad_mode or "wrap") == "wrap", rdma=cfg.halo_rdma)
     run = field_runner(spatial_apply(G, ctx), *pad_multiples(cfg.netG, n))
     serve_fields(cfg, dataset, device, run, say, before=ctx.barrier)
-    launches = [None] * n
+    launches, halos = [None] * n, [None] * n
     dist.all_gather_object(launches, launch_counts())
+    dist.all_gather_object(halos, halo_counts(ctx.ring))
     ctx.close()
-    return {"launches": launches}
+    return {"launches": launches, "halos": halos}
 
 
 def serve_sharded(cfg, argv) -> str:
@@ -311,11 +316,13 @@ def serve_sharded(cfg, argv) -> str:
             "'zero' or 'wrap' (periodic longitude)"
         )
     n = max(cfg.spatial_mesh, 1)
-    print(placement(n, cfg.device))
+    print(placement(n, cfg.device, cfg.halo_rdma))
     for note in routing_notices(cfg, None, sharded=True):
         print(note)
     result = spawn(serve_rank, n, (argv,), device=cfg.device)
     print(f"spatial: kernel launches per rank {json.dumps(result['launches'])}")
+    if cfg.halo_rdma:
+        print(f"spatial: halo exchanges per rank {json.dumps(result['halos'])}")
     return os.path.join(cfg.results_dir, cfg.resolved_name(), "fields")
 
 

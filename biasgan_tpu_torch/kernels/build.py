@@ -33,9 +33,10 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",  # register / shared-memory / spill report, kept beside the library
 )
-# BIASGAN_KERNEL_WATCHDOG=1 makes a check build: an mbarrier wait that
-# never ends traps instead of holding the card (csrc/common.cuh, mbar_wait)
-WATCHDOG_FLAGS = ("-DPORT_MBAR_WATCHDOG",)
+# BIASGAN_KERNEL_WATCHDOG=1 makes a check build: a spin wait (an mbarrier's
+# phase, the halo exchange's flags) that never ends traps instead of holding
+# the card (csrc/common.cuh, watchdog_check)
+WATCHDOG_FLAGS = ("-DPORT_WATCHDOG",)
 
 
 def nvcc_flags() -> tuple:

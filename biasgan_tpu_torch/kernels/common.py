@@ -94,9 +94,11 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def launch(name: str, fn: str, argtypes: Sequence, device: torch.device, *args) -> None:
+def launch(name: str, fn: str, argtypes: Sequence, device: torch.device, *args,
+           stream: Optional[torch.cuda.Stream] = None) -> None:
     """Call ``fn`` of kernel library ``name`` (built on first use) with
-    ``args`` and the device's current stream; raise on a CUDA error."""
+    ``args`` and ``stream`` (by default the device's current stream); raise
+    on a CUDA error."""
     from biasgan_tpu_torch.kernels import build
 
     lib = build.load(name)
@@ -107,7 +109,8 @@ def launch(name: str, fn: str, argtypes: Sequence, device: torch.device, *args) 
         lib.port_error_string.argtypes = [INT]
         lib.port_error_string.restype = ctypes.c_char_p
     with torch.cuda.device(device):
-        err = f(*args, torch.cuda.current_stream(device).cuda_stream)
+        s = torch.cuda.current_stream(device) if stream is None else stream
+        err = f(*args, s.cuda_stream)
     if err != 0:
         msg = lib.port_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")

@@ -1,10 +1,10 @@
-// Device helpers shared by the port's convolution kernels: element
-// conversion, 16-byte vector moves, cp.async staging, the tensor-core
-// primitives (ldmatrix, mma.sync m16n8k16 bf16), weight staging, the
-// fixed-order moment reduction, and Hopper's asynchronous machinery (port::
-// sm90: TMA tensor maps and loads, mbarrier rings, wgmma descriptors,
-// fences and named barriers). Header-only; each kernel source includes it
-// and build.py hashes it with the source.
+// Device helpers shared by the port's kernels: element conversion, 16-byte
+// vector moves, cp.async staging, the tensor-core primitives (ldmatrix,
+// mma.sync m16n8k16 bf16), weight staging, the fixed-order moment
+// reduction, the spin waits' watchdog, and Hopper's asynchronous machinery
+// (port::sm90: TMA tensor maps and loads, mbarrier rings, wgmma
+// descriptors, fences and named barriers). Header-only; each kernel source
+// includes it and build.py hashes it with the source.
 
 #pragma once
 
@@ -344,6 +344,31 @@ inline cudaError_t launch_reduce_moments(const float* part, float* moments,
   return cudaGetLastError();
 }
 
+// The deadline of a spin wait (an mbarrier's phase, a flag in device
+// memory). A wait whose count is wrong would spin forever. A check build
+// (PORT_WATCHDOG, see kernels/build.py) traps after 20 s instead of
+// holding the card; a trap is sticky, the process's CUDA context is lost
+// and every later call fails, and a slow but valid wait (a card shared in
+// time slices) could trip it, so the program's own build leaves it out.
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ uint64_t watchdog_start() {
+#ifdef PORT_WATCHDOG
+  return global_ns();
+#else
+  return 0;
+#endif
+}
+__device__ __forceinline__ void watchdog_check(uint64_t t0) {
+#ifdef PORT_WATCHDOG
+  if (global_ns() - t0 > 20000000000ull) __trap();
+#else
+  (void)t0;
+#endif
+}
 
 // ---------------------------------------------------------------------------
 // Hopper (sm_90a): TMA, mbarriers, wgmma. The pieces a warp-specialised
@@ -442,28 +467,14 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
       : "memory");
   return done != 0;
 }
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
 // Wait until the barrier's phase of this parity has completed. A ring
-// whose arrivals were miscounted would wait forever. A check build
-// (PORT_MBAR_WATCHDOG, see kernels/build.py) traps after 20 s instead of
-// holding the card; a trap is sticky, the process's CUDA context is lost
-// and every later call fails, and a slow but valid wait (a card shared in
-// time slices) could trip it, so the program's own build leaves it out.
+// whose arrivals were miscounted would wait forever; a check build traps
+// instead (watchdog_check).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_addr(bar);
-#ifdef PORT_MBAR_WATCHDOG
   if (mbar_try_wait(a, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(a, parity))
-    if (global_ns() - t0 > 20000000000ull) __trap();
-#else
-  while (!mbar_try_wait(a, parity)) {
-  }
-#endif
+  const uint64_t t0 = watchdog_start();
+  while (!mbar_try_wait(a, parity)) watchdog_check(t0);
 }
 
 // TMA loads of one box into shared memory, completing on `bar`.

@@ -8,15 +8,31 @@ halo. Where W is not periodic, the halos that cross the global edge are
 zeros (pallas_halo.py:142-150).
 
 ``halo_exchange_w`` takes its plain version for a tensor on the CPU and
-launches the CUDA kernel (csrc/halo_exchange.cu) for a CUDA tensor; there is
-no fallback from one to the other. The plain version,
+launches the CUDA kernels (csrc/halo_exchange.cu) for a CUDA tensor; there
+is no fallback from one to the other. The plain version,
 ``halo_exchange_w_plain``, is the ``lax.ppermute`` path of the JAX
-``HaloCtx.pad_w``: a ``torch.distributed.batch_isend_irecv`` ring. The
-kernel writes both directions in one launch straight into the neighbours'
-receive buffers, which each rank allocates once and the neighbours open
-through CUDA IPC; then the ranks synchronise on the host (stream sync, group
-barrier) and each reads its own buffers. ``halo_exchange_w.launches``
-counts the kernel launches.
+``HaloCtx.pad_w``: a ``torch.distributed.batch_isend_irecv`` ring. On the
+card each rank allocates a receive slab once, which the neighbours open
+through CUDA IPC, and the ring decides its route when it sets the slab up
+(``choose_route``):
+
+* signalled, where every rank has a card of its own and reaches both
+  neighbours' cards (NVLink): two launches, a send straight into the
+  neighbours' slabs and a receive out of its own, ordered on the device by
+  counters in the slabs (``SignalSeq`` computes what each waits for), with
+  no host synchronisation; as the TPU kernel, whose receiver waits on its
+  own DMA semaphores. Distinct cards that cannot reach each other raise;
+* host-synchronised, where ranks share a card and so run in time slices,
+  in which a kernel spinning on a flag could wait out a whole slice: one
+  launch writes into the neighbours' slabs, then the ranks synchronise on
+  the host (stream sync, group barrier) and each reads its own slots;
+* self, a ring of one rank: the kernel writes its own slots, and stream
+  order is all the synchronisation it needs.
+
+``halo_exchange_w.launches`` counts the exchanges on the card,
+``halo_exchange_w.signalled`` those that took the signalled route, and
+``HaloRing.host_syncs`` the stream syncs and barriers the rings of this
+process made on the card (in exchanges, and around a slab that is freed).
 
 The plain ring is differentiable, as ``ppermute`` is in JAX: where autograd
 records, ``halo_exchange_w_plain`` goes through a ``torch.autograd.Function``
@@ -32,7 +48,7 @@ autograd records.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,22 +67,112 @@ from biasgan_tpu_torch.kernels.common import (
 TAG_RIGHTWARD, TAG_LEFTWARD = 1, 2
 IPC_HANDLE_BYTES = 64  # sizeof(cudaIpcMemHandle_t)
 MIN_BUFFER_BYTES = 1 << 20
+NTHREADS = 256  # threads per block of the kernels (csrc/halo_exchange.cu)
+# blocks per direction of a signalled launch, at most: a few rings' kernels
+# on one card (the loopback check) stay co-resident, and 64 blocks keep an
+# NVLink direction busy at these sizes
+SIGNAL_BLOCKS = 64
+BLOCK_BYTES = NTHREADS * 16  # what one block moves per pass at 16-byte access
 
 
 def _distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def choose_route(devices: Sequence[int], rank: int,
+                 can_access_peer: Callable[[int, int], bool]) -> str:
+    """The route of rank ``rank``'s exchanges, from the CUDA device of
+    every rank of the ring (``devices``): 'self' for one rank; 'signalled'
+    where every rank is on a device of its own and this rank's device can
+    reach both neighbours' (``can_access_peer(mine, theirs)``), raising if
+    it cannot; else 'host' (ranks share a card)."""
+    n = len(devices)
+    if n == 1:
+        return "self"
+    if len(set(devices)) < n:
+        return "host"
+    mine = devices[rank]
+    for peer in sorted({(rank - 1) % n, (rank + 1) % n}):
+        if not can_access_peer(mine, devices[peer]):
+            raise RuntimeError(
+                f"halo_exchange_w: every rank has a card of its own, but rank {rank} "
+                f"on cuda:{mine} cannot reach rank {peer}'s cuda:{devices[peer]} (no "
+                "peer access with native atomics, as NVLink gives): the device-signalled "
+                "exchange needs it, and the host-synchronised one is for ranks sharing a card"
+            )
+    return "signalled"
+
+
+def signal_blocks(nbytes: int) -> int:
+    """Blocks of one direction of a signalled launch that moves ``nbytes``:
+    the same on every rank for the same shapes, whatever each rank's
+    access width."""
+    return min(SIGNAL_BLOCKS, -(-nbytes // BLOCK_BYTES))
+
+
+class SignalStep(NamedTuple):
+    """One signalled exchange, per direction as (left halos, right halos):
+    the slot it writes and reads, the blocks of each launch, the counts of
+    this rank's FREED words its send waits for (the slot it overwrites has
+    been read), and those of its ARRIVE words its receive waits for (the
+    slot holds this exchange's halos)."""
+
+    slot: int
+    blocks: Tuple[int, int]
+    freed: Tuple[int, int]
+    arrived: Tuple[int, int]
+
+
+class SignalSeq:
+    """Where one rank's signalled exchanges stand on one slab, whose flag
+    counters start at 0. Each block of a launch adds 1 to one counter, and
+    every rank launches the same blocks (the exchange is collective): so
+    after exchange e a neighbour's adds have brought a counter to the sum
+    of the blocks of exchanges 0..e of its direction. A slot is written at
+    every other exchange, so a send waits for the reads of exchange e - 2."""
+
+    def __init__(self):
+        self.step = 0
+        # blocks per direction summed over exchanges 0..e-2 and 0..e-1
+        self._through = [(0, 0), (0, 0)]
+
+    def next(self, bytes_l: int, bytes_r: int) -> SignalStep:
+        """The next exchange, moving ``bytes_l`` of left halos and
+        ``bytes_r`` of right halos."""
+        blocks = (signal_blocks(bytes_l), signal_blocks(bytes_r))
+        two_ago, last = self._through
+        now = (last[0] + blocks[0], last[1] + blocks[1])
+        step = SignalStep(self.step % 2, blocks, two_ago, now)
+        self._through = [last, now]
+        self.step += 1
+        return step
+
+
+class Slabs(NamedTuple):
+    """The receive slabs a signalled exchange touches, as this process
+    addresses them: this rank's and its left and right neighbours' bases,
+    and the bytes per buffer."""
+
+    own: int
+    left: int
+    right: int
+    cap: int
+
+
 class HaloRing:
     """Rank ``rank`` of a ring of ``n`` W shards (the process group's
     ranks, in order): its neighbours, the edge rule, and the kernel's
-    receive buffers. Every rank of the group builds its ring at the same
+    receive slab. Every rank of the group builds its ring at the same
     point, and calls ``close`` at the same point: both are collective where
     there is more than one rank, as is an exchange on the card that has to
-    (re)allocate the buffers.
+    (re)allocate the slab.
 
     ``via_host``: the group's backend is gloo, which takes no CUDA tensors,
-    so the plain ring stages them through host copies."""
+    so the plain ring stages them through host copies. ``route``: the
+    exchanges' route on the card (module docstring), decided at the slab's
+    setup (None before the first exchange on the card)."""
+
+    host_syncs = 0  # stream syncs and barriers made on the card, every ring of this process
 
     def __init__(self, n: int, periodic: bool = True, group=None):
         if n < 1:
@@ -85,17 +191,20 @@ class HaloRing:
         self.rank = dist.get_rank(group) if distributed else 0
         self.left, self.right = (self.rank - 1) % n, (self.rank + 1) % n
         self.via_host = distributed and dist.get_backend(group) == "gloo"
-        # the kernel path's barriers and handle gathers run on the host, in
-        # the group itself under gloo, else in a gloo group beside it
+        # the slab's handle gathers and the host route's barriers run on the
+        # host, in the group itself under gloo, else in a gloo group beside it
         self._host_sync = distributed and n > 1
         self._host_group = group
         if self._host_sync and not self.via_host:
             self._host_group = dist.new_group(backend="gloo")
-        self.step = 0  # exchanges on the card so far (the ping-pong parity)
-        self._slab: Optional[int] = None  # 4 buffers: left halo x2, right halo x2
+        self.route: Optional[str] = None
+        self.step = 0  # host-route exchanges on this slab (the ping-pong parity)
+        self.seq = SignalSeq()  # signalled exchanges on this slab
+        self._slab: Optional[int] = None  # 4 buffers (left halo x2, right halo x2), flags
         self._cap = 0  # bytes per buffer
         self._device: Optional[torch.device] = None
         self._peers = {}  # rank -> base of its opened slab
+        self._slabs: Optional[Slabs] = None  # what a signalled exchange touches
 
     def has_right(self) -> bool:
         """Whether this rank's right neighbour lies across no global edge
@@ -109,7 +218,17 @@ class HaloRing:
         if self._host_sync:
             dist.barrier(group=self._host_group)
 
-    # -- the kernel's receive buffers ------------------------------------
+    def sync_host(self) -> None:
+        """This rank's stream drained, then every rank met at a barrier:
+        what was written into any slab has landed. Counted in
+        ``host_syncs``."""
+        torch.cuda.current_stream(self._device).synchronize()
+        HaloRing.host_syncs += 1
+        if self._host_sync:
+            self.barrier()
+            HaloRing.host_syncs += 1
+
+    # -- the kernel's receive slab ----------------------------------------
 
     @property
     def capacity(self) -> int:
@@ -118,12 +237,16 @@ class HaloRing:
         return self._cap
 
     def slab(self, peer: int) -> int:
-        """Base address of ``peer``'s receive buffers in this process."""
+        """Base address of ``peer``'s receive slab in this process."""
         return self._slab if peer == self.rank else self._peers[peer]
+
+    def slabs(self) -> Slabs:
+        return self._slabs
 
     def ensure_buffers(self, nbytes: int, device: torch.device) -> int:
         """Receive buffers of at least ``nbytes`` each on ``device``, opened
-        by both neighbours; returns the bytes per buffer."""
+        by both neighbours, and the route; returns the bytes per buffer. A
+        new slab starts its flag counters, so its exchange count, at 0."""
         if self._slab is not None:
             if device != self._device:
                 raise ValueError(f"the ring's buffers are on {self._device}, x on {device}")
@@ -131,34 +254,34 @@ class HaloRing:
                 return self._cap
             self._release()
         cap = 1 << max(MIN_BUFFER_BYTES.bit_length() - 1, (nbytes - 1).bit_length())
-        lib = _lib()
-        base, handle = ctypes.c_void_p(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
-        _check(lib.halo_buffer_alloc(device.index, 4 * cap, ctypes.byref(base), handle),
-               f"allocating {4 * cap} bytes of receive buffers on {device}")
-        self._slab, self._cap, self._device = base.value, cap, device
-        handles = [handle.raw]
+        base, handle = alloc_slab(device, cap)
+        self._slab, self._cap, self._device = base, cap, device
+        self.step, self.seq = 0, SignalSeq()
+        mine = (handle, device.index)
+        every = [mine]
         if self._host_sync:
-            handles = [None] * self.n
-            dist.all_gather_object(handles, handle.raw, group=self._host_group)
+            every = [None] * self.n
+            dist.all_gather_object(every, mine, group=self._host_group)
+        self.route = choose_route([d for _, d in every], self.rank, can_access_peer)
         for peer in {self.left, self.right} - {self.rank}:
             opened = ctypes.c_void_p()
-            _check(lib.halo_buffer_open(device.index, handles[peer], ctypes.byref(opened)),
+            _check(_lib().halo_buffer_open(device.index, every[peer][0], ctypes.byref(opened)),
                    f"rank {self.rank} opening rank {peer}'s receive buffers (CUDA IPC)")
             self._peers[peer] = opened.value
+        self._slabs = Slabs(base, self.slab(self.left), self.slab(self.right), cap)
         return cap
 
     def _release(self) -> None:
         """Collective: every rank's reads are done and every neighbour has
-        closed its mapping before a buffer is freed."""
-        lib = _lib()
-        torch.cuda.current_stream(self._device).synchronize()
-        self.barrier()
+        closed its mapping before a slab is freed."""
+        self.sync_host()
         for peer, base in self._peers.items():
-            _check(lib.halo_buffer_close(self._device.index, base), f"closing rank {peer}'s buffers")
+            _check(_lib().halo_buffer_close(self._device.index, base),
+                   f"closing rank {peer}'s buffers")
         self._peers = {}
         self.barrier()
-        _check(lib.halo_buffer_free(self._device.index, self._slab), "freeing the receive buffers")
-        self._slab, self._cap = None, 0
+        free_slab(self._device, self._slab)
+        self._slab, self._cap, self._slabs = None, 0, None
 
     def close(self) -> None:
         if self._slab is not None:
@@ -174,9 +297,12 @@ def _lib():
         lib.halo_buffer_open.argtypes = [INT, PTR, PTR]
         lib.halo_buffer_close.argtypes = [INT, PTR]
         lib.halo_buffer_free.argtypes = [INT, PTR]
+        lib.halo_can_access_peer.argtypes = [INT, INT, PTR]
         for f in (lib.halo_buffer_alloc, lib.halo_buffer_open, lib.halo_buffer_close,
-                  lib.halo_buffer_free):
+                  lib.halo_buffer_free, lib.halo_can_access_peer):
             f.restype = INT
+        lib.halo_slab_bytes.argtypes = [ctypes.c_size_t]
+        lib.halo_slab_bytes.restype = ctypes.c_size_t
         lib.port_error_string.argtypes = [INT]
         lib.port_error_string.restype = ctypes.c_char_p
     return lib
@@ -186,6 +312,30 @@ def _check(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().port_error_string(err).decode()
         raise RuntimeError(f"halo_exchange: {what} failed: CUDA error {err} ({msg})")
+
+
+def alloc_slab(device: torch.device, cap: int) -> Tuple[int, bytes]:
+    """A zeroed receive slab of four ``cap``-byte buffers and the flag words
+    on ``device``: (its base, its IPC handle)."""
+    lib = _lib()
+    base, handle = ctypes.c_void_p(), ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+    nbytes = lib.halo_slab_bytes(cap)
+    _check(lib.halo_buffer_alloc(device.index, nbytes, ctypes.byref(base), handle),
+           f"allocating {nbytes} bytes of receive buffers on {device}")
+    return base.value, handle.raw
+
+
+def free_slab(device: torch.device, base: int) -> None:
+    _check(_lib().halo_buffer_free(device.index, base), "freeing the receive buffers")
+
+
+def can_access_peer(device: int, peer: int) -> bool:
+    """Whether CUDA device ``device`` reaches ``peer``'s memory with native
+    atomics (NVLink)."""
+    ok = ctypes.c_int()
+    _check(_lib().halo_can_access_peer(device, peer, ctypes.byref(ok)),
+           f"asking whether cuda:{device} reaches cuda:{peer}")
+    return bool(ok.value)
 
 
 def _check_args(x: torch.Tensor, left: int, right: int) -> None:
@@ -294,45 +444,102 @@ def halo_exchange_w_plain(
 
 _LAUNCH_ARGS = [PTR, PTR, PTR, INT, ctypes.c_longlong, INT, INT, INT, INT]
 _READ_ARGS = [PTR, PTR, ctypes.c_size_t, PTR, PTR, ctypes.c_size_t]
+_U64 = ctypes.c_ulonglong
+_SEND_ARGS = [PTR, PTR, PTR, PTR, ctypes.c_size_t, INT, INT, ctypes.c_longlong, INT, INT,
+              INT, INT, INT, INT, _U64, _U64]
+_RECV_ARGS = [PTR, PTR, PTR, PTR, PTR, ctypes.c_size_t, INT, ctypes.c_longlong,
+              ctypes.c_longlong, INT, INT, _U64, _U64]
+
+
+def _row_bytes(x: torch.Tensor, left: int, right: int) -> Tuple[int, int, int]:
+    """(rows N*H, bytes of the left and of the right halo per row)."""
+    n, h, _, c = x.shape
+    es = x.element_size()
+    return n * h, left * c * es, right * c * es
 
 
 def launch_halo_kernel(x: torch.Tensor, left: int, right: int, ring: HaloRing) -> int:
-    """The kernel's launch alone, on the current stream, with no
+    """The host route's launch, on the current stream, with no
     synchronisation: this rank's halo columns into the neighbours' receive
     buffers of the next ping-pong parity, which it returns. Counted in
-    ``halo_exchange_w.launches``. ``halo_exchange_w`` is the exchange; this
-    is its first step, and what a kernel timing times."""
-    n, h, w, c = x.shape
-    es = x.element_size()
-    rows, lbytes, rbytes = n * h, left * c * es, right * c * es
+    ``halo_exchange_w.launches``. It is the first step of a host-route or
+    self-ring exchange, and what a timing of that kernel alone times; on
+    the signalled route a send waits on the neighbours' receives, so only
+    whole exchanges run there, and this raises."""
+    rows, lbytes, rbytes = _row_bytes(x, left, right)
     cap = ring.ensure_buffers(rows * max(lbytes, rbytes), x.device)
+    if ring.route == "signalled":
+        raise RuntimeError("launch_halo_kernel: the ring's route is signalled; a send "
+                           "there waits on the neighbours' receives: run whole exchanges")
     k = ring.step % 2  # ping-pong: a neighbour may still read the other pair
     ring.step += 1
     launch(
         "halo_exchange", "halo_exchange_launch", _LAUNCH_ARGS, x.device, ptr(x),
         ring.slab(ring.right) + k * cap if lbytes else None,
         ring.slab(ring.left) + (2 + k) * cap if rbytes else None,
-        rows, w * c * es, lbytes, rbytes, int(not ring.has_right()),
-        int(not ring.has_left()),
+        rows, x.shape[2] * x.shape[3] * x.element_size(), lbytes, rbytes,
+        int(not ring.has_right()), int(not ring.has_left()),
     )
     halo_exchange_w.launches += 1
     return k
 
 
-def _exchange(x, left, right, ring: HaloRing):
+def signal_send(x: torch.Tensor, left: int, right: int, step: SignalStep, slabs: Slabs,
+                zero_l: bool, zero_r: bool, stream: torch.cuda.Stream) -> None:
+    """The send of one signalled exchange on ``stream`` through ``slabs``
+    (as this process addresses them: a ``HaloRing``'s IPC-opened ones, or
+    the peers' own in a ring inside one process): this rank's last
+    ``left`` columns of x into its right neighbour's left-halo slot, its
+    first ``right`` into its left neighbour's right-halo slot (zeros where
+    ``zero_l`` / ``zero_r``), each block after the slot's last read and
+    before its ARRIVE add. x must be ready on ``stream``; ``signal_recv``
+    follows on the same stream."""
     n, h, w, c = x.shape
-    es, dev = x.element_size(), x.device
+    es = x.element_size()
+    launch(
+        "halo_exchange", "halo_signal_send", _SEND_ARGS, x.device, x.data_ptr(), slabs.own,
+        slabs.left, slabs.right, slabs.cap, step.slot, n * h, w * c * es, left * c * es,
+        right * c * es, int(zero_l), int(zero_r), *step.blocks, *step.freed, stream=stream,
+    )
+
+
+def signal_recv(lh: torch.Tensor, rh: torch.Tensor, step: SignalStep, slabs: Slabs,
+                stream: torch.cuda.Stream) -> None:
+    """The receive of one signalled exchange on ``stream``, after its send:
+    this rank's slots into ``lh`` and ``rh`` once they hold this exchange's
+    halos, each block then adding to the sender's FREED word."""
+    launch(
+        "halo_exchange", "halo_signal_recv", _RECV_ARGS, lh.device, lh.data_ptr(),
+        rh.data_ptr(), slabs.own, slabs.left, slabs.right, slabs.cap, step.slot,
+        lh.numel() * lh.element_size(), rh.numel() * rh.element_size(), *step.blocks,
+        *step.arrived, stream=stream,
+    )
+
+
+def _exchange(x, left, right, ring: HaloRing):
+    rows, lbytes, rbytes = _row_bytes(x, left, right)
+    dev = x.device
+    ring.ensure_buffers(rows * max(lbytes, rbytes), dev)
+    n, h, _, c = x.shape
+    if ring.route == "signalled":  # the send, then the receive: no host sync
+        step, stream = ring.seq.next(rows * lbytes, rows * rbytes), torch.cuda.current_stream(dev)
+        lh = torch.empty((n, h, left, c), dtype=x.dtype, device=dev)
+        rh = torch.empty((n, h, right, c), dtype=x.dtype, device=dev)
+        signal_send(x, left, right, step, ring.slabs(), not ring.has_right(),
+                    not ring.has_left(), stream)
+        signal_recv(lh, rh, step, ring.slabs(), stream)
+        halo_exchange_w.launches += 1
+        halo_exchange_w.signalled += 1
+        return lh, rh
     k = launch_halo_kernel(x, left, right, ring)
-    # every rank's writes have landed once every rank has synced and met
-    torch.cuda.current_stream(dev).synchronize()
-    ring.barrier()
+    if ring.route == "host":  # every rank's writes have landed once every rank has synced and met
+        ring.sync_host()
     lh = torch.empty((n, h, left, c), dtype=x.dtype, device=dev)
     rh = torch.empty((n, h, right, c), dtype=x.dtype, device=dev)
     own, cap = ring.slab(ring.rank), ring.capacity
     launch(
         "halo_exchange", "halo_read", _READ_ARGS, dev,
-        ptr(lh), own + k * cap, n * h * left * c * es,
-        ptr(rh), own + (2 + k) * cap, n * h * right * c * es,
+        ptr(lh), own + k * cap, rows * lbytes, ptr(rh), own + (2 + k) * cap, rows * rbytes,
     )
     return lh, rh
 
@@ -345,9 +552,10 @@ def halo_exchange_w(
     what ``HaloCtx.pad_w`` concatenates around x. Collective: every rank of
     ``ring`` calls it with the same shapes.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``halo_exchange_w.launches``) or raises. Inference only:
-    it raises where autograd records."""
+    A CPU tensor takes the plain version; a CUDA tensor runs the kernels on
+    the ring's route (counted in ``halo_exchange_w.launches``, and in
+    ``.signalled`` on the signalled route) or raises. Inference only: it
+    raises where autograd records."""
     _check_args(x, left, right)
     refuse_grad("halo_exchange_w", "inference only, as in JAX", x)
     if check_device("halo_exchange_w", x, []):
@@ -358,3 +566,11 @@ def halo_exchange_w(
 
 
 halo_exchange_w.launches = 0
+halo_exchange_w.signalled = 0
+
+
+def halo_counts(ring: HaloRing) -> dict:
+    """This process's exchange counts on the card and ``ring``'s route
+    (None before its first exchange on the card)."""
+    return {"route": ring.route, "exchanges": halo_exchange_w.launches,
+            "signalled": halo_exchange_w.signalled, "host_syncs": HaloRing.host_syncs}

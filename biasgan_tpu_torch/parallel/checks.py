@@ -2,7 +2,9 @@
 for ``parallel.mesh.spawn``. The CPU tests spawn them (their ranks import
 torch and the port only, never JAX) and ``chip_smoke.py`` runs them on the
 card. Each is ``fn(rank, n, device, say, *args)`` with numpy in and out;
-rank 0's return value is the result.
+rank 0's return value is the result. Beside them, ``LoopbackRing`` runs the
+halo kernel's signalled exchange among the peers of a ring inside one
+process on one card, and ``ring_halos`` gives the halos a ring must bring.
 """
 
 from __future__ import annotations
@@ -15,6 +17,14 @@ import torch.distributed as dist
 
 from biasgan_tpu_torch.kernels import launch_counts, wrappers
 from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_t
+from biasgan_tpu_torch.kernels.halo_exchange import (
+    SignalSeq,
+    Slabs,
+    alloc_slab,
+    free_slab,
+    signal_recv,
+    signal_send,
+)
 from biasgan_tpu_torch.parallel.spatial import HaloCtx, shard_w, spatial_apply
 
 
@@ -60,6 +70,88 @@ def halo_cases(rank, n, device, say, x: np.ndarray, cases: Sequence[Tuple[int, i
         except ValueError as e:
             out["guard"] = str(e)
     return out
+
+
+def ring_halos(xs: Sequence[torch.Tensor], left: int, right: int,
+               periodic: bool) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The (left, right) halos of each shard ``xs[p]`` of a ring: the last
+    ``left`` columns of its left neighbour's shard and the first ``right``
+    of its right neighbour's, zeros across a non-periodic global edge."""
+    peers, out = len(xs), []
+    for p in range(peers):
+        lh = xs[p - 1][:, :, xs[p - 1].shape[2] - left:]
+        rh = xs[(p + 1) % peers][:, :, :right]
+        if not periodic and p == 0:
+            lh = torch.zeros_like(lh)
+        if not periodic and p == peers - 1:
+            rh = torch.zeros_like(rh)
+        out.append((lh.contiguous(), rh.contiguous()))
+    return out
+
+
+class LoopbackRing:
+    """A ring of ``peers`` peers inside this process, all on ``device``:
+    each peer has its own receive slab of ``cap``-byte buffers, its own
+    CUDA stream and its own ``SignalSeq``, and addresses its neighbours'
+    slabs directly. Its exchanges are the signalled route's
+    (``signal_send``, ``signal_recv``), the peers' kernels co-resident on
+    the card: the protocol held on one card. Every peer's sends of an
+    exchange are launched before any of its receives, so a kernel only
+    ever waits on kernels launched before it, however the card queues the
+    streams."""
+
+    def __init__(self, peers: int, periodic: bool, cap: int, device: torch.device):
+        self.periodic, self.cap, self.device = periodic, cap, device
+        self.bases = [alloc_slab(device, cap)[0] for _ in range(peers)]
+        self.streams = [torch.cuda.Stream(device) for _ in range(peers)]
+        self.seqs = [SignalSeq() for _ in range(peers)]
+
+    def slabs(self, p: int) -> Slabs:
+        b = self.bases
+        return Slabs(b[p], b[p - 1], b[(p + 1) % len(b)], self.cap)
+
+    def run(self, rounds: Sequence[Sequence[torch.Tensor]], left: int, right: int
+            ) -> List[List[Tuple[torch.Tensor, torch.Tensor]]]:
+        """Back-to-back exchanges, one per round of ``rounds`` (each
+        round: every peer's NHWC shard, made on the current stream, of
+        one shape for all), no peer waiting on the host; returns each
+        round's (left, right) halos per peer, ready on the current
+        stream."""
+        main = torch.cuda.current_stream(self.device)
+        peers = len(self.bases)
+        for s in self.streams:
+            s.wait_stream(main)
+        out = []
+        for xs in rounds:
+            n, h, _, c = xs[0].shape
+            halos = []
+            for s in self.streams:
+                with torch.cuda.stream(s):
+                    halos.append((xs[0].new_empty((n, h, left, c)),
+                                  xs[0].new_empty((n, h, right, c))))
+            es = xs[0].element_size()
+            steps = [seq.next(n * h * left * c * es, n * h * right * c * es)
+                     for seq in self.seqs]
+            edge = not self.periodic
+            for p in range(peers):
+                signal_send(xs[p], left, right, steps[p], self.slabs(p),
+                            edge and p == peers - 1, edge and p == 0, self.streams[p])
+            for p in range(peers):
+                signal_recv(*halos[p], steps[p], self.slabs(p), self.streams[p])
+            out.append(halos)
+        for s in self.streams:
+            main.wait_stream(s)
+        for halos in out:
+            for lh, rh in halos:
+                lh.record_stream(main)
+                rh.record_stream(main)
+        return out
+
+    def close(self) -> None:
+        torch.cuda.synchronize(self.device)
+        for base in self.bases:
+            free_slab(self.device, base)
+        self.bases = []
 
 
 def generator_cases(rank, n, device, say, spec: dict, state: Dict[str, np.ndarray],

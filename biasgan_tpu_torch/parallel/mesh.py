@@ -10,7 +10,9 @@ on ``torch.distributed``:
   refuses two ranks on one device, and the CPU has only gloo). Under gloo
   the collectives on CUDA tensors go through explicit host copies
   (``parallel/spatial.py``). This is a transport choice, not a kernel
-  fallback: the halo kernel runs under either;
+  fallback: the halo kernel runs under either, device-signalled where every
+  rank has a card of its own, host-synchronised where ranks share one
+  (``halo_route``);
 * ``spawn`` starts the ranks (``torch.multiprocessing``, start method
   ``spawn``), each on a fresh ``file://`` rendezvous with an explicit group
   timeout, forwards rank 0's messages as they come, and returns rank 0's
@@ -50,14 +52,39 @@ def backend_for(n: int, device: str) -> str:
     return "gloo"
 
 
-def placement(n: int, device: str) -> str:
-    """The one-line notice of where ``n`` ranks run and how they talk."""
+def halo_route(n: int, device: str) -> str:
+    """The route the halo kernel's exchanges take on ``n`` ranks placed by
+    ``rank_device`` (``kernels/halo_exchange.py``; the ring decides it from
+    the ranks' devices and checks the peers at its first exchange): 'cpu'
+    (no kernel: its plain version), 'self', 'signalled' or 'host'."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    if n == 1:
+        return "self"
+    return "signalled" if torch.cuda.device_count() >= n else "host"
+
+
+HALO_ROUTES = {
+    "cpu": "the point-to-point ring (the halo kernel's plain version on the CPU)",
+    "self": "a self-ring on the card, ordered by its stream (no host sync)",
+    "signalled": ("device-signalled: flags in each rank's CUDA IPC buffers over NVLink, "
+                  "no host sync per exchange"),
+    "host": ("host-synchronised: ranks share a card, so each exchange syncs the stream "
+             "and meets the other ranks at a barrier"),
+}
+
+
+def placement(n: int, device: str, halo_rdma: bool = False) -> str:
+    """The one-line notice of where ``n`` ranks run and how they talk (with
+    ``halo_rdma``, also the route of the halo kernel's exchanges)."""
     devices = ", ".join(f"{r}->{rank_device(r, device)}" for r in range(n))
     backend = backend_for(n, device)
     line = f"spatial: {n} rank(s) (rank->device {devices}), backend {backend}"
     if backend == "gloo" and torch.device(device).type == "cuda":
         line += ("; ranks share a card, so collectives on CUDA tensors go through "
                  "host copies")
+    if halo_rdma:
+        line += f"; halos: {HALO_ROUTES[halo_route(n, device)]}"
     return line
 
 

@@ -17,7 +17,9 @@ or 'zero').
 
 Under gloo (ranks sharing a card, or the CPU) collectives on CUDA tensors
 go through host copies. The halo exchange itself is the plain ring, or with
-``rdma`` the ``halo_exchange_w`` kernel on the card.
+``rdma`` the ``halo_exchange_w`` kernel on the card: signalled on the
+device where every rank has a card of its own, synchronised on the host
+where ranks share one (``kernels/halo_exchange.py``).
 
 Training differentiates through the context, as JAX differentiates through
 ``ppermute``, ``psum`` and ``all_gather``: the plain ring's backward is the

@@ -126,7 +126,7 @@ def breakdown_rank(rank, n, device, say, width, fused, rdma):
     dist.all_gather_object(every, busy)
     return {"wall_ms": wall, "instrumented_ms": instrumented,
             **{k + "_ms": v for k, v in spent.items()},
-            "rank_busy_ms": every, "top_rank0": top}
+            "rank_busy_ms": every, "top_rank0": top, "halo_route": ctx.ring.route}
 
 
 def main(argv=None) -> int:
@@ -145,7 +145,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(card)
-    where = placement(n, "cuda")
+    where = placement(n, "cuda", halo_rdma=True)
     print(where)
     cards = min(n, torch.cuda.device_count())
     out = {}
@@ -162,7 +162,8 @@ def main(argv=None) -> int:
               f"{r['pad_w_ms']:.3f} + norm collectives {r['mean_w_ms'] + r['sum_w_ms']:.3f} + "
               f"gather {r['gather_w_ms']:.3f} + the rest; device busy per rank "
               f"{[round(b, 3) for b in r['rank_busy_ms']]}, the card(s) idle "
-              f"{r['idle_share']:.3f} of the wall")
+              f"{r['idle_share']:.3f} of the wall"
+              + (f"; halo route {r['halo_route']}" if rdma else ""))
         for ms, calls, key in r["top_rank0"]:
             print(f"  rank 0 {ms:8.3f} ms/fwd {calls:6.1f} calls/fwd  {key}")
     if args.out:

@@ -27,15 +27,23 @@ checkout is missing, and at the first failure of any phase:
      same work, and the kernel call's device time by kernel from
      torch.profiler beside its CUDA-event time (the host work of the call,
      such as a weight repack, apart from the kernels); where the parent
-     commit's tree is unpacked in .chip_archive/parent, the down conv's
-     call there and here in turns, each turn a fresh process; the fused
-     block conv also in its halo W mode at the block
-     shape of a 4-way W shard; then the halo exchange inside four spawned
-     ranks on the card (gloo, ranks sharing the card): the kernel bitwise
+     commit's tree is unpacked in .chip_archive/parent, the kernels of
+     COMPARE_KERNELS there and here in turns, each turn a fresh process
+     (phase 6 runs the turns); the fused block conv also in its halo W
+     mode at the block shape of a 4-way W shard; then the halo exchange
+     inside four spawned ranks (one card: gloo, the ranks sharing it, on
+     the host-synchronised route; a card per rank: NCCL, on the signalled
+     route, every exchange counted as signalled): the kernel bitwise
      against the plain ring at every exchange shape of the sharded globe
-     forward, periodic and zero-edge, and its time (CUDA events around
-     rank 0's launches), the exchange's wall time with its host-side
-     synchronisation, the plain ring's and the ring's messages alone;
+     forward, periodic and zero-edge, and its times (the host route's copy
+     alone under CUDA events around rank 0's launches, the signalled
+     route's two kernels on the card by torch.profiler), the whole exchange
+     back to back, the plain ring's and the ring's messages alone; then the
+     signalled route on this card through a loopback ring (2 and 4 peers in
+     this process, each its own slab and stream, their kernels co-resident):
+     64 back-to-back exchanges with fresh shards at every exchange shape,
+     periodic and zero-edge, every halo bitwise the ring's, and its device
+     time per exchange;
   3b. the gradient phase: the fused block conv's backward kernel
      (conv3x3_fused_bwd) called directly against its plain version (the
      torch-ops backward) on the same inputs and cotangents, over every H pad
@@ -72,9 +80,14 @@ checkout is missing, and at the first failure of any phase:
      --force_pallas_norm; then spatially sharded over four ranks on the
      card: --spatial_mesh 4 (the plain ring), with --halo_rdma, and with
      --halo_rdma --fused_blocks, each rank's launches counted in its own
-     process from 0. Outputs must be finite, of the right shape, and each
-     path must agree with the plain path by the globe bf16 rule (every
-     path serves the 1440 columns unpadded); --halo_rdma with the ring's;
+     process from 0, and the --halo_rdma paths' exchanges on each rank all
+     on the route the cards give (a card per rank: signalled, no host
+     sync; one card: the host route's two syncs each). Outputs must be
+     finite, of the right shape, and each path must agree with the plain
+     path by the globe bf16 rule (every path serves the 1440 columns
+     unpadded); --halo_rdma with the ring's. With a parent tree, the three
+     sharded paths' served ms/field and the halo exchange per forward,
+     there and here in turns;
   7. train full-width CycleGAN (resnet_9blocks ngf 64, basic D ndf 64,
      instance norm, lsgan, pool 50, 256x256, batch 1, 3 channels,
      synthetic data from a seed) in f32 and bf16 on four routes: plain;
@@ -100,7 +113,7 @@ checkout is missing, and at the first failure of any phase:
      rank 0's ms/step is printed.
 
 On a host with a card per rank the sharded phases run over NCCL, the halo
-kernel writing across NVLink peers.
+kernel writing across NVLink peers and signalling on the device.
 
 Before its last line it prints one JSON object with the kernels' names,
 sources, launch counts on their main path, errors, times and bounds. The
@@ -619,11 +632,14 @@ def timed(torch, fn, iters=20, warmup=3):
 
 
 # The parent commit's tree, where one is unpacked there (git archive into a
-# directory that .gitignore lists): compare_parent times the kernels of
-# COMPARE_KERNELS in both trees in turns. A plain checkout has none.
+# directory that .gitignore lists): compare_parent times, in both trees in
+# turns, the kernels of COMPARE_KERNELS at their globe shapes and the
+# sharded paths (the halo exchange at every shape of HALO_CALLS, the plain
+# ring, the served ms/field). A plain checkout has none.
 PARENT_TREE = os.path.join(HERE, ".chip_archive", "parent")
-COMPARE_KERNELS = ("conv3x3s2_fused",)
-COMPARE_ROUNDS = 2  # of the turns this, parent, parent, this
+COMPARE_KERNELS = ()  # names of kernels to time in both trees (kernel_turn)
+COMPARE_ROUNDS = 1  # of the turns this, parent, parent, this
+SHARDED_PATHS = ("spatial", "spatial_rdma", "spatial_rdma_fused")
 
 
 def kernel_turn(torch) -> dict:
@@ -644,42 +660,116 @@ def kernel_turn(torch) -> dict:
     return out
 
 
-def compare_parent(torch) -> dict:
-    """This tree's kernels against PARENT_TREE's, if it is there: each turn
-    a fresh process that imports the port from one tree and runs this
-    file's kernel_turn, so both sides see the same inputs and timing.
-    Returns the best ms and device ms of each side per shape ({} without a
-    parent tree)."""
+def halo_turn_rank(rank, n, device, say, calls):
+    """One rank of a sharded turn (``parallel.spawn``), through the API
+    both trees have: at each exchange shape on the periodic ring, in turns,
+    the halo kernel's exchange and the plain ring, each back to back on
+    every rank under one closing sync (host clock). Returns rank 0's
+    rows."""
+    import torch
+    import torch.distributed as dist
+
+    from biasgan_tpu_torch.kernels import halo_exchange as hx
+    from biasgan_tpu_torch.parallel import HaloCtx
+
+    g = torch.Generator(device=device).manual_seed(100 + rank)
+    ctx = HaloCtx(n, True, rdma=True)
+    rows = []
+    for shape, dt, left, right, count in calls:
+        x = torch.randn(shape, generator=g, device=device).to(getattr(torch, dt))
+        fns = {"exchange": lambda: hx.halo_exchange_w(x, left, right, ctx.ring),
+               "plain": lambda: hx.halo_exchange_w_plain(x, left, right, ctx.ring)}
+        runs = {k: [] for k in fns}
+        for which in ("exchange", "plain", "plain", "exchange"):
+            runs[which].append(_host_ms(torch, dist, fns[which]))
+        rows.append({"shape": list(shape), "dtype": dt, "left": left, "right": right,
+                     "count": count, **{k + "_ms": min(v) for k, v in runs.items()}})
+    ctx.close()
+    return rows
+
+
+def sharded_turn(torch, work: str) -> dict:
+    """The sharded part of a turn: halo_turn_rank on N_RANKS spawned ranks,
+    per forward per rank; and the served ms/field of SHARDED_PATHS over the
+    store in ``work`` (infer.main)."""
+    from biasgan_tpu_torch import infer
+    from biasgan_tpu_torch.parallel import spawn
+
+    rows = spawn(halo_turn_rank, N_RANKS, (halo_call_shapes(),), device="cuda", timeout=600,
+                 group_timeout=300)
+    totals = halo_totals(rows, ("exchange_ms", "plain_ms"))
+    served = {}
+    for path in SHARDED_PATHS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            infer.main(serve_argv(work, path))
+        served[path] = [float(v) for v in re.findall(r"corrected in ([0-9.]+) ms",
+                                                     out.getvalue())]
+    return {"halo": {p: {k: v for k, v in t.items() if k != "calls"}
+                     for p, t in totals.items()}, "served_ms": served}
+
+
+def parent_turn(torch, work: str) -> dict:
+    """One turn of compare_parent, in the tree this process imports the
+    port from."""
+    return {"kernels": kernel_turn(torch), "sharded": sharded_turn(torch, work)}
+
+
+def compare_parent(torch, work: str) -> dict:
+    """This tree against PARENT_TREE, if it is there: each turn a fresh
+    process that imports the port from one tree and runs this file's
+    parent_turn (a copy of it under ``work``, which the turn's spawned ranks
+    import), so both sides see the same inputs and timing; the store and
+    checkpoint of ``work`` serve the sharded paths. Returns each side's
+    best: per kernel shape its ms and device ms; per sharded path the halo
+    exchange and plain ring per forward per rank, and the served ms/field
+    (the median of fields 2..N of a turn) ({} without a parent tree)."""
     if not os.path.isdir(os.path.join(PARENT_TREE, "biasgan_tpu_torch")):
         print(f"parent comparison: skipped, no parent tree in {PARENT_TREE}")
         return {}
+    turn_dir = os.path.join(work, "turn")
+    os.makedirs(turn_dir, exist_ok=True)
+    shutil.copy(os.path.abspath(__file__), os.path.join(turn_dir, "smoke_turn.py"))
     trees = {"this": HERE, "parent": PARENT_TREE}
-    best = {}
+    best = {"kernels": {}, "sharded": {}}
+    torch.cuda.empty_cache()
     for _ in range(COMPARE_ROUNDS):
         for side in ("this", "parent", "parent", "this"):
-            code = ("import importlib.util, json, sys\n"
-                    f"sys.path.insert(0, {trees[side]!r})\n"
-                    f"spec = importlib.util.spec_from_file_location('smoke', {os.path.abspath(__file__)!r})\n"
-                    "smoke = importlib.util.module_from_spec(spec)\n"
-                    "spec.loader.exec_module(smoke)\n"
-                    "import torch\n"
-                    "print('RESULT ' + json.dumps(smoke.kernel_turn(torch)))\n")
+            code = ("import json, sys\n"
+                    f"sys.path[:0] = [{trees[side]!r}, {turn_dir!r}]\n"
+                    "import torch, smoke_turn\n"
+                    f"print('RESULT ' + json.dumps(smoke_turn.parent_turn(torch, {work!r})))\n")
             proc = subprocess.run([sys.executable, "-c", code], cwd=trees[side],
-                                  capture_output=True, text=True, timeout=600)
+                                  capture_output=True, text=True, timeout=900)
             line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")),
                         None)
             check(proc.returncode == 0 and line is not None,
                   f"parent comparison: the {side} turn failed ({proc.returncode}): "
                   f"{proc.stderr[-2000:]}")
-            for key, r in json.loads(line[len("RESULT "):]).items():
+            turn = json.loads(line[len("RESULT "):])
+            for key, r in turn["kernels"].items():
                 print(f"  {side:6s} {key}: {r['ms']:.4f} ms per call (CUDA events), "
                       f"{r['device_ms']:.4f} on the card (torch.profiler): "
                       + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms_by_kernel"].items()))
-                b = best.setdefault(key, {}).setdefault(side, {"ms": r["ms"],
-                                                               "device_ms": r["device_ms"]})
+                b = best["kernels"].setdefault(key, {}).setdefault(
+                    side, {"ms": r["ms"], "device_ms": r["device_ms"]})
                 b["ms"] = min(b["ms"], r["ms"])
                 b["device_ms"] = min(b["device_ms"], r["device_ms"])
-    print(f"parent comparison, best of {2 * COMPARE_ROUNDS} turns a side: {json.dumps(best)}")
+            sh = turn["sharded"]
+            mine = best["sharded"].setdefault(side, {})
+            for path in SHARDED_PATHS:
+                vals = {"served_ms": statistics.median(sh["served_ms"][path][1:])}
+                if path in sh["halo"]:
+                    vals.update(sh["halo"][path])
+                print(f"  {side:6s} {path}: served ms/field {sh['served_ms'][path]}"
+                      + "".join(f", halo {k} per forward per rank {v:.4f}"
+                                for k, v in sh["halo"].get(path, {}).items()))
+                b = mine.setdefault(path, vals)
+                for k, v in vals.items():
+                    b[k] = min(b[k], v)
+    print(f"parent comparison, best of {2 * COMPARE_ROUNDS} turns a side "
+          f"({torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} card(s)): "
+          f"{json.dumps(best)}")
     return best
 
 
@@ -1197,19 +1287,44 @@ def check_small_generator(torch) -> None:
 # ---------------------------------------------------------------------------
 
 HALO_ITERS = 20  # with 2 warm-up launches: an even count keeps the ping-pong in step
+LOOPBACK_ROUNDS = 64  # back-to-back exchanges per loopback case, fresh shards each
+LOOPBACK_TIMED = 100  # back-to-back exchanges per loopback timing
+
+
+def halo_call_shapes() -> list:
+    """Every exchange shape of HALO_CALLS, once."""
+    return list(dict.fromkeys(c for path in HALO_CALLS.values() for c in path))
+
+
+def _host_ms(torch, dist, fn, iters=HALO_ITERS) -> float:
+    """Host ms per call of ``fn`` on every rank at once: after a warm-up
+    call and a barrier, ``iters`` calls back to back under one closing
+    device sync."""
+    fn()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def halo_rank(rank, n, device, say, calls):
     """One rank of the halo phase (``parallel.spawn``). At each exchange
     shape, periodic and zero-edge: the kernel's halos bitwise against the
     plain ring's (every rank's mismatches and largest |kernel - ring|
-    gathered). Then on the periodic
-    ring, in turns: the kernel alone (CUDA events around rank 0's
-    launches while the other ranks wait, so no other process shares the
-    card), the exchange (launch, stream sync, barrier, read: host clock),
-    the plain ring (under gloo with host copies) and the ring's messages
-    alone (under gloo the plain ring on host tensors; under NCCL it is
-    the plain ring). Returns rank 0's timings."""
+    gathered). Then on the periodic ring, in turns: the exchange (back to
+    back on every rank under one closing sync, host clock: on the host
+    route each exchange syncs and meets the ranks inside), its kernels
+    (host route: CUDA events around rank 0's launches of the copy alone,
+    the other ranks waiting, so no other process shares the card;
+    signalled route, where a send waits on the neighbours' receives: the
+    device time of an exchange's two kernels on every rank at once,
+    torch.profiler), the plain ring (under gloo with host copies) and the
+    ring's messages alone (under gloo the plain ring on host tensors;
+    under NCCL it is the plain ring). Returns rank 0's timings, the route
+    and every rank's exchange counts."""
     import torch
     import torch.distributed as dist
 
@@ -1234,15 +1349,6 @@ def halo_rank(rank, n, device, say, calls):
     every = [None] * n
     dist.all_gather_object(every, (mismatches, err))
 
-    def host_ms(fn):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(HALO_ITERS):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / HALO_ITERS * 1e3
-
     ctx = HaloCtx(n, True, rdma=True)
     rows = []
     for x, (shape, dt, left, right, count) in zip(xs, calls):
@@ -1254,59 +1360,150 @@ def halo_rank(rank, n, device, say, calls):
         for which in ("plain", "library", "exchange", "kernel", "kernel", "exchange",
                       "library", "plain"):
             if which != "kernel":
-                runs[which].append(host_ms(fns[which]))
-                continue
-            dist.barrier()
-            if rank == 0:
-                runs["kernel"].append(timed(
-                    torch, lambda: hx.launch_halo_kernel(x, left, right, ctx.ring),
-                    iters=HALO_ITERS, warmup=2))
-            dist.barrier()
+                runs[which].append(_host_ms(torch, dist, fns[which]))
+            elif ctx.ring.route == "signalled":
+                dist.barrier()
+                runs["kernel"].append(sum(device_time(torch, fns["exchange"],
+                                                      iters=HALO_ITERS).values()))
+            else:
+                dist.barrier()
+                if rank == 0:
+                    runs["kernel"].append(timed(
+                        torch, lambda: hx.launch_halo_kernel(x, left, right, ctx.ring),
+                        iters=HALO_ITERS, warmup=2))
+                dist.barrier()
         moved = x.shape[0] * x.shape[1] * (left + right) * x.shape[3] * x.element_size()
         rows.append({
             "shape": list(shape), "dtype": dt, "left": left, "right": right, "count": count,
             "bytes": moved, **{k + "_ms": min(v) for k, v in runs.items() if v},
             "bound_ms": 2 * moved / PEAK_BYTES * 1e3, "nvlink_bound_ms": moved / NVLINK_BYTES * 1e3,
         })
+    counts = [None] * n
+    dist.all_gather_object(counts, hx.halo_counts(ctx.ring))
     ctx.close()
     return {"mismatches": [m for ms, _ in every for m in ms],
-            "max_abs_err": max(e for _, e in every), "rows": rows, "backend": dist.get_backend()}
+            "max_abs_err": max(e for _, e in every), "rows": rows, "backend": dist.get_backend(),
+            "counts": counts}
+
+
+def halo_totals(rows, keys) -> dict:
+    """Per sharded path, each of ``keys`` of the per-shape ``rows`` times
+    its exchanges per forward, summed: per forward per rank."""
+    by_key = {(tuple(r["shape"]), r["dtype"], r["left"], r["right"]): r for r in rows}
+    totals = {}
+    for path, path_calls in HALO_CALLS.items():
+        path_rows = [by_key[c[:4]] for c in path_calls]
+        totals[path] = {k: sum(r[k] * r["count"] for r in path_rows) for k in keys}
+        totals[path]["calls"] = path_rows
+    return totals
 
 
 def check_halo_exchange(torch) -> dict:
     """The halo phase on N_RANKS spawned ranks: every exchange shape of
-    both sharded paths, the kernel bitwise against the plain ring; the
-    timings per shape, and per path the per-field sums (each shape's time
-    times its exchanges per forward, per rank)."""
+    both sharded paths, the kernel bitwise against the plain ring, on the
+    route the ranks' cards give (one card: host-synchronised; a card per
+    rank: signalled, every exchange counted as such); the timings per
+    shape, and per path the per-field sums (each shape's time times its
+    exchanges per forward, per rank)."""
     from biasgan_tpu_torch.parallel import placement, spawn
 
-    calls = list(dict.fromkeys(c for path in HALO_CALLS.values() for c in path))
+    calls = halo_call_shapes()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = spawn(halo_rank, N_RANKS, (calls,), device="cuda", timeout=600, group_timeout=300)
     check(not res["mismatches"], "halo_exchange_w differs from the plain ring: "
           + "; ".join(res["mismatches"]))
-    print(f"halo_exchange_w: {placement(N_RANKS, 'cuda')}: {len(calls)} shapes x "
-          f"periodic/zero-edge bitwise equal to the plain ring "
-          f"({time.perf_counter() - t0:.1f} s)")
+    route = res["counts"][0]["route"]
+    want = "signalled" if torch.cuda.device_count() >= N_RANKS else "host"
+    check(all(c["route"] == want for c in res["counts"]),
+          f"halo_exchange_w routes {[c['route'] for c in res['counts']]}, expected {want}")
+    if want == "signalled":
+        check(all(c["signalled"] == c["exchanges"] > 0 for c in res["counts"]),
+              f"halo_exchange_w: not every exchange was signalled: {res['counts']}")
+    print(f"halo_exchange_w: {placement(N_RANKS, 'cuda', True)}: {len(calls)} shapes x "
+          f"periodic/zero-edge bitwise equal to the plain ring, route {route}, per rank "
+          f"{json.dumps(res['counts'])} ({time.perf_counter() - t0:.1f} s)")
     name = torch.cuda.get_device_name(0)
+    kernel = ("the two kernels on the card (torch.profiler)" if route == "signalled" else
+              "the copy alone (CUDA events)")
     for r in res["rows"]:
         print(f"halo_exchange_w {tuple(r['shape'])} {r['dtype']} ({r['left']},{r['right']}) "
-              f"x{r['count']}, ms per call: kernel {r['kernel_ms']:.4f}, exchange with sync "
-              f"{r['exchange_ms']:.4f}, plain ring {r['plain_ms']:.4f}, ring messages "
-              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.6f} (one card), "
-              f"{r['nvlink_bound_ms']:.6f} (NVLink) on {name}")
-    by_key = {(tuple(r["shape"]), r["dtype"], r["left"], r["right"]): r for r in res["rows"]}
-    totals = {}
-    for path, path_calls in HALO_CALLS.items():
-        rows = [by_key[c[:4]] for c in path_calls]
-        totals[path] = {k: sum(r[k] * r["count"] for r in rows)
-                        for k in ("kernel_ms", "exchange_ms", "plain_ms", "library_ms",
-                                  "bound_ms", "nvlink_bound_ms", "bytes")}
-        totals[path]["calls"] = rows
+              f"x{r['count']}, ms per call: kernel {r['kernel_ms']:.4f} ({kernel}), exchange "
+              f"{r['exchange_ms']:.4f} (back to back, host clock), plain ring "
+              f"{r['plain_ms']:.4f}, ring messages {r['library_ms']:.4f}; bound "
+              f"{r['bound_ms']:.6f} (one card), {r['nvlink_bound_ms']:.6f} (NVLink) on {name}")
+    totals = halo_totals(res["rows"], ("kernel_ms", "exchange_ms", "plain_ms", "library_ms",
+                                       "bound_ms", "nvlink_bound_ms", "bytes"))
+    for path, t in totals.items():
         print(f"halo_exchange_w per forward per rank, {path}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in totals[path].items() if k != "calls"))
-    return {"backend": res["backend"], "max_abs_err": res["max_abs_err"], "totals": totals}
+            f"{k} {v:.4f}" for k, v in t.items() if k != "calls"))
+    return {"backend": res["backend"], "route": route, "max_abs_err": res["max_abs_err"],
+            "totals": totals}
+
+
+def check_halo_loopback(torch) -> dict:
+    """The signalled route on this card, in this process: a ring of 2 and
+    of N_RANKS peers (``parallel.checks.LoopbackRing``: each peer its own
+    slab and stream, the peers' kernels co-resident), at every exchange
+    shape of HALO_CALLS, periodic and zero-edge, LOOPBACK_ROUNDS exchanges
+    back to back with fresh shards each, every halo bitwise the ring's.
+    Then at N_RANKS peers, per shape: the device time of an exchange (its
+    send and receive kernels per peer, torch.profiler, over LOOPBACK_TIMED
+    back-to-back exchanges; each kernel's time includes its waits on the
+    other peers) and the CUDA-event time per exchange of the whole ring
+    (the peers' exchanges run at once; one host thread launches all of
+    them); per sharded path the per-forward sums."""
+    from biasgan_tpu_torch.parallel.checks import LoopbackRing, ring_halos
+
+    dev = torch.device("cuda", 0)
+    calls = halo_call_shapes()
+    g = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    for peers in (2, N_RANKS):
+        for periodic in (True, False):
+            ring = LoopbackRing(peers, periodic, 1 << 20, dev)
+            for shape, dt, left, right, _ in calls:
+                rounds = [[torch.randn(shape, generator=g, device=dev).to(getattr(torch, dt))
+                           for _ in range(peers)] for _ in range(LOOPBACK_ROUNDS)]
+                got = ring.run(rounds, left, right)
+                bad = [i for i, (xs, halos) in enumerate(zip(rounds, got))
+                       if not all(torch.equal(a, wa) and torch.equal(b, wb) for (a, b), (wa, wb)
+                                  in zip(halos, ring_halos(xs, left, right, periodic)))]
+                check(not bad, f"loopback ring of {peers} (periodic={periodic}) {shape} {dt} "
+                      f"({left},{right}): exchanges {bad} differ from the ring's halos")
+                del rounds, got
+            ring.close()
+    print(f"halo_exchange_w signalled loopback: rings of 2 and {N_RANKS} peers on this card, "
+          f"{len(calls)} shapes x periodic/zero-edge x {LOOPBACK_ROUNDS} back-to-back "
+          f"exchanges, fresh shards each: every halo bitwise the ring's "
+          f"({time.perf_counter() - t0:.1f} s)")
+    ring = LoopbackRing(N_RANKS, True, 1 << 20, dev)
+    rows = []
+    for shape, dt, left, right, count in calls:
+        xs = [torch.randn(shape, generator=g, device=dev).to(getattr(torch, dt))
+              for _ in range(N_RANKS)]
+
+        def run():
+            ring.run([xs] * LOOPBACK_TIMED, left, right)
+
+        event_ms = min(timed(torch, run, iters=1, warmup=1) for _ in range(2)) / LOOPBACK_TIMED
+        by_kernel = device_time(torch, run, iters=1)
+        device_ms = sum(v for k, v in by_kernel.items() if k.startswith("signal_")) / (
+            LOOPBACK_TIMED * N_RANKS)
+        moved = shape[0] * shape[1] * (left + right) * shape[3] * (4 if dt == "float32" else 2)
+        rows.append({"shape": list(shape), "dtype": dt, "left": left, "right": right,
+                     "count": count, "device_ms": device_ms, "event_ms": event_ms,
+                     "bound_ms": 2 * moved / PEAK_BYTES * 1e3})
+        print(f"halo_exchange_w signalled loopback {tuple(shape)} {dt} ({left},{right}) "
+              f"x{count}: device ms per exchange per peer {device_ms:.5f} (send + receive "
+              f"kernels, their waits included), CUDA events per exchange of the ring "
+              f"{event_ms:.5f}; bound {rows[-1]['bound_ms']:.6f}")
+    ring.close()
+    totals = halo_totals(rows, ("device_ms", "event_ms", "bound_ms"))
+    for path, t in totals.items():
+        print(f"halo_exchange_w signalled loopback per forward per peer, {path}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items() if k != "calls"))
+    return totals
 
 
 def sharded_rank(rank, n, device, say, *args):
@@ -1442,6 +1639,8 @@ def serve(torch, work: str, path: str):
     for r, launches in enumerate(per_rank):
         check(launches == want, f"{path}: rank {r} kernel launches {launches}, expected "
               f"{want} ({N_TIMES} fields)")
+    if "--halo_rdma" in PATHS[path][0]:
+        check_halo_route(torch, path, log, want["halo_exchange_w"])
     if not sharded:  # the served fields are bf16: each launch on the bf16 path
         for name in PATH_COUNTERS:
             check(path_launches(name) == want[name],
@@ -1451,6 +1650,24 @@ def serve(torch, work: str, path: str):
         if taken:
             print(f"  {path}: launches on the bf16 (TMA / wgmma) path {taken}")
     return fields, [float(s[0]) for s in stamps], [float(s[1]) for s in stamps], per_rank[0]
+
+
+def check_halo_route(torch, path: str, log: str, exchanges: int) -> None:
+    """The route of every exchange of a sharded --halo_rdma serve, from its
+    last line (each rank's counts): with a card per rank every exchange
+    signalled on the device and no host sync; with ranks sharing a card,
+    the host route's stream sync and barrier in each."""
+    m = re.search(r"spatial: halo exchanges per rank (\[.*\])", log)
+    check(m is not None, f"{path}: no halo exchange counts from the ranks")
+    want = "signalled" if torch.cuda.device_count() >= N_RANKS else "host"
+    for r, c in enumerate(json.loads(m.group(1))):
+        syncs = 0 if want == "signalled" else 2 * exchanges
+        check(c == {"route": want, "exchanges": exchanges,
+                    "signalled": exchanges if want == "signalled" else 0, "host_syncs": syncs},
+              f"{path}: rank {r} halo exchanges {c}, expected {exchanges} on the {want} route "
+              f"with {syncs} host syncs")
+    print(f"  {path}: every rank's {exchanges} exchanges took the {want} route"
+          + (", none synchronised on the host" if want == "signalled" else ""))
 
 
 def serve_globe(torch, work: str) -> dict:
@@ -1902,7 +2119,7 @@ def sharded_train_phase(torch, work) -> dict:
 
 
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
-                  trained, spatial_times, halo, sharded, parent) -> list:
+                  trained, spatial_times, halo, loopback, sharded, parent) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
@@ -1910,8 +2127,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
     path, and its differentiable form on the sharded --fused_blocks
     training route; the block conv's backward kernel on both training
     routes; the instance norm's backward kernel on the all-kernel training
-    route; the halo exchange on the sharded --halo_rdma path; with a
-    parent tree, a kernel's best times there and here (compare_parent).
+    route; the halo exchange on the sharded --halo_rdma path, on the route
+    the ranks' cards give, and its signalled route on the loopback ring;
+    with a parent tree, the best times there and here (compare_parent).
     Backward bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
            "step": "step: each call's best time times its launches per 256x256 CycleGAN "
@@ -1931,7 +2149,8 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "path": path, "per": per[unit], "calls": t["calls"],
         }
-        against = {k: v for k, v in parent.items() if k.split()[0] == name}
+        against = {k: v for k, v in parent.get("kernels", {}).items()
+                   if k.split()[0] == name}
         if against:
             entry["parent"] = against
         form = {"conv3x3_valid": "conv3x3_op", "conv7x7": "conv7x7",
@@ -2040,7 +2259,7 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
                   for c in g["calls"]],
     })
     h = halo["totals"]["spatial_rdma"]
-    kernels.append({
+    entry = {
         "name": "halo_exchange_w", "route": "cuda",
         "source": "biasgan_tpu_torch/kernels/csrc/halo_exchange.cu",
         "replaces": "biasgan_tpu/ops/pallas_halo.py:96",
@@ -2048,16 +2267,33 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
         "max_abs_err": halo["max_abs_err"],
         "ms": h["kernel_ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
         "bound_by": "bytes", "library_ms": h["library_ms"], "path": "spatial_rdma",
-        "per": (f"field per rank of {N_RANKS} on this card: each exchange shape's best time "
-                "times its exchanges per forward; ms is the kernel alone (CUDA events), "
-                "exchange_ms the kernel with its stream sync, barrier and read, plain_ms the "
-                "plain ring (host copies under gloo), library_ms its messages alone "
-                "(batch_isend_irecv on host tensors)"),
+        "halo_route": halo["route"],
+        "per": (f"field per rank of {N_RANKS} ranks, "
+                f"{'each on its own card' if halo['route'] == 'signalled' else 'all on one card'}"
+                ": each exchange shape's best time times its exchanges per forward; ms is, on "
+                "the host route, "
+                "the copy kernel alone (CUDA events), on the signalled route the device time "
+                "of the send and receive kernels (torch.profiler); exchange_ms the whole "
+                "exchange back to back (host clock: on the host route with its stream sync, "
+                "barrier and read); plain_ms the plain ring (host copies under gloo), "
+                "library_ms its messages alone (batch_isend_irecv, on host tensors under "
+                "gloo); launches are exchanges"),
         "exchange_ms": h["exchange_ms"], "nvlink_bound_ms": h["nvlink_bound_ms"],
         "backend": halo["backend"], "calls": h["calls"],
         "fused": {k: v for k, v in halo["totals"]["spatial_rdma_fused"].items()
                   if k != "calls"},
-    })
+        "signalled": {
+            "where": f"loopback: a ring of {N_RANKS} peers in one process on one card",
+            "device_ms_per_forward": loopback["spatial_rdma"]["device_ms"],
+            "event_ms_per_forward": loopback["spatial_rdma"]["event_ms"],
+            "device_ms_per_exchange": {f"{tuple(c['shape'])} {c['dtype']}": c["device_ms"]
+                                       for c in loopback["spatial_rdma"]["calls"]},
+            "fused": {k: v for k, v in loopback["spatial_rdma_fused"].items() if k != "calls"},
+        },
+    }
+    if parent.get("sharded"):
+        entry["parent"] = parent["sharded"]
+    kernels.append(entry)
     return kernels
 
 
@@ -2073,8 +2309,9 @@ def main() -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # a check build: a kernel's mbarrier wait that never ends traps (and
-    # fails the phase) instead of holding the card
+    # a check build: a kernel's spin wait (an mbarrier's phase, the halo
+    # exchange's flags) that never ends traps (and fails the phase) instead
+    # of holding the card
     os.environ["BIASGAN_KERNEL_WATCHDOG"] = "1"
     work = os.path.join(HERE, ".smoke_work")
     shutil.rmtree(work, ignore_errors=True)
@@ -2084,8 +2321,8 @@ def main() -> int:
         errs = check_kernels(torch)
         times = time_kernels(torch)
         spatial_times = time_kernels(torch, SPATIAL_CALLS)
-        parent = compare_parent(torch)
         halo = check_halo_exchange(torch)
+        loopback = check_halo_loopback(torch)
         bwd_errs = check_bwd_kernel(torch)
         norm_bwd_errs = check_norm_bwd_kernel(torch)
         grad_errs = check_grads(torch)
@@ -2093,6 +2330,7 @@ def main() -> int:
         check_small_generator(torch)
         check_small_sharded(torch)
         launches = serve_globe(torch, work)
+        parent = compare_parent(torch, work)
         trained = train_phase(torch, work)
         sharded = sharded_train_phase(torch, work)
     except SmokeFailure as e:
@@ -2103,7 +2341,8 @@ def main() -> int:
     print(json.dumps({"training": trained, "sharded_training": sharded}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
-                                               spatial_times, halo, sharded, parent)}))
+                                               spatial_times, halo, loopback, sharded,
+                                               parent)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -343,7 +343,8 @@ def test_conv3x3_fused_halo_mode_matches_plain(dtype, c, cout):
 @pytest.mark.parametrize("periodic", [True, False])
 def test_halo_exchange_self_ring_on_the_card(periodic):
     """One shard, no process group: the kernel writes into its own receive
-    buffers; the halos equal the plain version's (wrap or zero) bitwise."""
+    buffers, ordered by its stream alone (no host sync); the halos equal the
+    plain version's (wrap or zero) bitwise."""
     _needs_card()
     from biasgan_tpu_torch.kernels.halo_exchange import (
         HaloRing,
@@ -352,6 +353,7 @@ def test_halo_exchange_self_ring_on_the_card(periodic):
     )
 
     ring = HaloRing(1, periodic)
+    syncs = HaloRing.host_syncs
     for shape, dtype, left, right in (((1, 730, 360, 3), torch.float32, 3, 3),
                                       ((2, 13, 37, 256), torch.bfloat16, 1, 1),
                                       ((1, 5, 7, 3), torch.bfloat16, 2, 0)):
@@ -361,6 +363,34 @@ def test_halo_exchange_self_ring_on_the_card(periodic):
         assert halo_exchange_w.launches == before + 1
         for a, b in zip(got, halo_exchange_w_plain(x, left, right, ring)):
             assert torch.equal(a, b)
+    assert ring.route == "self" and HaloRing.host_syncs == syncs
+    ring.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peers", [2, 4])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_halo_exchange_signalled_loopback(peers, periodic):
+    """The signalled route's kernels on one card: a ring of ``peers`` peers
+    in this process (``LoopbackRing``: a slab and a stream each), 80
+    back-to-back exchanges with fresh shards each, of several shapes, dtypes
+    and halo widths (one side zero too), every halo bitwise the ring's
+    (``ring_halos``)."""
+    _needs_card()
+    from biasgan_tpu_torch.parallel.checks import LoopbackRing, ring_halos
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(peers + 10 * periodic)
+    ring = LoopbackRing(peers, periodic, 1 << 20, dev)
+    for shape, dtype, left, right in (((1, 30, 12, 3), torch.float32, 3, 3),
+                                      ((2, 13, 37, 64), torch.bfloat16, 1, 1),
+                                      ((1, 7, 9, 5), torch.bfloat16, 2, 0),
+                                      ((1, 400, 16, 256), torch.bfloat16, 0, 3)):
+        rounds = [[torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(peers)]
+                  for _ in range(80)]
+        for xs, got in zip(rounds, ring.run(rounds, left, right)):
+            for (lh, rh), (wl, wr) in zip(got, ring_halos(xs, left, right, periodic)):
+                assert torch.equal(lh, wl) and torch.equal(rh, wr), (shape, left, right)
     ring.close()
 
 
