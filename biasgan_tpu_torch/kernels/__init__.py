@@ -15,6 +15,24 @@ def wrappers() -> dict:
     }
 
 
+def counters() -> dict:
+    """Every launch count of the kernel wrappers, name -> (wrapper,
+    attribute): each wrapper's ``launches``, and where a wrapper routes bf16
+    to a TMA / wgmma kernel, those launches as ``<name>.wgmma_launches``."""
+    out = {}
+    for name, fn in wrappers().items():
+        out[name] = (fn, "launches")
+        if hasattr(fn, "wgmma_launches"):
+            out[f"{name}.wgmma_launches"] = (fn, "wgmma_launches")
+    return out
+
+
 def launch_counts() -> dict:
-    """Each kernel wrapper's launches in this process so far, by name."""
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Each count of ``counters()`` in this process so far, by name."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+
+
+def zero_counts() -> None:
+    """Set every count of ``counters()`` to 0."""
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)

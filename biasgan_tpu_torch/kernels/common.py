@@ -15,9 +15,11 @@ card (``refuse_grad``): it never returns a result with no ``grad_fn``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 PAD_CODE = {"zero": 0, "reflect": 1, "wrap": 2}
 ACT_CODE = {"none": 0, "relu": 1, "lrelu": 2}
@@ -88,6 +90,38 @@ def check_kernel_input(name: str, x: torch.Tensor, out_numel: int) -> int:
     if max(x.numel(), out_numel) >= 2**31:
         raise ValueError(f"{name} kernel indexes tensors below 2**31 elements")
     return DTYPE_CODE[x.dtype]
+
+
+def pad_channels(x, weight, prologue):
+    """C zero-padded up to a multiple of 8 for a bf16 kernel's TMA loads:
+    zero channels of x, zero input channels of the OIHW weight, zero a and
+    b (act(0) = 0 adds nothing)."""
+    pad = -x.shape[3] % 8
+    if pad == 0:
+        return x, weight, prologue
+    x = F.pad(x, (0, pad))
+    weight = F.pad(weight, (0, 0, 0, 0, 0, pad))
+    if prologue is not None:
+        prologue = tuple(F.pad(t, (0, pad)) for t in prologue)
+    return x, weight, prologue
+
+
+def pad_couts(weight, bias):
+    """Cout zero-padded up to a multiple of 8 for a bf16 kernel's TMA
+    stores: zero output channels of the OIHW weight and zero bias, so y and
+    its moments are 0 there (the caller slices them off)."""
+    pad = -weight.shape[0] % 8
+    if pad == 0:
+        return weight, bias
+    weight = F.pad(weight, (0, 0, 0, 0, 0, 0, 0, pad))
+    return weight, None if bias is None else F.pad(bias.float(), (0, pad))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SMs: a persistent grid's blocks at most, one per SM, and
+    its moment slots per image, one per block."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]):

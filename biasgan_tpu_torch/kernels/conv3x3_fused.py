@@ -4,14 +4,23 @@ the per-(N, Cout) moments of the output.
 
 Counterpart of ``biasgan_tpu/ops/pallas_conv.py::conv3x3_fused`` (:771) and
 its helpers ``instance_moments_to_affine`` (:541) / ``apply_affine`` (:553).
-The kernel is CUDA C++ for sm_90a (csrc/conv3x3_fused.cu, which says what
-bounds it and how it is built up), compiled with nvcc on first use and
+The kernels are CUDA C++ for sm_90a (csrc/conv3x3_fused.cu, which says what
+bounds them and how they are built up), compiled with nvcc on first use and
 bound with ctypes (kernels/build.py, kernels/common.py).
 
 ``conv3x3_fused`` takes its plain PyTorch version (pad + f32 ``F.conv2d`` +
-sums, ``conv3x3_fused_plain``) for a tensor on the CPU, and launches the
-kernel for a CUDA tensor; there is no fallback from one to the other.
-``conv3x3_fused.launches`` counts the kernel launches.
+sums, ``conv3x3_fused_plain``) for a tensor on the CPU, and launches a
+kernel for a CUDA tensor; there is no fallback from one to the other. The
+rule for a CUDA tensor: bf16 launches the TMA / wgmma kernel, f32 the
+CUDA-core checker. The bf16 kernel loads x and stores y with TMA, which
+needs C and Cout multiples of 8 and a 16-byte aligned x: the wrapper
+zero-pads C up to a multiple of 8 (zero weights, zero prologue a and b)
+and Cout likewise (zero weights and bias, the extra couts sliced off y and
+the moments), and raises for a misaligned x. It picks the tile's couts
+per call (``tile_geometry``), packs the weight into the kernel's slabs
+(``pack_block_weight``, one copy) and passes a and b zero-padded to whole
+64-channel blocks. ``conv3x3_fused.launches`` counts every kernel
+launch, ``conv3x3_fused.wgmma_launches`` those of the bf16 kernel.
 
 ``conv3x3_fused_t`` is its differentiable form, the counterpart of
 ``pallas_conv.py::conv3x3_fused_t`` (:1091, custom VJP ``_fused_diff``
@@ -63,7 +72,10 @@ from biasgan_tpu_torch.kernels.common import (
     check_kernel_input,
     launch,
     num_tiles,
+    pad_channels,
+    pad_couts,
     ptr,
+    sm_count,
     stored_moments,
     wants_grad,
 )
@@ -71,6 +83,40 @@ from biasgan_tpu_torch.ops.padding import pad_hw
 
 # the W modes: the pad built in the kernel, or carried by the input
 W_CODE = {**PAD_CODE, "halo": 3}
+KW = 64  # input channels per channel block of the bf16 kernel (one 128-byte row)
+TH, TW = 7, 18  # output rows and columns of the bf16 kernel's tile (126 pixels)
+# a 128-cout tile's time against a 256-cout one's on the card: half the
+# products, the same box and A fragments (csrc/conv3x3_fused.cu)
+HALF_TILE_COST = 0.65
+
+
+def tile_geometry(n: int, h: int, w: int, cout: int, sms: int) -> int:
+    """The couts of the bf16 kernel's tile for output (n, h, w, cout) on a
+    card of ``sms`` SMs (a persistent grid of one block per SM): 128 for
+    Cout <= 128, else 256 unless 128-cout tiles take fewer rounds of the
+    grid at HALF_TILE_COST each (one round: every block takes a tile)."""
+    if cout <= 128:
+        return 128
+    pixel_tiles = n * -(-h // TH) * -(-w // TW)
+
+    def rounds(bn):
+        return -(-pixel_tiles * -(-cout // bn) // sms)
+
+    return 128 if HALF_TILE_COST * rounds(128) < rounds(256) else 256
+
+
+def pack_block_weight(weight: torch.Tensor, bn: int) -> torch.Tensor:
+    """OIHW ``weight`` (Cout, C, 3, 3) as the bf16 kernel's B:
+    (9 n_kc, Cout rounded up to ``bn``, 64), n_kc = C / 64 rounded up, slab
+    9 cb + 3 dy + dx the K-major tap matrix W[:, 64 cb .. 64 cb + 63, dy,
+    dx], zero past C and past Cout: one copy (with a pad where C or Cout
+    falls short)."""
+    cout, c = weight.shape[:2]
+    n_kc, cout_pad = -(-c // KW), -(-cout // bn) * bn
+    if n_kc * KW != c or cout_pad != cout:
+        weight = F.pad(weight, (0, 0, 0, 0, 0, n_kc * KW - c, 0, cout_pad - cout))
+    wp = weight.reshape(cout_pad, n_kc, KW, 9).permute(1, 3, 0, 2)  # (cb, tap, Cout, 64)
+    return wp.reshape(9 * n_kc, cout_pad, KW).contiguous()
 
 
 def instance_moments_to_affine(
@@ -155,37 +201,61 @@ def conv3x3_fused_plain(
     return (y, stored_moments(y)) if want_moments else y
 
 
-_ARGTYPES = [PTR] * 8 + [INT] * 9
+_ARGTYPES = [PTR] * 8 + [INT] * 11
 
 
 def _launch(x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments):
-    n, h, w, c = x.shape
+    n, h, w, _ = x.shape
     if w_mode == "halo":
         w -= 2  # the output's width
     cout = weight.shape[0]
     dtype = check_kernel_input("conv3x3_fused", x, n * h * w * cout)
     dev = x.device
-    # weight as (9, C, Cout) in x's dtype: the Pallas wrapper's w9
-    w9 = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
+    wgmma = x.dtype == torch.bfloat16
+    cout_k, bn = cout, 0  # the kernel's Cout (bf16: a multiple of 8) and tile couts
+    if wgmma:
+        if x.data_ptr() % 16:
+            raise ValueError("conv3x3_fused bf16 kernel needs a 16-byte aligned x "
+                             "(TMA loads)")
+        x, weight, prologue = pad_channels(x, weight, prologue)
+        weight, bias = pad_couts(weight, bias)
+        cout_k = weight.shape[0]
+        bn = tile_geometry(n, h, w, cout_k, sm_count(dev))
+        wk = pack_block_weight(weight.to(x.dtype), bn)
+        n_parts = sm_count(dev)  # a moment slot per block of the persistent grid
+    else:
+        # weight as (9, C, Cout): the Pallas wrapper's w9
+        wk = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, x.shape[3], cout).contiguous()
+        n_parts = num_tiles("conv3x3_fused", "conv3x3_fused_num_tiles", h, w)
+    c = x.shape[3]
     b = None if bias is None else bias.float().contiguous()
     pa = pb = None
     if prologue is not None:
         pa, pb = (t.float().contiguous() for t in prologue)
-    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=dev)
+        pad = -c % KW
+        if wgmma and pad:  # the bf16 kernel reads whole 64-channel blocks, zero past C
+            pa, pb = F.pad(pa, (0, pad)), F.pad(pb, (0, pad))
+        if wgmma and (pa.data_ptr() % 16 or pb.data_ptr() % 16):
+            pa, pb = pa.clone(), pb.clone()  # it loads them in 16-byte vectors
+    y = torch.empty((n, h, w, cout_k), dtype=x.dtype, device=dev)
     part = moments = None
     if want_moments:
-        tiles = num_tiles("conv3x3_fused", "conv3x3_fused_num_tiles", h, w, dtype)
-        part = torch.empty((2, n, tiles, cout), dtype=torch.float32, device=dev)
-        moments = torch.empty((2, n, cout), dtype=torch.float32, device=dev)
+        part = torch.empty((2, n, n_parts, cout_k), dtype=torch.float32, device=dev)
+        moments = torch.empty((2, n, cout_k), dtype=torch.float32, device=dev)
     launch(
         "conv3x3_fused", "conv3x3_fused_launch", _ARGTYPES, dev,
-        ptr(x), ptr(w9), ptr(b), ptr(pa), ptr(pb), ptr(y), ptr(part), ptr(moments),
-        n, h, w, c, cout, dtype, PAD_CODE[h_mode], W_CODE[w_mode], ACT_CODE[act_pre],
+        ptr(x), ptr(wk), ptr(b), ptr(pa), ptr(pb), ptr(y), ptr(part), ptr(moments),
+        n, h, w, c, cout_k, n_parts, dtype, PAD_CODE[h_mode], W_CODE[w_mode],
+        ACT_CODE[act_pre], bn,
     )
     conv3x3_fused.launches += 1
+    conv3x3_fused.wgmma_launches += wgmma
+    if cout_k != cout:
+        y = y[..., :cout].contiguous()
+        moments = None if moments is None else moments[..., :cout]
     if not want_moments:
         return y
-    return y, (moments[0], moments[1])
+    return y, tuple(moments.unbind(0))
 
 
 def conv3x3_fused(
@@ -210,9 +280,10 @@ def conv3x3_fused(
     (N, H, W, Cout) in x's dtype, and with ``want_moments`` also
     ``(sum, sumsq)`` (N, Cout) f32 of the stored y.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts it in ``conv3x3_fused.launches``) or raises. Where autograd
-    records, the call goes through ``conv3x3_fused_t``."""
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
+    (bf16: the TMA / wgmma kernel, counted also in ``.wgmma_launches``;
+    f32: the CUDA-core one; both in ``.launches``) or raises. Where
+    autograd records, the call goes through ``conv3x3_fused_t``."""
     _check_args(x, weight, bias, prologue, act_pre, h_mode, w_mode)
     args = (x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments)
     if wants_grad(x, weight, bias, *(prologue or ())):
@@ -223,6 +294,7 @@ def conv3x3_fused(
 
 
 conv3x3_fused.launches = 0
+conv3x3_fused.wgmma_launches = 0
 
 
 def _unpad1(d: torch.Tensor, axis: int, mode: str) -> torch.Tensor:
@@ -432,9 +504,10 @@ def conv3x3_fused_t(
     w_mode: str = "wrap",
     want_moments: bool = True,
 ):
-    """Differentiable ``conv3x3_fused``: the same arguments and forward (the
-    kernel on the card, counted in ``conv3x3_fused.launches`` and
-    ``conv3x3_fused_t.launches``; the plain version on the CPU), and the
+    """Differentiable ``conv3x3_fused``: the same arguments and forward (a
+    kernel on the card, counted in ``conv3x3_fused.launches``, its
+    ``.wgmma_launches`` in bf16, and ``conv3x3_fused_t.launches``; the plain
+    version on the CPU), and the
     exact backward of pad + conv + bias + moments, with the prologue chain
     to x, a and b. The ``--fused_blocks`` training route; in the ``halo``
     W mode, that of spatially sharded training, dx covers the two halo

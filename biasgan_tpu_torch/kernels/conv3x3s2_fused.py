@@ -52,8 +52,11 @@ from biasgan_tpu_torch.kernels.common import (
     check_kernel_input,
     launch,
     num_tiles,
+    pad_channels,
+    pad_couts,
     ptr,
     refuse_grad,
+    sm_count,
     stored_moments,
 )
 from biasgan_tpu_torch.ops.padding import pad_hw
@@ -118,13 +121,6 @@ def _packed_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return flat[_phase_index(cout, c, tile_geometry(cout)[0], weight.device)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    """The bf16 kernel's persistent grid at most, one block per SM, and its
-    moment slots per image: one per block."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check_args(x, weight, bias, prologue, act_pre, w_mode) -> None:
     if x.ndim != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
@@ -172,19 +168,6 @@ def conv3x3s2_fused_plain(
 _ARGTYPES = [PTR] * 8 + [INT] * 9
 
 
-def _pad_channels(x, weight, prologue):
-    """C zero-padded up to a multiple of 8 for the bf16 kernel's TMA loads:
-    zero channels of x, zero input channels of the weight, zero a and b."""
-    pad = -x.shape[3] % 8
-    if pad == 0:
-        return x, weight, prologue
-    x = F.pad(x, (0, pad))
-    weight = F.pad(weight, (0, 0, 0, 0, 0, pad))
-    if prologue is not None:
-        prologue = tuple(F.pad(t, (0, pad)) for t in prologue)
-    return x, weight, prologue
-
-
 def _launch(x, weight, bias, prologue, act_pre, w_mode, want_moments):
     n, h, w, _ = x.shape
     cout = weight.shape[0]
@@ -196,11 +179,9 @@ def _launch(x, weight, bias, prologue, act_pre, w_mode, want_moments):
         if x.data_ptr() % 16:
             raise ValueError("conv3x3s2_fused bf16 kernel needs a 16-byte aligned x "
                              "(TMA loads)")
-        x, weight, prologue = _pad_channels(x, weight, prologue)
-        cout_k = -(-cout // 8) * 8
-        if cout_k != cout:  # zero couts, zero bias: y and its moments are 0 there
-            weight = F.pad(weight, (0, 0, 0, 0, 0, 0, 0, cout_k - cout))
-            bias = None if bias is None else F.pad(bias.float(), (0, cout_k - cout))
+        x, weight, prologue = pad_channels(x, weight, prologue)
+        weight, bias = pad_couts(weight, bias)
+        cout_k = weight.shape[0]
         wk = _packed_weight(weight, x.dtype)
     else:
         wk = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, x.shape[3], cout).contiguous()
@@ -213,7 +194,7 @@ def _launch(x, weight, bias, prologue, act_pre, w_mode, want_moments):
     y = torch.empty((n, h // 2, w // 2, cout_k), dtype=x.dtype, device=dev)
     # bf16: a grid block per SM, each adding into a zeroed moment slot of
     # its own; f32: a slot per pixel tile
-    n_parts = (_sm_count(dev) if wgmma
+    n_parts = (sm_count(dev) if wgmma
                else num_tiles("conv3x3s2_fused", "conv3x3s2_fused_num_tiles", h, w))
     part = moments = None
     if want_moments:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from biasgan_tpu_torch.kernels import launch_counts, wrappers
+from biasgan_tpu_torch.kernels import launch_counts, zero_counts
 from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_t
 from biasgan_tpu_torch.kernels.halo_exchange import (
     SignalSeq,
@@ -42,8 +42,8 @@ def kernel_counts() -> Dict[str, int]:
 
 
 def _zero_counts() -> None:
-    for fn in (*wrappers().values(), conv3x3_fused_t):
-        fn.launches = 0
+    zero_counts()
+    conv3x3_fused_t.launches = 0
 
 
 def halo_cases(rank, n, device, say, x: np.ndarray, cases: Sequence[Tuple[int, int, bool]]):

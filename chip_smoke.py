@@ -12,24 +12,28 @@ checkout is missing, and at the first failure of any phase:
   2. build every kernel of the served, sharded and trained paths from csrc/
      (nvcc, sm_90a) as a check build (BIASGAN_KERNEL_WATCHDOG=1: an mbarrier
      wait that never ends traps), one nvcc per source, all started together (the fused
-     block conv's and the instance norm's backward among them); the down
-     conv's bf16 kernel must hold wgmma (HGMMA) and TMA (UTMALDG, UTMASTG)
-     instructions (cuobjdump);
+     block conv's and the instance norm's backward among them); the bf16
+     kernels of the block conv and the down conv must hold wgmma (HGMMA) and
+     TMA (UTMALDG, UTMASTG) instructions (cuobjdump);
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
      over a sweep of small odd shapes, pad modes, prologues, activations
      and residuals, with the moments held to those of the stored output
-     (the stride-2 down conv on the path its wrapper's rule gives: every bf16
-     call on the TMA / wgmma kernel, counted apart, printed per globe shape);
+     (the block conv's sweep also with tiles touching both edges in every
+     pad mode pair, channels the wrapper pads, and batch 2 with more tiles
+     than SMs; the block conv and the stride-2 down conv on the path their
+     wrappers' rule gives: every bf16 call on the TMA / wgmma kernel,
+     counted apart, printed per globe shape);
      then, at those shapes in bf16, the kernel's time beside the plain
      version's, one PyTorch library call's, and the card's bound for the
      same work, and the kernel call's device time by kernel from
      torch.profiler beside its CUDA-event time (the host work of the call,
      such as a weight repack, apart from the kernels); where the parent
      commit's tree is unpacked in .chip_archive/parent, the kernels of
-     COMPARE_KERNELS there and here in turns, each turn a fresh process
-     (phase 6 runs the turns); the fused block conv also in its halo W
+     COMPARE_KERNELS there and here in turns at the shapes of TURN_CALLS,
+     each turn a fresh process (phase 6 runs the turns); the fused block
+     conv also in its halo W
      mode at the block shape of a 4-way W shard; then the halo exchange
      inside four spawned ranks (one card: gloo, the ranks sharing it, on
      the host-synchronised route; a card per rank: NCCL, on the signalled
@@ -74,8 +78,9 @@ checkout is missing, and at the first failure of any phase:
   5. a NetCDF-3 store of three 721x1440 fields per side and a seeded
      resnet_9blocks (ngf 64) checkpoint;
   6. serve the fields through ``biasgan_tpu_torch.infer.main`` on four
-     paths, counting each kernel's launches (the down conv's also on its
-     bf16 path: all of them): --fused_blocks; the plain
+     paths, counting each kernel's launches (the block conv's and the down
+     conv's also on their bf16 path: all of them, on every path and rank):
+     --fused_blocks; the plain
      path; --fused_blocks --fused_updown --conv7_pallas 1; and
      --force_pallas_norm; then spatially sharded over four ranks on the
      card: --spatial_mesh 4 (the plain ring), with --halo_rdma, and with
@@ -94,8 +99,9 @@ checkout is missing, and at the first failure of any phase:
      --fused_blocks; --pallas_conv 1; and --fused_blocks --conv7_pallas 1
      --force_pallas_norm. Each route's first step, from the same state and
      batch, is held to the plain route's (losses and step-1 gradients) with
-     exact kernel launch counts (the block conv's backward kernel: 54 per
-     step on the --fused_blocks routes, 0 elsewhere; the instance norm's
+     exact kernel launch counts (the block conv: 54 per step on the
+     --fused_blocks routes, in bf16 all on its TMA / wgmma kernel; its
+     backward kernel: 54 per step there, 0 elsewhere; the instance norm's
      backward kernel: 27 per step on the all-kernel route); then
      ``biasgan_tpu_torch.train.main`` runs six steps on the route, counting
      launches, with finite losses, and its samples/s over steps 2-6 is
@@ -172,9 +178,11 @@ PATHS = {
                            {"halo_exchange_w": 24, "conv3x3_fused": 18}),
 }
 # kernel -> the wrapper's count of launches on its bf16 path, where the
-# wrapper routes by a rule (K4: bf16 takes the TMA / wgmma kernel, f32 the
-# CUDA-core checker); every bf16 call must take it
-PATH_COUNTERS = {"conv3x3s2_fused": "wgmma_launches"}
+# wrapper routes by a rule (K1, K4: bf16 takes the TMA / wgmma kernel, f32
+# the CUDA-core checker); every bf16 call must take it
+PATH_COUNTERS = {"conv3x3_fused": "wgmma_launches", "conv3x3s2_fused": "wgmma_launches"}
+# source -> its bf16 TMA / wgmma kernel (cuobjdump's function names)
+WGMMA_KERNELS = {"conv3x3_fused": "conv_tma_kernel", "conv3x3s2_fused": "down_tma_kernel"}
 # the halo exchanges of one sharded globe forward, per rank: (the local
 # tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
 # per rank; bf16 compute, but the stem pads the f32 input; H is padded
@@ -197,6 +205,15 @@ HALO_CALLS = {
 
 class SmokeFailure(Exception):
     pass
+
+
+def with_path_counts(per_call: dict, dtype: str) -> dict:
+    """``per_call`` (kernel -> launches) with each PATH_COUNTERS count
+    beside it: every launch on the bf16 path in bf16, none in f32."""
+    out = dict(per_call)
+    for name, attr in PATH_COUNTERS.items():
+        out[f"{name}.{attr}"] = per_call.get(name, 0) if dtype == "bfloat16" else 0
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -262,14 +279,15 @@ def build_kernels() -> None:
         for fn, u, sp in zip(fns, used, spills):
             short = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", fn)[:70]
             print(f"    {short}: {u} registers, {sp} bytes spilled")
-    # the down conv's bf16 kernel runs on wgmma and TMA: its machine code says so
+    # the bf16 kernels run on wgmma and TMA: their machine code says so
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "--dump-sass", paths["conv3x3s2_fused"]],
-                          capture_output=True, text=True, check=True, timeout=120).stdout
-    body = "".join(f for f in re.split(r"\n\s*Function : ", sass) if "down_tma_kernel" in f)
-    ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-    print(f"  conv3x3s2_fused bf16 kernel (cuobjdump --dump-sass): {ops}")
-    check(all(ops.values()), f"conv3x3s2_fused bf16 kernel lacks wgmma or TMA instructions: {ops}")
+    for name, fn in WGMMA_KERNELS.items():
+        sass = subprocess.run([cuobjdump, "--dump-sass", paths[name]], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        body = "".join(f for f in re.split(r"\n\s*Function : ", sass) if fn in f)
+        ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        print(f"  {name} bf16 kernel {fn} (cuobjdump --dump-sass): {ops}")
+        check(all(ops.values()), f"{name} bf16 kernel lacks wgmma or TMA instructions: {ops}")
 
 
 def moment_error(got, ref, count: int) -> float:
@@ -485,6 +503,22 @@ def sweep_cases(name):
                     yield (2, 13, 37, c, cout), dict(prologue=i % 2 == 1, h_mode=h_mode,
                                                      w_mode=w_mode)
                     i += 1
+        # tiles of the bf16 kernel (7 x 18 pixels) touching both edges at
+        # once, so both pad rows and columns and the four corners, in every
+        # mode pair: C 12 and Cout 20 the wrapper pads; 7 x 18 fits the tile
+        # exactly (Cout 136: two 128-cout tiles, the second ragged)
+        for h_mode in PAD_MODES:
+            for w_mode in PAD_MODES + ("halo",):
+                for pro in (False, True):
+                    yield (2, 5, 9, 12, 20), dict(prologue=pro, h_mode=h_mode, w_mode=w_mode)
+                yield (1, 7, 18, 64, 136), dict(prologue=True, h_mode=h_mode, w_mode=w_mode)
+        # batch 2 with 117 tiles per image, more than the card's SMs: blocks
+        # of the persistent grid walk from one image into the next (a and b
+        # and the moment slots change image), 128- and 256-cout tiles
+        for c, cout in ((64, 128), (256, 256)):
+            for h_mode, w_mode, pro in (("reflect", "wrap", True), ("zero", "halo", False),
+                                        ("wrap", "reflect", True)):
+                yield (2, 90, 150, c, cout), dict(prologue=pro, h_mode=h_mode, w_mode=w_mode)
     elif name in ("conv3x3s2_fused", "convt3x3s2_fused"):
         h, w = (26, 38) if name == "conv3x3s2_fused" else (13, 19)
         shapes = [(2, h, w, c, cout) for c, cout in ((3, 5), (64, 128), (256, 64))]
@@ -637,26 +671,36 @@ def timed(torch, fn, iters=20, warmup=3):
 # sharded paths (the halo exchange at every shape of HALO_CALLS, the plain
 # ring, the served ms/field). A plain checkout has none.
 PARENT_TREE = os.path.join(HERE, ".chip_archive", "parent")
-COMPARE_KERNELS = ()  # names of kernels to time in both trees (kernel_turn)
+COMPARE_KERNELS = ("conv3x3_fused",)  # names of kernels to time in both trees (kernel_turn)
 COMPARE_ROUNDS = 1  # of the turns this, parent, parent, this
 SHARDED_PATHS = ("spatial", "spatial_rdma", "spatial_rdma_fused")
+# the shapes kernel_turn times a kernel at: its globe shapes and, for the
+# block conv, the sharded path's halo W mode and the training step's
+# forwards (with the prologue at B 2, 3, 1; without it at B 2)
+TURN_CALLS = {name: [(shape, opt) for shape, opt, _ in calls]
+              for name, calls in GLOBE_CALLS.items()}
+TURN_CALLS["conv3x3_fused"] += (
+    [(shape, opt) for shape, opt, _ in SPATIAL_CALLS["conv3x3_fused"]]
+    + [((b, 64, 64, 256, 256), dict(prologue=True)) for b in (2, 3, 1)]
+    + [((2, 64, 64, 256, 256), dict(prologue=False))])
 
 
 def kernel_turn(torch) -> dict:
     """One turn of compare_parent, in the tree this process imports the
-    port from: each COMPARE_KERNELS kernel at its globe shapes in bf16 on
-    seeded inputs, ms per call (best of three timed runs) and the call's
+    port from: each COMPARE_KERNELS kernel at its TURN_CALLS shapes in bf16
+    on seeded inputs, ms per call (best of three timed runs) and the call's
     device ms by kernel."""
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for name in COMPARE_KERNELS:
         fn = kernel_fns(name)[0]
-        for shape, opt, _ in GLOBE_CALLS[name]:
+        for shape, opt in TURN_CALLS[name]:
             args = make_case(torch, g, name, shape, torch.bfloat16, **opt)[0]
             ms = min(timed(torch, lambda: fn(*args)) for _ in range(3))
             device = device_time(torch, lambda: fn(*args))
-            out[f"{name} {tuple(shape)}"] = {"ms": ms, "device_ms": sum(device.values()),
-                                             "device_ms_by_kernel": device}
+            key = f"{name} {tuple(shape)}" + "".join(f" {k}={v}" for k, v in opt.items())
+            out[key] = {"ms": ms, "device_ms": sum(device.values()),
+                        "device_ms_by_kernel": device}
     return out
 
 
@@ -1635,20 +1679,17 @@ def serve(torch, work: str, path: str):
         check(y.shape == (1, GLOBE_H, GLOBE_W, N_VARS), f"{path}: field {i} shape {y.shape}")
         check(bool(np.isfinite(y).all()), f"{path}: field {i} has non-finite values")
         fields.append(y)
-    want = {name: PATHS[path][1].get(name, 0) * N_TIMES for name in per_rank[0]}
+    per_field = with_path_counts(PATHS[path][1], "bfloat16")  # the fields are bf16
+    want = {name: per_field.get(name, 0) * N_TIMES for name in per_rank[0]}
     for r, launches in enumerate(per_rank):
         check(launches == want, f"{path}: rank {r} kernel launches {launches}, expected "
               f"{want} ({N_TIMES} fields)")
     if "--halo_rdma" in PATHS[path][0]:
         check_halo_route(torch, path, log, want["halo_exchange_w"])
-    if not sharded:  # the served fields are bf16: each launch on the bf16 path
-        for name in PATH_COUNTERS:
-            check(path_launches(name) == want[name],
-                  f"{path}: {path_launches(name)} of {want[name]} {name} launches on its "
-                  "bf16 path")
-        taken = {name: path_launches(name) for name in PATH_COUNTERS if want[name]}
-        if taken:
-            print(f"  {path}: launches on the bf16 (TMA / wgmma) path {taken}")
+    taken = {k: v for k, v in per_rank[0].items() if k.endswith(".wgmma_launches") and v}
+    if taken:
+        print(f"  {path}: launches on the bf16 (TMA / wgmma) path"
+              + (" on every rank" if sharded else "") + f" {taken}")
     return fields, [float(s[0]) for s in stamps], [float(s[1]) for s in stamps], per_rank[0]
 
 
@@ -1771,16 +1812,14 @@ TRAIN_ROUTES = {
 
 
 def _counters():
-    """Every launch count: name -> (function object, attribute): each
-    kernel wrapper's, and the training-only ones."""
-    from biasgan_tpu_torch.kernels import wrappers
+    """Every launch count: name -> (function object, attribute): the kernel
+    wrappers' (their bf16 paths' too), and the training-only ones."""
+    from biasgan_tpu_torch.kernels import counters
     from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_t
 
-    c = {name: (fn, "launches") for name, fn in wrappers().items()}
+    c = counters()
     c["conv3x3_fused_t"] = (conv3x3_fused_t, "launches")
     c["conv3x3_valid.bwd"] = (kernel_fns("conv3x3_valid")[0], "bwd_launches")
-    for name, attr in PATH_COUNTERS.items():
-        c[f"{name}.{attr}"] = (kernel_fns(name)[0], attr)
     return c
 
 
@@ -1836,7 +1875,8 @@ def train_steps(torch, route, dtype, work, perturb=0.0, timed_steps=True, extra=
     losses, vis = step(state, batches[0], step_generator(cfg.seed, 0))
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {k: TRAIN_ROUTES[route][1].get(k, 0) for k in counts}
+    per_step = with_path_counts(TRAIN_ROUTES[route][1], dtype)
+    want = {k: per_step.get(k, 0) for k in counts}
     check(counts == want, f"train {route} {dtype} step 1: launches {counts}, expected {want}")
     first = {"losses": {k: float(v) for k, v in losses.items()},
              "G": vis["_g_grads"], "D": vis["_d_grads"]}
@@ -1919,7 +1959,8 @@ def train_cli(torch, route, dtype, work, save=False):
         state = train.main(train_argv(route, dtype, work, f"cli_{route}_{dtype}", save))
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {k: TRAIN_ROUTES[route][1].get(k, 0) * TRAIN_SAMPLES for k in counts}
+    per_step = with_path_counts(TRAIN_ROUTES[route][1], dtype)
+    want = {k: per_step.get(k, 0) * TRAIN_SAMPLES for k in counts}
     check(counts == want, f"train CLI {route} {dtype}: launches {counts}, expected {want}")
     log = out.getvalue()
     lines = [ln for ln in log.splitlines() if ln.startswith("(epoch:")]
@@ -2065,7 +2106,7 @@ def sharded_train_phase(torch, work) -> dict:
     fails = []
     for case, got in zip(cases, res):
         route, dtype = case["route"], case["dtype"]
-        want = SHARDED_ROUTES[route][1]
+        want = {k: v for k, v in with_path_counts(SHARDED_ROUTES[route][1], dtype).items() if v}
         for r, counts in enumerate(got["launches"]):
             counts = {k: v for k, v in counts.items() if v}
             if counts != want:
@@ -2098,7 +2139,8 @@ def sharded_train_phase(torch, work) -> dict:
         check(not any("nan" in ln or "inf" in ln for ln in lines),
               f"sharded CLI {route}: non-finite loss")
         check(result["params_equal"], f"sharded CLI {route}: the ranks' parameters differ")
-        want = {k: v * SHARDED_CLI_STEPS for k, v in per_step.items()}
+        want = {k: v * SHARDED_CLI_STEPS
+                for k, v in with_path_counts(per_step, "bfloat16").items() if v}
         for r, counts in enumerate(result["launches"]):
             counts = {k: v for k, v in counts.items() if v}
             check(counts == want, f"sharded CLI {route}: rank {r} launches {counts}, "
@@ -2149,6 +2191,8 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "path": path, "per": per[unit], "calls": t["calls"],
         }
+        if name in PATH_COUNTERS:
+            entry["wgmma_launches"] = launches[path][f"{name}.{PATH_COUNTERS[name]}"]
         against = {k: v for k, v in parent.get("kernels", {}).items()
                    if k.split()[0] == name}
         if against:

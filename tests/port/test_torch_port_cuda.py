@@ -96,6 +96,73 @@ def test_conv3x3_fused_kernel_matches_plain(dtype, c, cout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 9, 12, 20), (1, 7, 18, 64, 136)])
+def test_conv3x3_fused_tiles_touching_every_edge(dtype, shape):
+    """Tiles of the bf16 kernel (7 x 18 pixels) touching both edges at once
+    (both pad rows and columns, the four corners) in every h_mode x w_mode
+    pair, the halo mode included, with and without the prologue; C 12 and
+    Cout 20 padded by the wrapper, Cout 136 in two 128-cout tiles. Every
+    bf16 call takes the TMA / wgmma kernel (``wgmma_launches`` moves by
+    one), every f32 call the CUDA-core one (it does not move)."""
+    _needs_card()
+    n, h, w, c, cout = shape
+    i = 0
+    for h_mode in ("reflect", "zero", "wrap"):
+        for w_mode in ("wrap", "zero", "reflect", "halo"):
+            for pro_on in (False, True):
+                x, k, b, a, pb = _inputs(n, h, w + 2 * (w_mode == "halo"), c, cout, dtype, i)
+                i += 1
+                args = (x, k, b, (a, pb) if pro_on else None, "relu", h_mode, w_mode, True)
+                before = (conv3x3_fused.launches, conv3x3_fused.wgmma_launches)
+                y, m = conv3x3_fused(*args)
+                assert (conv3x3_fused.launches, conv3x3_fused.wgmma_launches) == (
+                    before[0] + 1, before[1] + (dtype == torch.bfloat16))
+                ry, rm = conv3x3_fused_plain(*args)
+                assert tuple(y.shape) == (n, h, w, cout)
+                _check_y(y, ry, dtype)
+                _check_moments(y, ry, m, rm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cout", [(64, 128), (256, 256)])
+def test_conv3x3_fused_batch_walks_across_images(c, cout):
+    """Batch 2 with 117 tiles per image, more than the card's SMs: blocks
+    of the bf16 kernel's persistent grid walk from one image into the next
+    (a and b and the moment slots change image), 128- and 256-cout tiles,
+    in three pad mode pairs, with and without the prologue."""
+    _needs_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 2 * 13 * 9 > sms  # (90, 150): 13 x 9 tiles of 7 x 18 per image
+    for i, (h_mode, w_mode) in enumerate((("reflect", "wrap"), ("zero", "halo"),
+                                          ("wrap", "reflect"))):
+        halo = w_mode == "halo"
+        x, k, b, a, pb = _inputs(2, 90, 150 + 2 * halo, c, cout, torch.bfloat16, 20 + i)
+        args = (x, k, b, (a, pb) if i != 1 else None, "relu", h_mode, w_mode, True)
+        before = conv3x3_fused.wgmma_launches
+        y, m = conv3x3_fused(*args)
+        assert conv3x3_fused.wgmma_launches == before + 1
+        ry, rm = conv3x3_fused_plain(*args)
+        _check_y(y, ry, torch.bfloat16)
+        _check_moments(y, ry, m, rm)
+
+
+@pytest.mark.cuda
+def test_conv3x3_fused_bf16_kernel_refuses_misaligned_input():
+    """The bf16 kernel loads x with TMA: an x whose address is not 16-byte
+    aligned raises and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU form)")
+    x, k, b, _, _ = _inputs(1, 8, 16, 64, 64, torch.bfloat16, 0)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    shifted = shifted.view(x.shape).copy_(x)  # contiguous, 2 bytes off
+    before = (conv3x3_fused.launches, conv3x3_fused.wgmma_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv3x3_fused(shifted, k, b)
+    assert (conv3x3_fused.launches, conv3x3_fused.wgmma_launches) == before
+
+
+@pytest.mark.cuda
 def test_conv3x3_fused_kernel_refuses_bad_input():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU form)")

@@ -1,7 +1,7 @@
 """The stride-2 down conv as its bf16 CUDA kernel computes it
 (biasgan_tpu_torch/kernels/csrc/conv3x3s2_fused.cu, down_tma_kernel),
 emulated in torch on the CPU from the wrapper's own pieces: C padded to a
-multiple of 8 (``_pad_channels``), the phase view (N, H/2, 2, W/2, 2C),
+multiple of 8 (``pad_channels``), the phase view (N, H/2, 2, W/2, 2C),
 the k-blocks of ``phase_k_blocks`` against the B operand that
 ``pack_phase_weight`` packs, tiles of ``tile_geometry`` with TMA's zero
 fill past every edge (the top pad row, the zero W pad, the ragged right
@@ -27,10 +27,9 @@ import torch
 
 from biasgan_tpu.ops.pallas_conv import FusedBlockPlan
 from biasgan_tpu.ops.pallas_conv import conv3x3s2_fused as jax_down
-from biasgan_tpu_torch.kernels.common import affine_act
+from biasgan_tpu_torch.kernels.common import affine_act, pad_channels
 from biasgan_tpu_torch.kernels.conv3x3s2_fused import (
     KW,
-    _pad_channels,
     _packed_weight,
     conv3x3s2_fused_plain,
     pack_phase_weight,
@@ -41,7 +40,7 @@ from biasgan_tpu_torch.kernels.conv3x3s2_fused import (
 
 def emulate(x, weight, bias, prologue, act, w_mode):
     """conv3x3s2_fused the bf16 kernel's way, in x's dtype (f32 or bf16)."""
-    x, weight, prologue = _pad_channels(x, weight, prologue)
+    x, weight, prologue = pad_channels(x, weight, prologue)
     n, h, w, c = x.shape
     ho, wo, cout = h // 2, w // 2, weight.shape[0]
     bn, bw, bh = tile_geometry(cout)
