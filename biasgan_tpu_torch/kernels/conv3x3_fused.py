@@ -17,9 +17,9 @@ needs C and Cout multiples of 8 and a 16-byte aligned x: the wrapper
 zero-pads C up to a multiple of 8 (zero weights, zero prologue a and b)
 and Cout likewise (zero weights and bias, the extra couts sliced off y and
 the moments), and raises for a misaligned x. It picks the tile's couts
-per call (``tile_geometry``), packs the weight into the kernel's slabs
-(``pack_block_weight``, one copy) and passes a and b zero-padded to whole
-64-channel blocks. ``conv3x3_fused.launches`` counts every kernel
+per call (``conv_tma.tile_geometry``), packs the weight into the
+kernel's slabs (``conv_tma.pack_block_weight``, one copy) and passes a
+and b zero-padded to whole 64-channel blocks. ``conv3x3_fused.launches`` counts every kernel
 launch, ``conv3x3_fused.wgmma_launches`` those of the bf16 kernel.
 
 ``conv3x3_fused_t`` is its differentiable form, the counterpart of
@@ -60,6 +60,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from biasgan_tpu_torch.kernels import conv_tma
 from biasgan_tpu_torch.kernels.common import (
     ACT_CODE,
     DTYPE_CODE,
@@ -79,46 +80,11 @@ from biasgan_tpu_torch.kernels.common import (
     stored_moments,
     wants_grad,
 )
+from biasgan_tpu_torch.kernels.conv_tma import KW
 from biasgan_tpu_torch.ops.padding import pad_hw
 
 # the W modes: the pad built in the kernel, or carried by the input
 W_CODE = {**PAD_CODE, "halo": 3}
-KW = 64  # input channels per channel block of the bf16 kernel (one 128-byte row)
-TH, TW = 7, 18  # output rows and columns of the bf16 kernel's tile (126 pixels)
-# a 128-cout tile's time against a 256-cout one's on the card: half the
-# products, the same box and A fragments (csrc/conv3x3_fused.cu)
-HALF_TILE_COST = 0.65
-
-
-def tile_geometry(n: int, h: int, w: int, cout: int, sms: int) -> int:
-    """The couts of the bf16 kernel's tile for output (n, h, w, cout) on a
-    card of ``sms`` SMs (a persistent grid of one block per SM): 128 for
-    Cout <= 128, else 256 unless 128-cout tiles take fewer rounds of the
-    grid at HALF_TILE_COST each (one round: every block takes a tile)."""
-    if cout <= 128:
-        return 128
-    pixel_tiles = n * -(-h // TH) * -(-w // TW)
-
-    def rounds(bn):
-        return -(-pixel_tiles * -(-cout // bn) // sms)
-
-    return 128 if HALF_TILE_COST * rounds(128) < rounds(256) else 256
-
-
-def pack_block_weight(weight: torch.Tensor, bn: int) -> torch.Tensor:
-    """OIHW ``weight`` (Cout, C, 3, 3) as the bf16 kernel's B:
-    (9 n_kc, Cout rounded up to ``bn``, 64), n_kc = C / 64 rounded up, slab
-    9 cb + 3 dy + dx the K-major tap matrix W[:, 64 cb .. 64 cb + 63, dy,
-    dx], zero past C and past Cout: one copy (with a pad where C or Cout
-    falls short)."""
-    cout, c = weight.shape[:2]
-    n_kc, cout_pad = -(-c // KW), -(-cout // bn) * bn
-    if n_kc * KW != c or cout_pad != cout:
-        weight = F.pad(weight, (0, 0, 0, 0, 0, n_kc * KW - c, 0, cout_pad - cout))
-    wp = weight.reshape(cout_pad, n_kc, KW, 9).permute(1, 3, 0, 2)  # (cb, tap, Cout, 64)
-    return wp.reshape(9 * n_kc, cout_pad, KW).contiguous()
-
-
 def instance_moments_to_affine(
     msum: torch.Tensor, msq: torch.Tensor, count: int, eps: float = 1e-5
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -220,8 +186,8 @@ def _launch(x, weight, bias, prologue, act_pre, h_mode, w_mode, want_moments):
         x, weight, prologue = pad_channels(x, weight, prologue)
         weight, bias = pad_couts(weight, bias)
         cout_k = weight.shape[0]
-        bn = tile_geometry(n, h, w, cout_k, sm_count(dev))
-        wk = pack_block_weight(weight.to(x.dtype), bn)
+        bn = conv_tma.tile_geometry(n, h, w, cout_k, sm_count(dev))
+        wk = conv_tma.pack_block_weight(weight, bn, x.dtype)
         n_parts = sm_count(dev)  # a moment slot per block of the persistent grid
     else:
         # weight as (9, C, Cout): the Pallas wrapper's w9

@@ -4,21 +4,34 @@ residual + activation epilogue, and ``conv3x3_op``, its differentiable form
 
 Counterpart of ``biasgan_tpu/ops/pallas_conv.py::conv3x3_valid`` (:279,
 body ``_kernel`` :66, ``_epilogue`` :52; the tap9 variant) and
-``conv3x3_op`` (:406, VJP ``_op_bwd`` :423). The kernel is CUDA C++ for
-sm_90a (csrc/conv3x3_valid.cu, which says what bounds it and how it is
-built up), compiled with nvcc on first use and bound with ctypes.
+``conv3x3_op`` (:406, VJP ``_op_bwd`` :423). The kernels are CUDA C++ for
+sm_90a (csrc/conv3x3_valid.cu, which says what bounds them and how they
+are built up), compiled with nvcc on first use and bound with ctypes.
 
 ``conv3x3_valid`` takes its plain PyTorch version (``conv3x3_valid_plain``)
-for a tensor on the CPU and launches the kernel for a CUDA tensor; there is
-no fallback from one to the other. ``conv3x3_op`` is a
-``torch.autograd.Function``: its forward is ``conv3x3_valid``, and its
-input gradient is ``conv3x3_valid`` again, on the cotangent padded by 2
-with the flipped, channel-transposed weights (the input grad of a VALID
-conv is the full conv of the cotangent). The weight gradient is a
+for a tensor on the CPU and launches a kernel for a CUDA tensor; there is
+no fallback from one to the other. The rule for a CUDA tensor: bf16
+launches the TMA / wgmma kernel (K1's tile loop, csrc/conv3x3_tma.cuh), f32
+the CUDA-core checker. The bf16 kernel loads x and the residual and stores
+y with TMA, which needs C and Cout multiples of 8 and 16-byte aligned
+tensors: ``bf16_operands`` zero-pads x's channels, the bias and the
+residual to multiples of 8 (the extra couts are sliced off y), picks the
+tile's couts (``conv_tma.tile_geometry``) and packs the weight into the
+kernel's slabs (``conv_tma.pack_block_weight``, one copy, the cast
+included); a misaligned x or residual raises.
+
+``conv3x3_op`` is a ``torch.autograd.Function``: its forward is
+``conv3x3_valid``, and its input gradient ``conv3x3_valid_dx``, the same
+kernel on the unpadded cotangent with a zero pad of 2 on each side and the
+flipped, channel-transposed weights (the input grad of a VALID conv is the
+full conv of the cotangent): the kernel's box origin two rows and columns
+up-left and TMA's zero fill make the pad, and the kernel reads the taps in
+reverse from the transposed pack, so the backward makes no padded copy of
+the cotangent and one copy of the weight. The weight gradient is a
 batch-as-contraction conv, which the JAX op leaves to XLA and the port to
 ``aten.convolution_backward``; dbias is an f32 sum. ``conv3x3_valid
 .launches`` counts the forward launches, ``.bwd_launches`` the input-grad
-launches.
+launches, ``.wgmma_launches`` those of both on the bf16 kernel.
 
 The Mosaic-only parts are not carried: the width rounding to 8 or 16
 (:295-307), the ``h_run`` row tail (:317-323), and the ``rowcat`` /
@@ -32,6 +45,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from biasgan_tpu_torch.kernels import conv_tma
 from biasgan_tpu_torch.kernels.common import (
     ACT_CODE,
     INT,
@@ -41,6 +55,7 @@ from biasgan_tpu_torch.kernels.common import (
     check_kernel_input,
     launch,
     ptr,
+    sm_count,
     wants_grad,
 )
 
@@ -88,37 +103,91 @@ def conv3x3_valid_plain(
     return act_f32(y, activation).to(xp.dtype)
 
 
-_ARGTYPES = [PTR] * 5 + [INT] * 7
+def conv3x3_valid_dx_plain(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``conv3x3_valid_dx``: ``conv3x3_valid_plain``
+    of the cotangent padded by 2 with the flipped, channel-transposed
+    weight in g's dtype (the JAX ``_op_bwd``, pallas_conv.py:423-440)."""
+    kt = weight.flip(2, 3).transpose(0, 1).to(g.dtype)
+    return conv3x3_valid_plain(F.pad(g, (0, 0, 2, 2, 2, 2)), kt)
 
 
-def _launch(xp, weight, bias, residual, activation, bwd=False):
-    n, hp, wp, c = xp.shape
-    cout = weight.shape[0]
-    dtype = check_kernel_input("conv3x3_valid", xp, n * (hp - 2) * (wp - 2) * cout)
+def bf16_operands(x, weight, bias, residual, bwd, sms):
+    """What the bf16 kernel takes for one call on a card of ``sms`` SMs:
+    ``(x, packed weight, bias, residual, cout_k, bn)``. x's channels, the
+    f32 bias and the residual zero-padded to multiples of 8 (cout_k is
+    Cout rounded up to 8), the tile's couts ``bn`` from
+    ``conv_tma.tile_geometry`` at the output's shape, and the weight packed
+    for them in x's dtype, zero past C and Cout
+    (``conv_tma.pack_block_weight``). ``bwd``: x is the unpadded cotangent
+    of an input gradient (output 2 larger on each side) and ``weight`` the
+    forward's OIHW weight, packed channel-transposed (a view)."""
+    n, h, w, c = x.shape
+    cout = weight.shape[1] if bwd else weight.shape[0]
+    if bwd:
+        h, w = h + 2, w + 2
+    else:
+        h, w = h - 2, w - 2
+    if c % 8:
+        x = F.pad(x, (0, -c % 8))
+    cout_k = cout + -cout % 8
+    bn = conv_tma.tile_geometry(n, h, w, cout_k, sms)
+    packed = conv_tma.pack_block_weight(weight.transpose(0, 1) if bwd else weight, bn, x.dtype)
+    if bias is not None:
+        bias = F.pad(bias.float(), (0, cout_k - cout))
+    if residual is not None and cout_k != cout:
+        residual = F.pad(residual, (0, cout_k - cout))
+    return x, packed, bias, residual, cout_k, bn
+
+
+_ARGTYPES = [PTR] * 5 + [INT] * 11
+
+
+def _launch(x, weight, bias, residual, activation, bwd=False):
+    """One kernel launch. ``bwd``: the input gradient ``conv3x3_valid_dx``
+    (x the unpadded cotangent, a zero pad of 2, the taps reversed)."""
+    n, hin, win, c = x.shape
+    pad = 2 if bwd else 0
+    h, w = hin + 2 * pad - 2, win + 2 * pad - 2
+    cout = weight.shape[1] if bwd else weight.shape[0]
+    dtype = check_kernel_input("conv3x3_valid", x, n * h * w * cout)
     if residual is not None and not residual.is_contiguous():
         raise ValueError("conv3x3_valid kernel needs a contiguous residual")
-    dev = xp.device
-    # weight as (9, C, Cout) in xp's dtype: the Pallas wrapper's w9
-    w9 = weight.to(xp.dtype).permute(2, 3, 1, 0).reshape(9, c, cout).contiguous()
-    b = None if bias is None else bias.float().contiguous()
-    y = torch.empty((n, hp - 2, wp - 2, cout), dtype=xp.dtype, device=dev)
+    dev = x.device
+    wgmma = x.dtype == torch.bfloat16
+    if wgmma:
+        blocks = sm_count(dev)
+        x, wk, b, residual, cout_k, bn = bf16_operands(x, weight, bias, residual, bwd, blocks)
+        if x.data_ptr() % 16 or (residual is not None and residual.data_ptr() % 16):
+            raise ValueError("conv3x3_valid bf16 kernel needs a 16-byte aligned x and "
+                             "residual (TMA loads)")
+    else:
+        # weight as (9, C, Cout): the Pallas wrapper's w9 (of the transposed
+        # weight for the input gradient, whose taps the kernel reverses)
+        perm = (2, 3, 0, 1) if bwd else (2, 3, 1, 0)
+        wk = weight.to(x.dtype).permute(*perm).reshape(9, c, cout).contiguous()
+        b = None if bias is None else bias.float().contiguous()
+        cout_k, bn, blocks = cout, 0, 0
+    y = torch.empty((n, h, w, cout_k), dtype=x.dtype, device=dev)
     launch(
         "conv3x3_valid", "conv3x3_valid_launch", _ARGTYPES, dev,
-        ptr(xp), ptr(w9), ptr(b), ptr(residual), ptr(y),
-        n, hp, wp, c, cout, dtype, ACT_CODE[activation],
+        ptr(x), ptr(wk), ptr(b), ptr(residual), ptr(y),
+        n, hin, win, x.shape[3], cout_k, pad, int(bwd), dtype, ACT_CODE[activation], bn, blocks,
     )
     if bwd:
         conv3x3_valid.bwd_launches += 1
     else:
         conv3x3_valid.launches += 1
-    return y
+    conv3x3_valid.wgmma_launches += wgmma
+    return y[..., :cout].contiguous() if cout_k != cout else y
 
 
-def _valid(xp, weight, bias, residual, activation, bwd=False):
+def _valid(x, weight, bias, residual, activation, bwd=False):
     """The kernel for a CUDA tensor, the plain version for a CPU one."""
-    if check_device("conv3x3_valid", xp, [weight, bias, residual]):
-        return conv3x3_valid_plain(xp, weight, bias, residual, activation)
-    return _launch(xp, weight, bias, residual, activation, bwd)
+    if check_device("conv3x3_valid", x, [weight, bias, residual]):
+        if bwd:
+            return conv3x3_valid_dx_plain(x, weight)
+        return conv3x3_valid_plain(x, weight, bias, residual, activation)
+    return _launch(x, weight, bias, residual, activation, bwd)
 
 
 def conv3x3_valid(
@@ -134,11 +203,12 @@ def conv3x3_valid(
     ``bias``, an optional ``residual`` (N, H, W, Cout) in xp's dtype and
     ``activation`` none / relu / lrelu(0.2), cast once to xp's dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts it in ``conv3x3_valid.launches``) or raises. Where autograd
-    records, the call goes through ``conv3x3_op`` (no residual and no
-    activation, as the JAX op) and raises otherwise on the card: the kernel
-    alone would return a result with no gradient."""
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
+    (bf16: the TMA / wgmma kernel, counted also in ``.wgmma_launches``;
+    f32: the CUDA-core one; both in ``conv3x3_valid.launches``) or raises.
+    Where autograd records, the call goes through ``conv3x3_op`` (no
+    residual and no activation, as the JAX op) and raises otherwise on the
+    card: the kernel alone would return a result with no gradient."""
     _check_args(xp, weight, bias, residual, activation)
     plain = check_device("conv3x3_valid", xp, [weight, bias, residual])
     if wants_grad(xp, weight, bias, residual):
@@ -156,6 +226,21 @@ def conv3x3_valid(
 
 conv3x3_valid.launches = 0
 conv3x3_valid.bwd_launches = 0
+conv3x3_valid.wgmma_launches = 0
+
+
+def conv3x3_valid_dx(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The input gradient of ``conv3x3_op`` with the OIHW ``weight``
+    (Cout, C, 3, 3) from its cotangent ``g`` (N, H, W, Cout): the full conv
+    (N, H+2, W+2, C) of g with the flipped, channel-transposed weight in
+    g's dtype. A CPU tensor takes ``conv3x3_valid_dx_plain``; a CUDA tensor
+    launches the kernel on g as it is (the pad of 2 made by the kernel,
+    counted in ``conv3x3_valid.bwd_launches``) or raises."""
+    if g.ndim != 4 or weight.ndim != 4 or tuple(weight.shape[2:]) != (3, 3) or (
+            g.shape[3] != weight.shape[0]):
+        raise ValueError(f"conv3x3_valid_dx: g {tuple(g.shape)} and OIHW weight "
+                         f"{tuple(weight.shape)} do not match")
+    return _valid(g, weight, None, None, "none", bwd=True)
 
 
 class _Conv3x3Op(torch.autograd.Function):
@@ -173,11 +258,9 @@ class _Conv3x3Op(torch.autograd.Function):
         g = g.contiguous()
         dxp = dw = db = None
         if ctx.needs_input_grad[0]:
-            # the full conv of g: pad by 2, the flipped, channel-transposed
-            # weights, the same VALID kernel
-            kt = weight.flip(2, 3).transpose(0, 1).to(g.dtype)
-            gp = F.pad(g, (0, 0, 2, 2, 2, 2)).contiguous()
-            dxp = _valid(gp, kt, None, None, "none", bwd=True).to(xp.dtype)
+            # the full conv of g: the same kernel with a zero pad of 2 and
+            # the flipped, channel-transposed weights
+            dxp = conv3x3_valid_dx(g, weight).to(xp.dtype)
         if ctx.needs_input_grad[1]:
             # batch-as-contraction weight grad, in the conv's dtype
             w = weight.to(xp.dtype)

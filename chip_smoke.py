@@ -13,8 +13,9 @@ checkout is missing, and at the first failure of any phase:
      (nvcc, sm_90a) as a check build (BIASGAN_KERNEL_WATCHDOG=1: an mbarrier
      wait that never ends traps), one nvcc per source, all started together (the fused
      block conv's and the instance norm's backward among them); the bf16
-     kernels of the block conv and the down conv must hold wgmma (HGMMA) and
-     TMA (UTMALDG, UTMASTG) instructions (cuobjdump);
+     kernels of the block conv, the down conv and the VALID conv (the block
+     conv's tile loop) must hold wgmma (HGMMA) and TMA (UTMALDG, UTMASTG)
+     instructions (cuobjdump);
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
@@ -22,9 +23,13 @@ checkout is missing, and at the first failure of any phase:
      and residuals, with the moments held to those of the stored output
      (the block conv's sweep also with tiles touching both edges in every
      pad mode pair, channels the wrapper pads, and batch 2 with more tiles
-     than SMs; the block conv and the stride-2 down conv on the path their
+     than SMs; the VALID conv's likewise under every epilogue; the block
+     conv, the stride-2 down conv and the VALID conv on the path their
      wrappers' rule gives: every bf16 call on the TMA / wgmma kernel,
-     counted apart, printed per globe shape);
+     counted apart, printed per globe shape); the VALID conv's input
+     gradient (conv3x3_valid_dx: the kernel's pad of 2 on the unpadded
+     cotangent) likewise, at the training step's cotangents, the globe's
+     and small shapes;
      then, at those shapes in bf16, the kernel's time beside the plain
      version's, one PyTorch library call's, and the card's bound for the
      same work, and the kernel call's device time by kernel from
@@ -32,7 +37,9 @@ checkout is missing, and at the first failure of any phase:
      such as a weight repack, apart from the kernels); where the parent
      commit's tree is unpacked in .chip_archive/parent, the kernels of
      COMPARE_KERNELS there and here in turns at the shapes of TURN_CALLS,
-     each turn a fresh process (phase 6 runs the turns); the fused block
+     each turn a fresh process (phase 6 runs the turns; the parent's
+     input gradient is what its backward ran: F.pad of the cotangent and
+     the VALID call); the fused block
      conv also in its halo W
      mode at the block shape of a 4-way W shard; then the halo exchange
      inside four spawned ranks (one card: gloo, the ranks sharing it, on
@@ -101,8 +108,10 @@ checkout is missing, and at the first failure of any phase:
      batch, is held to the plain route's (losses and step-1 gradients) with
      exact kernel launch counts (the block conv: 54 per step on the
      --fused_blocks routes, in bf16 all on its TMA / wgmma kernel; its
-     backward kernel: 54 per step there, 0 elsewhere; the instance norm's
-     backward kernel: 27 per step on the all-kernel route); then
+     backward kernel: 54 per step there, 0 elsewhere; the VALID conv's
+     forward and input gradient: 54 each per step on --pallas_conv 1, in
+     bf16 all 108 on its TMA / wgmma kernel; the instance norm's backward
+     kernel: 27 per step on the all-kernel route); then
      ``biasgan_tpu_torch.train.main`` runs six steps on the route, counting
      launches, with finite losses, and its samples/s over steps 2-6 is
      printed. The checkpoint of one run is
@@ -178,11 +187,15 @@ PATHS = {
                            {"halo_exchange_w": 24, "conv3x3_fused": 18}),
 }
 # kernel -> the wrapper's count of launches on its bf16 path, where the
-# wrapper routes by a rule (K1, K4: bf16 takes the TMA / wgmma kernel, f32
-# the CUDA-core checker); every bf16 call must take it
-PATH_COUNTERS = {"conv3x3_fused": "wgmma_launches", "conv3x3s2_fused": "wgmma_launches"}
-# source -> its bf16 TMA / wgmma kernel (cuobjdump's function names)
-WGMMA_KERNELS = {"conv3x3_fused": "conv_tma_kernel", "conv3x3s2_fused": "down_tma_kernel"}
+# wrapper routes by a rule (K1, K4, K6: bf16 takes the TMA / wgmma kernel,
+# f32 the CUDA-core checker); every bf16 call must take it (K6's forward and
+# input-gradient launches alike)
+PATH_COUNTERS = {"conv3x3_fused": "wgmma_launches", "conv3x3s2_fused": "wgmma_launches",
+                 "conv3x3_valid": "wgmma_launches"}
+# source -> its bf16 TMA / wgmma kernel (cuobjdump's function names; K6's is
+# K1's tile loop, csrc/conv3x3_tma.cuh)
+WGMMA_KERNELS = {"conv3x3_fused": "conv_tma_kernel", "conv3x3s2_fused": "down_tma_kernel",
+                 "conv3x3_valid": "conv_tma_kernel"}
 # the halo exchanges of one sharded globe forward, per rank: (the local
 # tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
 # per rank; bf16 compute, but the stem pads the f32 input; H is padded
@@ -209,10 +222,13 @@ class SmokeFailure(Exception):
 
 def with_path_counts(per_call: dict, dtype: str) -> dict:
     """``per_call`` (kernel -> launches) with each PATH_COUNTERS count
-    beside it: every launch on the bf16 path in bf16, none in f32."""
+    beside it: every launch on the bf16 path in bf16 (a kernel's
+    ``<name>.bwd`` launches, the VALID conv's input gradients, too), none
+    in f32."""
     out = dict(per_call)
     for name, attr in PATH_COUNTERS.items():
-        out[f"{name}.{attr}"] = per_call.get(name, 0) if dtype == "bfloat16" else 0
+        n = per_call.get(name, 0) + per_call.get(f"{name}.bwd", 0)
+        out[f"{name}.{attr}"] = n if dtype == "bfloat16" else 0
     return out
 
 
@@ -221,12 +237,24 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def kernel_fns(name: str):
-    """(wrapper, plain version) of kernel ``name``."""
+def kernel_fns(name: str, bwd: bool = False):
+    """(wrapper, plain version) of kernel ``name``; with ``bwd``, of the
+    VALID conv's input gradient, which takes (cotangent, OIHW weight): in
+    a tree without ``conv3x3_valid_dx`` (the parent's, in compare_parent)
+    what its backward ran, the cotangent padded by 2 and the VALID call
+    with the flipped, channel-transposed weight."""
     import importlib
 
     mod = importlib.import_module(f"biasgan_tpu_torch.kernels.{name}")
-    return getattr(mod, name), getattr(mod, name + "_plain")
+    if not bwd:
+        return getattr(mod, name), getattr(mod, name + "_plain")
+    if hasattr(mod, "conv3x3_valid_dx"):
+        return mod.conv3x3_valid_dx, mod.conv3x3_valid_dx_plain
+    import torch.nn.functional as F
+
+    def padded(fn):
+        return lambda g, w: fn(F.pad(g, (0, 0, 2, 2, 2, 2)), w.flip(2, 3).transpose(0, 1))
+    return padded(mod.conv3x3_valid), padded(mod.conv3x3_valid_plain)
 
 
 def card() -> str:
@@ -373,6 +401,18 @@ def make_case(torch, g, name, shape, dtype, **opt):
         flops = 2 * (n * h * w if name != "conv3x3s2_fused" else out_px) * 9 * c * cout
         nbytes = ((x.numel() + out_px * cout + 9 * c * cout) * es + 4 * cout
                   + (8 * n * c if pro else 0) + 8 * n * cout)
+    elif name == "conv3x3_valid" and opt.get("bwd"):
+        # the input gradient: the cotangent (n, h, w, Cout) of the forward
+        # (C -> Cout) through the flipped, channel-transposed weight to
+        # (n, h + 2, w + 2, C); the products the zero pad does not null:
+        # each cotangent pixel through the 9 taps
+        n, h, w, c, cout = shape
+        gy = _randn(torch, g, (n, h, w, cout)).to(dtype)
+        wt = _randn(torch, g, (cout, c, 3, 3), (9 * c) ** -0.5).to(dtype)
+        args = (gy, wt)
+        flops = 2 * n * h * w * 9 * c * cout
+        nbytes = (n * h * w * cout + n * (h + 2) * (w + 2) * c + 9 * c * cout) * es
+        lib = lambda: F.conv_transpose2d(gy.permute(0, 3, 1, 2), wt)
     elif name == "conv3x3_valid":
         n, hp, wp, c, cout = shape
         xp = _randn(torch, g, (n, hp, wp, c)).to(dtype)
@@ -416,10 +456,12 @@ def make_case(torch, g, name, shape, dtype, **opt):
     return args, nbytes, flops / peak, lib
 
 
-def hold(torch, name, args, where: str):
-    """The kernel against its plain version on the same inputs; returns
-    max |dy| and, for kernels with moments, the stored-value moment ratio."""
-    fn, plain = kernel_fns(name)
+def hold(torch, name, args, where: str, fns=None):
+    """The kernel against its plain version on the same inputs (``fns``:
+    another (wrapper, plain version) pair of kernel ``name``'s library);
+    returns max |dy| and, for kernels with moments, the stored-value
+    moment ratio."""
+    fn, plain = fns or kernel_fns(name)
     got, ref = fn(*args), plain(*args)
     torch.cuda.synchronize()
     (y, m), (ry, rm) = (got, ref) if isinstance(got, tuple) else ((got, None), (ref, None))
@@ -473,9 +515,12 @@ GLOBE_CALLS = {
                           ((1, 181, 360, 256), dict(act="none", residual=True), 9)],
     # the 256x256 CycleGAN step, batch 1: the 18 block convs of each of the
     # three batched G dispatches (2, 3 and 1 samples), forward and input
-    # gradient (the cotangent padded by 2); calls per step
+    # gradient (conv3x3_valid_dx of the (B, 64, 64, 256) cotangent); calls
+    # per step; and, 0 per step, the served --pallas_conv path's globe
+    # block conv (18 per field)
     "conv3x3_valid": [((b, 66, 66, 256, 256), {}, 18) for b in (2, 3, 1)]
-    + [((b, 68, 68, 256, 256), dict(bwd=True), 18) for b in (2, 3, 1)],
+    + [((b, 64, 64, 256, 256), dict(bwd=True), 18) for b in (2, 3, 1)]
+    + [((1, 183, 362, 256, 256), dict(bias=True), 0)],
 }
 # what each kernel's calls above are counted per
 PER_UNIT = {name: "field" for name in GLOBE_CALLS}
@@ -485,10 +530,10 @@ PER_UNIT["conv3x3_valid"] = "step"
 SPATIAL_CALLS = {
     "conv3x3_fused": [((1, 181, 90, 256, 256), dict(prologue=True, w_mode="halo"), 18)],
 }
-# shapes held besides the main path's: the globe block conv as a VALID
-# conv, and the sharded path's halo-mode block conv
+# shapes held besides the main path's: the sharded path's halo-mode block
+# conv, and the VALID conv's input gradient at the globe block shape
 EXTRA_CHECKS = {
-    "conv3x3_valid": [((1, 183, 362, 256, 256), dict(bias=True))],
+    "conv3x3_valid": [((1, 181, 360, 256, 256), dict(bwd=True))],
     "conv3x3_fused": [(shape, opt) for shape, opt, _ in SPATIAL_CALLS["conv3x3_fused"]],
 }
 
@@ -535,10 +580,31 @@ def sweep_cases(name):
         for c, cout in ((1, 5), (3, 64), (8, 16), (64, 3), (9, 8), (24, 1)):
             yield (2, 19, 41, c, cout), {}
     elif name == "conv3x3_valid":
+        epilogues = [dict(act=act, bias=bias, residual=res) for act in ("none", "relu", "lrelu")
+                     for bias, res in ((False, False), (True, False), (True, True), (False, True))]
         for c, cout in ((3, 5), (32, 48), (256, 256)):
-            for act in ("none", "relu", "lrelu"):
-                for bias, res in ((False, False), (True, False), (True, True), (False, True)):
-                    yield (2, 15, 39, c, cout), dict(act=act, bias=bias, residual=res)
+            for opt in epilogues:
+                yield (2, 15, 39, c, cout), opt
+        # tiles of the bf16 kernel (7 x 18 pixels) touching both edges of the
+        # output at once (5 x 9: C 12 and Cout 20 the wrapper pads), and
+        # filling it exactly (Cout 136: two 128-cout tiles, the second
+        # ragged), every epilogue
+        for shape in ((2, 7, 11, 12, 20), (1, 9, 20, 64, 136)):
+            for opt in epilogues:
+                yield shape, opt
+        # batch 2 with 117 tiles per image, more than the card's SMs: blocks
+        # of the persistent grid walk from one image into the next, the
+        # residual's TMA loads with them; 128- and 256-cout tiles
+        for c, cout in ((64, 128), (256, 256)):
+            for opt in (epilogues[4], epilogues[0], epilogues[11]):
+                yield (2, 92, 152, c, cout), opt
+        # the input gradient (the kernel's pad of 2 on the unpadded
+        # cotangent (n, h, w, Cout), the taps reversed): tiles touching both
+        # edges with C 12 and Cout 20 padded, an exact tile with Cout 136,
+        # ragged tiles, batch 2 with more tiles than SMs
+        for shape in ((2, 3, 7, 12, 20), (1, 5, 16, 64, 136), (2, 13, 37, 3, 5),
+                      (2, 13, 37, 32, 48), (2, 88, 148, 64, 128)):
+            yield shape, dict(bwd=True)
     else:
         for c in (5, 64, 264):
             for act in ("none", "relu", "lrelu"):
@@ -560,7 +626,7 @@ def check_kernels(torch) -> dict:
                 args = make_case(torch, g, name, shape, dtype, **opt)[0]
                 where = f"main {shape} {dtype} {opt}"
                 before = path_launches(name)
-                err, ratio = hold(torch, name, args, where)
+                err, ratio = hold(torch, name, args, where, kernel_fns(name, opt.get("bwd")))
                 print(f"{name} {where}: max|dy| {err:.3g}"
                       + (f", moments at {ratio:.3g} of the stored-value bound" if ratio else "")
                       + path_taken(name, before, dtype, where))
@@ -572,7 +638,8 @@ def check_kernels(torch) -> dict:
                 args = make_case(torch, g, name, shape, dtype, **opt)[0]
                 where = f"{shape} {dtype} {opt}"
                 before = path_launches(name)
-                worst = max(worst, hold(torch, name, args, where)[1])
+                worst = max(worst, hold(torch, name, args, where,
+                                        kernel_fns(name, opt.get("bwd")))[1])
                 path_taken(name, before, dtype, where)
                 n_cases += 1
         print(f"{name} sweep: {n_cases} cases within tolerance"
@@ -590,9 +657,9 @@ def time_kernels(torch, shapes=GLOBE_CALLS) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for name, kernel_calls in shapes.items():
-        fn, plain = kernel_fns(name)
         calls = []
         for shape, opt, count in kernel_calls:
+            fn, plain = kernel_fns(name, opt.get("bwd"))
             args, nbytes, op_s, lib = make_case(torch, g, name, shape, torch.bfloat16, **opt)
             fns = {"plain": lambda: plain(*args), "library": lib, "kernel": lambda: fn(*args)}
             runs = {k: [] for k in fns}
@@ -622,7 +689,8 @@ def time_kernels(torch, shapes=GLOBE_CALLS) -> dict:
         total["bound_by"] = "bytes" if total["bytes_ms"] >= total["operations_ms"] else "operations"
         bwd = [c for c in calls if c["options"].get("bwd")]
         if bwd:  # the VALID conv's input-gradient launches
-            total["bwd_kernel_ms"] = sum(c["ms"] * c["count"] for c in bwd)
+            total.update({f"bwd_kernel_{k}": sum(c[k] * c["count"] for c in bwd)
+                          for k in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")})
         total["calls"] = calls
         out[name] = total
     return out
@@ -671,7 +739,7 @@ def timed(torch, fn, iters=20, warmup=3):
 # sharded paths (the halo exchange at every shape of HALO_CALLS, the plain
 # ring, the served ms/field). A plain checkout has none.
 PARENT_TREE = os.path.join(HERE, ".chip_archive", "parent")
-COMPARE_KERNELS = ("conv3x3_fused",)  # names of kernels to time in both trees (kernel_turn)
+COMPARE_KERNELS = ("conv3x3_fused", "conv3x3_valid")  # kernels timed in both trees (kernel_turn)
 COMPARE_ROUNDS = 1  # of the turns this, parent, parent, this
 SHARDED_PATHS = ("spatial", "spatial_rdma", "spatial_rdma_fused")
 # the shapes kernel_turn times a kernel at: its globe shapes and, for the
@@ -693,8 +761,8 @@ def kernel_turn(torch) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for name in COMPARE_KERNELS:
-        fn = kernel_fns(name)[0]
         for shape, opt in TURN_CALLS[name]:
+            fn = kernel_fns(name, opt.get("bwd"))[0]
             args = make_case(torch, g, name, shape, torch.bfloat16, **opt)[0]
             ms = min(timed(torch, lambda: fn(*args)) for _ in range(3))
             device = device_time(torch, lambda: fn(*args))
@@ -863,7 +931,8 @@ GRAD_CHECKS = {
         ((2, 13, 37, 32, 48), dict(prologue=True, w_mode="halo", halo_edge="wrap",
                                    h_mode="zero")),
         ((1, 9, 5, 256, 256), dict(prologue=False, w_mode="halo", halo_edge="zero"))],
-    "conv3x3_op": [((2, 66, 66, 256, 256), {}), ((1, 15, 39, 32, 48), dict(bias=True))],
+    "conv3x3_op": [((2, 66, 66, 256, 256), {}), ((1, 15, 39, 32, 48), dict(bias=True)),
+                   ((2, 7, 11, 12, 20), dict(bias=True)), ((1, 9, 20, 64, 136), {})],
     "conv7x7": [((1, 262, 262, 3, 64), {}), ((1, 262, 262, 64, 3), {})],
     "instance_norm_act": [((2, 64, 64, 256), dict(act="none", residual=True)),
                           ((1, 256, 256, 64), dict(act="relu")),
@@ -2192,7 +2261,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
             "library_ms": t["library_ms"], "path": path, "per": per[unit], "calls": t["calls"],
         }
         if name in PATH_COUNTERS:
-            entry["wgmma_launches"] = launches[path][f"{name}.{PATH_COUNTERS[name]}"]
+            counted = (trained["launches"][f"{path}/bfloat16"] if unit == "step"
+                       else launches[path])
+            entry["wgmma_launches"] = counted[f"{name}.{PATH_COUNTERS[name]}"]
         against = {k: v for k, v in parent.get("kernels", {}).items()
                    if k.split()[0] == name}
         if against:
@@ -2201,7 +2272,8 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
                 "instance_norm_act": "instance_norm_act"}.get(name)
         if name == "conv3x3_valid":
             entry.update(bwd_launches=trained["launches"][f"{path}/bfloat16"]["conv3x3_valid.bwd"],
-                         bwd_kernel_ms=t["bwd_kernel_ms"], max_grad_err=grad_errs[form],
+                         **{k: v for k, v in t.items() if k.startswith("bwd_kernel_")},
+                         max_grad_err=grad_errs[form],
                          bwd_ms=grad_times[form]["bwd_ms"],
                          bwd_bound_ms=grad_times[form]["bwd_bound_ms"],
                          bwd_bound_by=grad_times[form]["bwd_bound_by"],

@@ -37,14 +37,8 @@ import torch.nn.functional as F
 from biasgan_tpu.ops.pallas_conv import conv3x3_fused as jax_conv3x3_fused
 from biasgan_tpu.ops.pallas_conv import embed_halo_w, fused_block_plan
 from biasgan_tpu_torch.kernels.common import act_f32, pad_channels, pad_couts
-from biasgan_tpu_torch.kernels.conv3x3_fused import (
-    KW,
-    TH,
-    TW,
-    conv3x3_fused_plain,
-    pack_block_weight,
-    tile_geometry,
-)
+from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_plain
+from biasgan_tpu_torch.kernels.conv_tma import KW, TH, TW, pack_block_weight, tile_geometry
 
 H_MODES = ("reflect", "zero", "wrap")
 W_MODES = ("wrap", "zero", "reflect", "halo")

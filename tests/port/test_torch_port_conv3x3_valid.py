@@ -114,9 +114,11 @@ def test_epilogue_variants_refuse_grad_on_the_card(monkeypatch):
     xp, k, _, _ = _case(6)
     calls = []
 
-    def fake_launch(xp, w, bias, res, act, bwd=False):
+    def fake_launch(x, w, bias, res, act, bwd=False):
         calls.append(bwd)
-        return torch.zeros((xp.shape[0], xp.shape[1] - 2, xp.shape[2] - 2, w.shape[0]))
+        if bwd:  # the input gradient: the unpadded cotangent, a pad of 2 in the kernel
+            return torch.zeros((x.shape[0], x.shape[1] + 2, x.shape[2] + 2, w.shape[1]))
+        return torch.zeros((x.shape[0], x.shape[1] - 2, x.shape[2] - 2, w.shape[0]))
 
     monkeypatch.setattr(port, "check_device", lambda *a: False)
     monkeypatch.setattr(port, "_launch", fake_launch)

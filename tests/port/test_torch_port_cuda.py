@@ -274,8 +274,13 @@ from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_t  # noqa: E40
 from biasgan_tpu_torch.kernels.conv3x3_valid import (  # noqa: E402
     conv3x3_op,
     conv3x3_valid,
+    conv3x3_valid_dx,
+    conv3x3_valid_dx_plain,
     conv3x3_valid_plain,
 )
+
+VALID_EPILOGUES = [(bias, res, act) for bias in (False, True) for res in (False, True)
+                   for act in ("none", "relu", "lrelu")]
 
 
 @pytest.mark.cuda
@@ -290,11 +295,94 @@ def test_conv3x3_valid_kernel_matches_plain(dtype, c, cout):
         x, k, b, _, _ = _inputs(2, 15, 39, c, cout, dtype, seed=20 + i)
         r = torch.randn((2, 13, 37, cout), device="cuda").to(dtype) if res else None
         args = (x, k, b if bias else None, r, act)
-        before = conv3x3_valid.launches
+        before = (conv3x3_valid.launches, conv3x3_valid.wgmma_launches)
         with torch.no_grad():
             y = conv3x3_valid(*args)
-        assert conv3x3_valid.launches == before + 1
+        assert (conv3x3_valid.launches, conv3x3_valid.wgmma_launches) == (
+            before[0] + 1, before[1] + (dtype == torch.bfloat16))
         _check_y(y, conv3x3_valid_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 9, 12, 20), (1, 7, 18, 64, 136)])
+def test_conv3x3_valid_tiles_every_epilogue(dtype, shape):
+    """Tiles of the bf16 kernel (7 x 18 pixels) touching both edges of the
+    output at once (C 12 and Cout 20 padded by the wrapper) or filling it
+    exactly (Cout 136 in two 128-cout tiles), every bias / residual /
+    activation combination. Every bf16 call takes the TMA / wgmma kernel
+    (``wgmma_launches`` moves by one), every f32 call the CUDA-core one."""
+    _needs_card()
+    n, h, w, c, cout = shape
+    for i, (bias, res, act) in enumerate(VALID_EPILOGUES):
+        x, k, b, _, _ = _inputs(n, h + 2, w + 2, c, cout, dtype, seed=50 + i)
+        r = torch.randn((n, h, w, cout), device="cuda").to(dtype) if res else None
+        args = (x, k, b if bias else None, r, act)
+        before = conv3x3_valid.wgmma_launches
+        with torch.no_grad():
+            y = conv3x3_valid(*args)
+        assert conv3x3_valid.wgmma_launches == before + (dtype == torch.bfloat16)
+        assert tuple(y.shape) == (n, h, w, cout)
+        _check_y(y, conv3x3_valid_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_valid_dx_kernel_matches_plain(dtype):
+    """The input gradient kernel (the unpadded cotangent, the pad of 2 by
+    the kernel, the taps reversed) against its plain version (pad by 2,
+    flipped and transposed weight): one tile touching every edge, ragged
+    tiles, padded channels, the training shape; one bwd launch a call."""
+    _needs_card()
+    for i, (n, h, w, c, cout) in enumerate(((2, 5, 9, 12, 20), (1, 7, 18, 64, 136),
+                                            (2, 13, 37, 32, 48), (2, 64, 64, 256, 256))):
+        g = _inputs(n, h, w, cout, c, dtype, seed=60 + i)[0]  # (n, h, w, Cout)
+        k = _inputs(1, 1, 1, c, cout, dtype, seed=80 + i)[1]  # (Cout, C, 3, 3)
+        before = (conv3x3_valid.bwd_launches, conv3x3_valid.wgmma_launches)
+        dx = conv3x3_valid_dx(g, k)
+        assert (conv3x3_valid.bwd_launches, conv3x3_valid.wgmma_launches) == (
+            before[0] + 1, before[1] + (dtype == torch.bfloat16))
+        assert tuple(dx.shape) == (n, h + 2, w + 2, c)
+        _check_y(dx, conv3x3_valid_dx_plain(g, k), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cout", [(64, 128), (256, 256)])
+def test_conv3x3_valid_batch_walks_across_images(c, cout):
+    """Batch 2 with 117 tiles per image, more than the card's SMs: blocks
+    of the persistent grid walk from one image into the next, the
+    residual's TMA loads with them; 128- and 256-cout tiles; and the input
+    gradient at the same size."""
+    _needs_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 2 * 13 * 9 > sms  # (90, 150): 13 x 9 tiles of 7 x 18 per image
+    x, k, b, _, _ = _inputs(2, 92, 152, c, cout, torch.bfloat16, 70)
+    r = torch.randn((2, 90, 150, cout), device="cuda").bfloat16()
+    with torch.no_grad():
+        for args in ((x, k, b, r, "relu"), (x, k, None, None, "lrelu")):
+            _check_y(conv3x3_valid(*args), conv3x3_valid_plain(*args), torch.bfloat16)
+    g = torch.randn((2, 90, 150, cout), device="cuda").bfloat16()
+    _check_y(conv3x3_valid_dx(g, k), conv3x3_valid_dx_plain(g, k), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_conv3x3_valid_bf16_kernel_refuses_misaligned_input():
+    """The bf16 kernel loads x and the residual with TMA: either one at an
+    address that is not 16-byte aligned raises and launches nothing."""
+    _needs_card()
+    x, k, b, _, _ = _inputs(1, 10, 18, 64, 64, torch.bfloat16, 0)
+    r = torch.randn((1, 8, 16, 64), device="cuda").bfloat16()
+
+    def shifted(t):  # contiguous, 2 bytes off
+        s = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+        return s.view(t.shape).copy_(t)
+
+    before = (conv3x3_valid.launches, conv3x3_valid.wgmma_launches)
+    with torch.no_grad():
+        for args in ((shifted(x), k, b, None), (x, k, b, shifted(r))):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                conv3x3_valid(*args)
+    assert (conv3x3_valid.launches, conv3x3_valid.wgmma_launches) == before
 
 
 def _grad_check(fn, plain, inputs, dtype):
