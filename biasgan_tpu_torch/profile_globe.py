@@ -27,6 +27,11 @@ run the four paths in that order, twice, and each round measures:
   the idle share 1 - busy / wall, and the launches of each hand-written
   kernel per forward.
 
+Then the 7x7 convs' input pads alone (``pad_hw`` as ``nn/layers.py``'s
+``conv2d`` calls it: reflect 3 on H, wrap 3 on W, before the conv), at the
+generator's globe shapes: the device ms per pad by ``torch.profiler`` over
+PROFILED pads.
+
 It prints one line per round and, with --out, writes every number to a
 JSON file.
 """
@@ -45,9 +50,14 @@ import torch
 from biasgan_tpu_torch import infer
 from biasgan_tpu_torch.kernels import launch_counts
 from biasgan_tpu_torch.nn.factory import define_G
+from biasgan_tpu_torch.ops.padding import pad_hw
 
 GLOBE = (1, 721, 1440, 3)
 FIELDS, WARMUP, FORWARDS, PROFILED, TOP = 20, 3, 10, 3, 14
+# the 7x7 convs' inputs on the served globe: the stem's padded field (f32,
+# cast to the compute dtype after the pad) and the head's (bf16, 64 channels)
+PADS = {"stem": ((1, 724, 1440, 3), torch.float32),
+        "head": ((1, 724, 1440, 64), torch.bfloat16)}
 # the generator's routing attributes on each path
 PATHS = {
     "fused": dict(fused_blocks=True),
@@ -130,6 +140,25 @@ def profile_round(G, x, path: str) -> dict:
     }
 
 
+def pad_round() -> dict:
+    """Device ms per pad of each PADS input, with its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, (shape, dtype) in PADS.items():
+        x = torch.randn(shape, device="cuda").to(dtype)
+        pad_hw(x, (3, 3), (3, 3), "reflect", "wrap")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED):
+                pad_hw(x, (3, 3), (3, 3), "reflect", "wrap")
+            torch.cuda.synchronize()
+        busy, top = _device_rows(prof, PROFILED, 4)
+        out[name] = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+                     "device_ms": busy, "kernels": top}
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default="", help="write every number to this JSON file")
@@ -165,11 +194,15 @@ def main(argv=None) -> int:
         )
         for ms, calls, key in r["top_kernels"]:
             print(f"  {ms:8.3f} ms/fwd {calls:6.1f} calls/fwd  {key}")
+    pads = pad_round()
+    for name, r in pads.items():
+        print(f"{name} input pad {tuple(r['shape'])} {r['dtype']}: {r['device_ms']:.4f} device "
+              "ms: " + ", ".join(f"{key} {ms:.4f}" for ms, _, key in r["kernels"]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda,
-                       "rounds": rounds}, f, indent=1)
+                       "rounds": rounds, "pads": pads}, f, indent=1)
     return 0
 
 

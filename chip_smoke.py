@@ -13,9 +13,10 @@ checkout is missing, and at the first failure of any phase:
      (nvcc, sm_90a) as a check build (BIASGAN_KERNEL_WATCHDOG=1: an mbarrier
      wait that never ends traps), one nvcc per source, all started together (the fused
      block conv's and the instance norm's backward among them); the bf16
-     kernels of the block conv, the down conv and the VALID conv (the block
-     conv's tile loop) must hold wgmma (HGMMA) and TMA (UTMALDG, UTMASTG)
-     instructions (cuobjdump);
+     kernels of the block conv, the down conv, the VALID conv (the block
+     conv's tile loop) and the 7x7 conv (its stem and head kernels together)
+     must hold wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions
+     (cuobjdump);
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
@@ -23,9 +24,13 @@ checkout is missing, and at the first failure of any phase:
      and residuals, with the moments held to those of the stored output
      (the block conv's sweep also with tiles touching both edges in every
      pad mode pair, channels the wrapper pads, and batch 2 with more tiles
-     than SMs; the VALID conv's likewise under every epilogue; the block
-     conv, the stride-2 down conv and the VALID conv on the path their
-     wrappers' rule gives: every bf16 call on the TMA / wgmma kernel,
+     than SMs; the VALID conv's likewise under every epilogue; the 7x7
+     conv's with stem tiles and head units touching both edges, every Cin
+     and Cout side the CPU emulation test takes, two channel blocks, and
+     batch 2 with more stem tiles than SMs and head units in two rounds;
+     the block conv, the stride-2 down conv, the VALID conv and the 7x7
+     conv on the path their wrappers' rule gives: every bf16 call on the
+     tensor-core (wgmma) kernel,
      counted apart, printed per globe shape); the VALID conv's input
      gradient (conv3x3_valid_dx: the kernel's pad of 2 on the unpadded
      cotangent) likewise, at the training step's cotangents, the globe's
@@ -187,15 +192,16 @@ PATHS = {
                            {"halo_exchange_w": 24, "conv3x3_fused": 18}),
 }
 # kernel -> the wrapper's count of launches on its bf16 path, where the
-# wrapper routes by a rule (K1, K4, K6: bf16 takes the TMA / wgmma kernel,
-# f32 the CUDA-core checker); every bf16 call must take it (K6's forward and
-# input-gradient launches alike)
+# wrapper routes by a rule (K1, K3, K4, K6: bf16 takes the TMA / wgmma
+# kernel, f32 the CUDA-core checker); every bf16 call must take it (K6's
+# forward and input-gradient launches alike)
 PATH_COUNTERS = {"conv3x3_fused": "wgmma_launches", "conv3x3s2_fused": "wgmma_launches",
-                 "conv3x3_valid": "wgmma_launches"}
-# source -> its bf16 TMA / wgmma kernel (cuobjdump's function names; K6's is
-# K1's tile loop, csrc/conv3x3_tma.cuh)
+                 "conv3x3_valid": "wgmma_launches", "conv7x7": "wgmma_launches"}
+# source -> its bf16 TMA / wgmma kernel (a part of cuobjdump's function
+# names; K6's is K1's tile loop, csrc/conv3x3_tma.cuh; K3's the stem's and
+# the head's, stem_wgmma_kernel and head_wgmma_kernel)
 WGMMA_KERNELS = {"conv3x3_fused": "conv_tma_kernel", "conv3x3s2_fused": "down_tma_kernel",
-                 "conv3x3_valid": "conv_tma_kernel"}
+                 "conv3x3_valid": "conv_tma_kernel", "conv7x7": "_wgmma_kernel"}
 # the halo exchanges of one sharded globe forward, per rank: (the local
 # tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
 # per rank; bf16 compute, but the stem pads the f32 input; H is padded
@@ -579,6 +585,24 @@ def sweep_cases(name):
     elif name == "conv7x7":
         for c, cout in ((1, 5), (3, 64), (8, 16), (64, 3), (9, 8), (24, 1)):
             yield (2, 19, 41, c, cout), {}
+        # the bf16 kernels' edges (shapes are the padded input's): one 8 x 64
+        # stem tile or 64-column head unit touching all four edges (5 x 9
+        # outputs), every side test_torch_port_conv7_tiles.py takes (Cout
+        # 136: three 64-cout stem launches, the last ragged; C 72: two
+        # channel blocks; C 9 padded to 16); 2 x 2 ragged stem tiles and
+        # two head strips (13 x 70); batch 2 with 240 stem tiles, more
+        # than the card's SMs, and head units of one row each in two rounds
+        # of the grid's 396 warpgroups (200 strips an image)
+        for c in (1, 3, 8):
+            for cout in (5, 64, 136):
+                yield (2, 11, 15, c, cout), {}
+        for cout in (1, 3, 8):
+            for c in (9, 64, 72):
+                yield (2, 11, 15, c, cout), {}
+        for c, cout in ((3, 64), (8, 136), (64, 3), (72, 8)):
+            yield (1, 19, 76, c, cout), {}
+        yield (2, 96, 606, 3, 64), {}
+        yield (2, 7, 12806, 64, 3), {}
     elif name == "conv3x3_valid":
         epilogues = [dict(act=act, bias=bias, residual=res) for act in ("none", "relu", "lrelu")
                      for bias, res in ((False, False), (True, False), (True, True), (False, True))]
@@ -739,18 +763,21 @@ def timed(torch, fn, iters=20, warmup=3):
 # sharded paths (the halo exchange at every shape of HALO_CALLS, the plain
 # ring, the served ms/field). A plain checkout has none.
 PARENT_TREE = os.path.join(HERE, ".chip_archive", "parent")
-COMPARE_KERNELS = ("conv3x3_fused", "conv3x3_valid")  # kernels timed in both trees (kernel_turn)
+COMPARE_KERNELS = ("conv3x3_fused", "conv3x3_valid", "conv7x7")  # timed in both trees (kernel_turn)
 COMPARE_ROUNDS = 1  # of the turns this, parent, parent, this
 SHARDED_PATHS = ("spatial", "spatial_rdma", "spatial_rdma_fused")
 # the shapes kernel_turn times a kernel at: its globe shapes and, for the
 # block conv, the sharded path's halo W mode and the training step's
-# forwards (with the prologue at B 2, 3, 1; without it at B 2)
+# forwards (with the prologue at B 2, 3, 1; without it at B 2); for the 7x7
+# conv, the training step's stems and heads (B 2, 3, 1)
 TURN_CALLS = {name: [(shape, opt) for shape, opt, _ in calls]
               for name, calls in GLOBE_CALLS.items()}
 TURN_CALLS["conv3x3_fused"] += (
     [(shape, opt) for shape, opt, _ in SPATIAL_CALLS["conv3x3_fused"]]
     + [((b, 64, 64, 256, 256), dict(prologue=True)) for b in (2, 3, 1)]
     + [((2, 64, 64, 256, 256), dict(prologue=False))])
+TURN_CALLS["conv7x7"] += [((b, 262, 262, c, cout), {}) for c, cout in ((3, 64), (64, 3))
+                          for b in (2, 3, 1)]
 
 
 def kernel_turn(torch) -> dict:
@@ -2289,6 +2316,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
                 "bwd_bound_ms": g["bwd_bound_ms"], "bwd_bound_by": g["bwd_bound_by"],
                 "max_grad_err": grad_errs[form], "per": train_per, "calls": g["calls"]})
+            if name in PATH_COUNTERS:
+                entry["train"]["wgmma_launches"] = trained["launches"]["all/bfloat16"][
+                    f"{name}.{PATH_COUNTERS[name]}"]
         elif name == "conv3x3_fused":
             t = spatial_times[name]
             entry["halo"] = {

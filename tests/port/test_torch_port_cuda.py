@@ -231,21 +231,75 @@ def test_down_kernel_refuses_strided_or_misaligned_input():
     assert (conv3x3s2_fused.launches, conv3x3s2_fused.wgmma_launches) == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout", [(3, 64), (1, 5), (8, 8), (64, 3), (24, 1), (9, 8)])
-def test_conv7x7_kernel_matches_plain(dtype, cin, cout):
-    _needs_card()
-    rng = np.random.default_rng(cin * 10 + cout)
-    xp = torch.from_numpy(rng.normal(size=(2, 19, 41, cin)).astype(np.float32))
+def _conv7_inputs(n, hp, wp, cin, cout, dtype, seed):
+    rng = np.random.default_rng(seed)
+    xp = torch.from_numpy(rng.normal(size=(n, hp, wp, cin)).astype(np.float32))
     k = torch.from_numpy((rng.normal(size=(cout, cin, 7, 7)) / (49 * cin) ** 0.5)
                          .astype(np.float32))
     b = torch.from_numpy((rng.normal(size=(cout,)) * 0.1).astype(np.float32))
-    xp, k, b = xp.to(dtype).cuda(), k.to(dtype).cuda(), b.cuda()
-    before = conv7x7.launches
+    return xp.to(dtype).cuda(), k.to(dtype).cuda(), b.cuda()
+
+
+# the sides of tests/port/test_torch_port_conv7_tiles.py besides the older
+# ones: the stem's Cin 1, 3, 8 with Cout 5, 64, 136 (three 64-cout launches,
+# the last ragged); the head's Cout 1, 3, 8 with C 9 (padded to 16), 64, 72
+# (two channel blocks)
+CONV7_SIDES = sorted({(3, 64), (1, 5), (8, 8), (64, 3), (24, 1), (9, 8)}
+                     | {(cin, cout) for cin in (1, 3, 8) for cout in (5, 64, 136)}
+                     | {(cin, cout) for cout in (1, 3, 8) for cin in (9, 64, 72)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", CONV7_SIDES)
+def test_conv7x7_kernel_matches_plain(dtype, cin, cout):
+    """Odd shapes, and the bf16 kernels' edges: one 8 x 64 stem tile or
+    64-column head unit touching all four edges of a 5 x 9 output, 2 x 2
+    ragged stem tiles or two head strips of a 13 x 70 one. Every bf16 call
+    on the tensor-core kernel (``wgmma_launches`` moves by one), every f32
+    call on the CUDA-core one."""
+    _needs_card()
+    for n, hp, wp in ((2, 19, 41), (2, 11, 15), (1, 19, 76)):
+        xp, k, b = _conv7_inputs(n, hp, wp, cin, cout, dtype, seed=cin * 100 + cout + hp)
+        before = (conv7x7.launches, conv7x7.wgmma_launches)
+        y = conv7x7(xp, k, b)
+        assert (conv7x7.launches, conv7x7.wgmma_launches) == (
+            before[0] + 1, before[1] + (dtype == torch.bfloat16))
+        _check_y(y, conv7x7_plain(xp, k, b), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 96, 606, 3, 64), (2, 7, 12806, 64, 3),
+                                   (3, 262, 262, 3, 64), (3, 262, 262, 64, 3)])
+def test_conv7x7_walks_across_images(shape):
+    """bf16, batch > 1: 240 stem tiles, more than the card's SMs; head units
+    of one row in two rounds of the grid's warpgroups (a walk crossing into
+    the next image); the training step's batch-3 stem and head. The bias
+    comes in bf16 (the kernels read it in f32, as the wrapper casts it)."""
+    _needs_card()
+    xp, k, b = _conv7_inputs(*shape, torch.bfloat16, seed=sum(shape))
+    b = b.to(torch.bfloat16)
+    before = conv7x7.wgmma_launches
     y = conv7x7(xp, k, b)
-    assert conv7x7.launches == before + 1
-    _check_y(y, conv7x7_plain(xp, k, b), dtype)
+    assert conv7x7.wgmma_launches == before + 1
+    _check_y(y, conv7x7_plain(xp, k, b), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_conv7x7_bf16_head_refuses_what_it_cannot_take():
+    """A misaligned x (the head's TMA loads) and a C whose weight would not
+    fit the head kernel's shared memory raise before any launch."""
+    _needs_card()
+    xp, k, b = _conv7_inputs(1, 13, 21, 64, 3, torch.bfloat16, seed=1)
+    shifted = torch.empty(xp.numel() + 1, dtype=xp.dtype, device="cuda")[1:].view(xp.shape)
+    shifted.copy_(xp)
+    before = (conv7x7.launches, conv7x7.wgmma_launches)
+    with pytest.raises(ValueError, match="aligned"):
+        conv7x7(shifted, k, b)
+    xw, kw, bw = _conv7_inputs(1, 13, 21, 264, 3, torch.bfloat16, seed=2)
+    with pytest.raises(ValueError, match="too large"):
+        conv7x7(xw, kw, bw)
+    assert (conv7x7.launches, conv7x7.wgmma_launches) == before
 
 
 @pytest.mark.cuda
@@ -424,7 +478,11 @@ def test_functions_match_autograd_through_plain(dtype):
     rng = np.random.default_rng(32)
     xp7 = torch.from_numpy(rng.normal(size=(2, 19, 41, 3)).astype(np.float32)).to(dtype).cuda()
     k7 = torch.from_numpy((rng.normal(size=(16, 3, 7, 7)) * 0.1).astype(np.float32)).to(dtype).cuda()
+    before = conv7x7.wgmma_launches
     _grad_check(conv7x7, conv7x7_plain, [xp7, k7, torch.zeros(16, device="cuda")], dtype)
+    # the head (its forward on the kernel; bf16: the tensor-core one)
+    _grad_check(conv7x7, conv7x7_plain, list(_conv7_inputs(2, 38, 46, 64, 3, dtype, 33)), dtype)
+    assert conv7x7.wgmma_launches == before + 2 * (dtype == torch.bfloat16)
     xi = torch.randn((2, 13, 37, 64), device="cuda").to(dtype)
     r = torch.randn((2, 13, 37, 64), device="cuda").to(dtype)
     for act in ("relu", "lrelu", "none"):
