@@ -13,10 +13,10 @@ checkout is missing, and at the first failure of any phase:
      (nvcc, sm_90a) as a check build (BIASGAN_KERNEL_WATCHDOG=1: an mbarrier
      wait that never ends traps), one nvcc per source, all started together (the fused
      block conv's and the instance norm's backward among them); the bf16
-     kernels of the block conv, the down conv, the VALID conv (the block
-     conv's tile loop) and the 7x7 conv (its stem and head kernels together)
-     must hold wgmma (HGMMA) and TMA (UTMALDG, UTMASTG) instructions
-     (cuobjdump);
+     kernels of the block conv, the down conv, the up conv-transpose, the
+     VALID conv (the block conv's tile loop) and the 7x7 conv (its stem and
+     head kernels together) must hold wgmma (HGMMA) and TMA (UTMALDG,
+     UTMASTG) instructions (cuobjdump);
   3. each kernel against its plain PyTorch version on the card (TF32 off):
      at the shapes its main path gives it (the full-globe serve, or for
      the VALID 3x3 conv the 256x256 CycleGAN step), in bf16 and f32, and
@@ -28,9 +28,11 @@ checkout is missing, and at the first failure of any phase:
      conv's with stem tiles and head units touching both edges, every Cin
      and Cout side the CPU emulation test takes, two channel blocks, and
      batch 2 with more stem tiles than SMs and head units in two rounds;
-     the block conv, the stride-2 down conv, the VALID conv and the 7x7
-     conv on the path their wrappers' rule gives: every bf16 call on the
-     tensor-core (wgmma) kernel,
+     the up conv-transpose's with tiles touching all four edges, padded C
+     and Cout, three cout blocks, and batch 2 with more units than SMs;
+     the block conv, the stride-2 down conv, the up conv-transpose, the
+     VALID conv and the 7x7 conv on the path their wrappers' rule gives:
+     every bf16 call on the tensor-core (wgmma) kernel,
      counted apart, printed per globe shape); the VALID conv's input
      gradient (conv3x3_valid_dx: the kernel's pad of 2 on the unpadded
      cotangent) likewise, at the training step's cotangents, the globe's
@@ -90,8 +92,8 @@ checkout is missing, and at the first failure of any phase:
   5. a NetCDF-3 store of three 721x1440 fields per side and a seeded
      resnet_9blocks (ngf 64) checkpoint;
   6. serve the fields through ``biasgan_tpu_torch.infer.main`` on four
-     paths, counting each kernel's launches (the block conv's and the down
-     conv's also on their bf16 path: all of them, on every path and rank):
+     paths, counting each kernel's launches (the wgmma kernels' also on
+     their bf16 path: all of them, on every path and rank):
      --fused_blocks; the plain
      path; --fused_blocks --fused_updown --conv7_pallas 1; and
      --force_pallas_norm; then spatially sharded over four ranks on the
@@ -192,16 +194,18 @@ PATHS = {
                            {"halo_exchange_w": 24, "conv3x3_fused": 18}),
 }
 # kernel -> the wrapper's count of launches on its bf16 path, where the
-# wrapper routes by a rule (K1, K3, K4, K6: bf16 takes the TMA / wgmma
+# wrapper routes by a rule (K1, K3, K4, K5, K6: bf16 takes the TMA / wgmma
 # kernel, f32 the CUDA-core checker); every bf16 call must take it (K6's
 # forward and input-gradient launches alike)
 PATH_COUNTERS = {"conv3x3_fused": "wgmma_launches", "conv3x3s2_fused": "wgmma_launches",
-                 "conv3x3_valid": "wgmma_launches", "conv7x7": "wgmma_launches"}
+                 "convt3x3s2_fused": "wgmma_launches", "conv3x3_valid": "wgmma_launches",
+                 "conv7x7": "wgmma_launches"}
 # source -> its bf16 TMA / wgmma kernel (a part of cuobjdump's function
 # names; K6's is K1's tile loop, csrc/conv3x3_tma.cuh; K3's the stem's and
 # the head's, stem_wgmma_kernel and head_wgmma_kernel)
 WGMMA_KERNELS = {"conv3x3_fused": "conv_tma_kernel", "conv3x3s2_fused": "down_tma_kernel",
-                 "conv3x3_valid": "conv_tma_kernel", "conv7x7": "_wgmma_kernel"}
+                 "convt3x3s2_fused": "up_tma_kernel", "conv3x3_valid": "conv_tma_kernel",
+                 "conv7x7": "_wgmma_kernel"}
 # the halo exchanges of one sharded globe forward, per rank: (the local
 # tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
 # per rank; bf16 compute, but the stem pads the f32 input; H is padded
@@ -578,6 +582,15 @@ def sweep_cases(name):
             # blocks of the bf16 kernel's persistent grid walk from one image
             # into the next (its prologue table and moment slots change image)
             shapes += [(2, 90, 600, 64, 128), (2, 90, 600, 128, 256)]
+        else:
+            # tiles of the bf16 kernel (7 x 18 input pixels) touching all four
+            # edges (C 12 and Cout 20 the wrapper pads), three cout blocks
+            # over ragged tiles (Cout 136), W narrower than a tile, a tile
+            # filled exactly; batch 2 with 221 tiles per image, more units
+            # than the card's SMs, so blocks walk into the next image (a and
+            # b and the moment slots change image), one and two cout blocks
+            shapes += [(2, 5, 9, 12, 20), (1, 13, 40, 64, 136), (2, 9, 16, 128, 64),
+                       (1, 7, 18, 256, 64), (2, 90, 300, 64, 128), (2, 90, 300, 128, 64)]
         for shape in shapes:
             for w_mode in ("wrap", "zero"):
                 for pro in (False, True):
@@ -763,7 +776,8 @@ def timed(torch, fn, iters=20, warmup=3):
 # sharded paths (the halo exchange at every shape of HALO_CALLS, the plain
 # ring, the served ms/field). A plain checkout has none.
 PARENT_TREE = os.path.join(HERE, ".chip_archive", "parent")
-COMPARE_KERNELS = ("conv3x3_fused", "conv3x3_valid", "conv7x7")  # timed in both trees (kernel_turn)
+# timed in both trees (kernel_turn)
+COMPARE_KERNELS = ("conv3x3_fused", "conv3x3_valid", "conv7x7", "convt3x3s2_fused")
 COMPARE_ROUNDS = 1  # of the turns this, parent, parent, this
 SHARDED_PATHS = ("spatial", "spatial_rdma", "spatial_rdma_fused")
 # the shapes kernel_turn times a kernel at: its globe shapes and, for the

@@ -186,8 +186,8 @@ def test_updown_kernels_match_plain(which, dtype, c, cout):
     (output 13 x 300), at batch 2 and 1, and at batch 2 with more tiles
     than the card has SMs (output 45 x 300), so that blocks of the
     persistent grid walk from one image into the next (the prologue's a and
-    b and the moment slots change image mid-walk); every bf16 call on its
-    TMA / wgmma path, every f32 call off it."""
+    b and the moment slots change image mid-walk); every bf16 call of
+    either on its TMA / wgmma path, every f32 call off it."""
     _needs_card()
     fn, plain = ((conv3x3s2_fused, conv3x3s2_fused_plain) if which == "down"
                  else (convt3x3s2_fused, convt3x3s2_fused_plain))
@@ -202,12 +202,10 @@ def test_updown_kernels_match_plain(which, dtype, c, cout):
             if which == "up":
                 k = k.transpose(0, 1).contiguous()  # IOHW
             args = (x, k, b, (a, pb) if i >= 2 else None, "relu", w_mode, True)
-            before = fn.launches
-            on_path = getattr(fn, "wgmma_launches", 0)
+            before = (fn.launches, fn.wgmma_launches)
             y, m = fn(*args)
-            assert fn.launches == before + 1
-            if which == "down":
-                assert fn.wgmma_launches == on_path + (dtype == torch.bfloat16)
+            assert (fn.launches, fn.wgmma_launches) == (
+                before[0] + 1, before[1] + (dtype == torch.bfloat16))
             ry, rm = plain(*args)
             _check_y(y, ry, dtype)
             _check_moments(y, ry, m, rm)
@@ -229,6 +227,74 @@ def test_down_kernel_refuses_strided_or_misaligned_input():
     with pytest.raises(ValueError, match="16-byte aligned"):
         conv3x3s2_fused(shifted, k, b)
     assert (conv3x3s2_fused.launches, conv3x3s2_fused.wgmma_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 9, 12, 20), (1, 13, 40, 64, 136),
+                                   (2, 9, 16, 128, 64), (1, 7, 18, 256, 64)])
+def test_convt3x3s2_fused_tiles_touching_every_edge(dtype, shape):
+    """Tiles of the bf16 kernel (7 x 18 input pixels) touching all four
+    edges at once (the bottom H pad row and the right column, wrapped or
+    zero, on every tile), with and without the prologue: C 12 and Cout 20
+    padded by the wrapper; three cout blocks, the last ragged (Cout 136),
+    over ragged tiles; W narrower than a tile with two channel blocks; one
+    tile filled exactly (7 x 18, four channel blocks). Every bf16 call takes
+    the TMA / wgmma kernel (``wgmma_launches`` moves by one), every f32
+    call the CUDA-core one (it does not move)."""
+    _needs_card()
+    n, h, w, c, cout = shape
+    for i, (w_mode, pro_on) in enumerate((("wrap", False), ("wrap", True), ("zero", False),
+                                          ("zero", True))):
+        x, k, b, a, pb = _inputs(n, h, w, c, cout, dtype, 30 + i)
+        k = k.transpose(0, 1).contiguous()  # IOHW
+        args = (x, k, b, (a, pb) if pro_on else None, "relu", w_mode, True)
+        before = (convt3x3s2_fused.launches, convt3x3s2_fused.wgmma_launches)
+        y, m = convt3x3s2_fused(*args)
+        assert (convt3x3s2_fused.launches, convt3x3s2_fused.wgmma_launches) == (
+            before[0] + 1, before[1] + (dtype == torch.bfloat16))
+        ry, rm = convt3x3s2_fused_plain(*args)
+        assert tuple(y.shape) == (n, 2 * h, 2 * w, cout)
+        _check_y(y, ry, dtype)
+        _check_moments(y, ry, m, rm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,cout", [(64, 128), (128, 64)])
+def test_convt3x3s2_fused_batch_walks_across_images(c, cout):
+    """Batch 2 with 221 tiles per image (input 90 x 300), more units than
+    the card's SMs: blocks of the bf16 kernel's persistent grid walk from
+    one image into the next (a and b and the moment slots change image),
+    with one or two cout blocks a tile, both W modes, with and without the
+    prologue."""
+    _needs_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 2 * 13 * 17 > sms  # (90, 300): 13 x 17 tiles of 7 x 18 per image
+    for i, (w_mode, pro_on) in enumerate((("wrap", True), ("zero", False))):
+        x, k, b, a, pb = _inputs(2, 90, 300, c, cout, torch.bfloat16, 40 + i)
+        k = k.transpose(0, 1).contiguous()  # IOHW
+        args = (x, k, b, (a, pb) if pro_on else None, "relu", w_mode, True)
+        before = convt3x3s2_fused.wgmma_launches
+        y, m = convt3x3s2_fused(*args)
+        assert convt3x3s2_fused.wgmma_launches == before + 1
+        ry, rm = convt3x3s2_fused_plain(*args)
+        _check_y(y, ry, torch.bfloat16)
+        _check_moments(y, ry, m, rm)
+
+
+@pytest.mark.cuda
+def test_convt3x3s2_fused_bf16_kernel_refuses_misaligned_input():
+    """The bf16 kernel loads x with TMA: an x whose address is not 16-byte
+    aligned raises and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU form)")
+    x, k, b, _, _ = _inputs(1, 8, 16, 64, 64, torch.bfloat16, 0)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    shifted = shifted.view(x.shape).copy_(x)  # contiguous, 2 bytes off
+    before = (convt3x3s2_fused.launches, convt3x3s2_fused.wgmma_launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        convt3x3s2_fused(shifted, k.transpose(0, 1).contiguous(), b)
+    assert (convt3x3s2_fused.launches, convt3x3s2_fused.wgmma_launches) == before
 
 
 def _conv7_inputs(n, hp, wp, cin, cout, dtype, seed):
