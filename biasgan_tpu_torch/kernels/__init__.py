@@ -15,15 +15,22 @@ def wrappers() -> dict:
     }
 
 
+# the launches a wrapper counts per path, where it has paths: bf16 to a TMA
+# / wgmma kernel (K1, K3, K4, K5, K6); the instance norm's cluster and
+# persistent paths (K7)
+PATH_COUNTS = ("wgmma_launches", "cluster_launches", "persistent_launches")
+
+
 def counters() -> dict:
     """Every launch count of the kernel wrappers, name -> (wrapper,
-    attribute): each wrapper's ``launches``, and where a wrapper routes bf16
-    to a TMA / wgmma kernel, those launches as ``<name>.wgmma_launches``."""
+    attribute): each wrapper's ``launches``, and those on each of its
+    paths as ``<name>.<attribute>`` (PATH_COUNTS)."""
     out = {}
     for name, fn in wrappers().items():
         out[name] = (fn, "launches")
-        if hasattr(fn, "wgmma_launches"):
-            out[f"{name}.wgmma_launches"] = (fn, "wgmma_launches")
+        for attr in PATH_COUNTS:
+            if hasattr(fn, attr):
+                out[f"{name}.{attr}"] = (fn, attr)
     return out
 
 

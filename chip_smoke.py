@@ -33,7 +33,10 @@ checkout is missing, and at the first failure of any phase:
      the block conv, the stride-2 down conv, the up conv-transpose, the
      VALID conv and the 7x7 conv on the path their wrappers' rule gives:
      every bf16 call on the tensor-core (wgmma) kernel,
-     counted apart, printed per globe shape); the VALID conv's input
+     counted apart, printed per globe shape); the instance norm's forward
+     on each of its two one-launch paths (cluster, persistent) at the
+     sweep's, the globe's and the training step's shapes, the statistics
+     held too, each call repeated bitwise and counted on its path; the VALID conv's input
      gradient (conv3x3_valid_dx: the kernel's pad of 2 on the unpadded
      cotangent) likewise, at the training step's cotangents, the globe's
      and small shapes;
@@ -107,6 +110,8 @@ checkout is missing, and at the first failure of any phase:
      unpadded); --halo_rdma with the ring's. With a parent tree, the three
      sharded paths' served ms/field and the halo exchange per forward,
      there and here in turns;
+  (the --force_pallas_norm path's 23 instance norms a field each on the
+     path the norm's plan names, counted per path);
   7. train full-width CycleGAN (resnet_9blocks ngf 64, basic D ndf 64,
      instance norm, lsgan, pool 50, 256x256, batch 1, 3 channels,
      synthetic data from a seed) in f32 and bf16 on four routes: plain;
@@ -118,7 +123,8 @@ checkout is missing, and at the first failure of any phase:
      backward kernel: 54 per step there, 0 elsewhere; the VALID conv's
      forward and input gradient: 54 each per step on --pallas_conv 1, in
      bf16 all 108 on its TMA / wgmma kernel; the instance norm's backward
-     kernel: 27 per step on the all-kernel route); then
+     kernel: 27 per step on the all-kernel route, as the instance norm's
+     forward, each on the path its plan names); then
      ``biasgan_tpu_torch.train.main`` runs six steps on the route, counting
      launches, with finite losses, and its samples/s over steps 2-6 is
      printed. The checkpoint of one run is
@@ -200,6 +206,8 @@ PATHS = {
 PATH_COUNTERS = {"conv3x3_fused": "wgmma_launches", "conv3x3s2_fused": "wgmma_launches",
                  "convt3x3s2_fused": "wgmma_launches", "conv3x3_valid": "wgmma_launches",
                  "conv7x7": "wgmma_launches"}
+# the instance norm's paths, each counted in instance_norm_act.<path>_launches
+NORM_PATHS = ("cluster", "persistent")
 # source -> its bf16 TMA / wgmma kernel (a part of cuobjdump's function
 # names; K6's is K1's tile loop, csrc/conv3x3_tma.cuh; K3's the stem's and
 # the head's, stem_wgmma_kernel and head_wgmma_kernel)
@@ -230,16 +238,33 @@ class SmokeFailure(Exception):
     pass
 
 
-def with_path_counts(per_call: dict, dtype: str) -> dict:
+def with_path_counts(per_call: dict, dtype: str, norms=()) -> dict:
     """``per_call`` (kernel -> launches) with each PATH_COUNTERS count
     beside it: every launch on the bf16 path in bf16 (a kernel's
     ``<name>.bwd`` launches, the VALID conv's input gradients, too), none
-    in f32."""
+    in f32; and the instance norm's launches on each of its two paths, as
+    its plan names the path of each of ``norms`` ((NHWC shape, calls) of
+    its forward; NORM_CALLS)."""
     out = dict(per_call)
     for name, attr in PATH_COUNTERS.items():
         n = per_call.get(name, 0) + per_call.get(f"{name}.bwd", 0)
         out[f"{name}.{attr}"] = n if dtype == "bfloat16" else 0
+    out.update({f"instance_norm_act.{path}_launches": 0 for path in NORM_PATHS})
+    for shape, count in norms:
+        out[f"instance_norm_act.{norm_path(shape, dtype)}_launches"] += count
     return out
+
+
+def norm_path(shape, dtype) -> str:
+    """The path the instance norm's plan names for an NHWC ``shape``."""
+    import torch
+
+    from biasgan_tpu_torch.kernels.common import sm_count
+    from biasgan_tpu_torch.kernels.instance_norm_act import norm_plan
+
+    n, h, w, c = shape
+    es = torch.finfo(getattr(torch, str(dtype).replace("torch.", ""))).bits // 8
+    return norm_plan(n, h * w, c, es, sm_count(torch.device("cuda"))).path
 
 
 def check(cond: bool, msg: str) -> None:
@@ -684,6 +709,66 @@ def check_kernels(torch) -> dict:
     return errs
 
 
+def norm_path_cases():
+    """(shape, options) of check_norm_paths: the sweep (C 5, 64, 264, every
+    act with and without the residual), C 56 (a ragged last channel block on
+    the persistent path, 7 of 8-channel groups) likewise, the globe's
+    shapes and the training step's."""
+    cases = list(sweep_cases("instance_norm_act"))
+    cases += [((2, 13, 37, 56), dict(act=act, residual=res)) for act in ("none", "relu", "lrelu")
+              for res in (False, True)]
+    cases += [(shape, opt) for shape, opt, _ in GLOBE_CALLS["instance_norm_act"]]
+    return cases + [(shape, opt) for shape, opt, _ in GRAD_CALLS["instance_norm_act"][1]]
+
+
+def check_norm_paths(torch) -> dict:
+    """The instance norm's forward (instance_norm_act) on each of its paths
+    against instance_norm_act_plain (TOL) and its statistics against
+    instance_norm_stats_plain (the mean within 1e-3 of the plane's |mean| +
+    std, 1/std within 1e-3 relative), at norm_path_cases' shapes in f32 and
+    bf16: on the path the plan names and, where that is the cluster path,
+    on the persistent one too (persistent=True; the globe's planes fit no
+    cluster); each call twice on one input, y and the statistics bitwise
+    equal, each launch counted on its path. Returns the cases per path and
+    the largest bf16 |dy|."""
+    from biasgan_tpu_torch.kernels import instance_norm_act as k7
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out = {"cases": {path: 0 for path in NORM_PATHS}, "max_abs_err": 0.0}
+    for shape, opt in norm_path_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, r, act = make_case(torch, g, "instance_norm_act", shape, dtype, **opt)[0]
+            rmean, rinv = k7.instance_norm_stats_plain(x)
+            named = norm_path(shape, dtype)
+            for persistent in ((False, True) if named == "cluster" else (False,)):
+                path = "persistent" if persistent else named
+                where = f"instance_norm_act {shape} {dtype} {opt} on the {path} path"
+                before = {p: getattr(k7.instance_norm_act, f"{p}_launches") for p in NORM_PATHS}
+                stats = [torch.empty((2, shape[0], shape[3]), device="cuda") for _ in range(2)]
+                ys = [k7._launch(x, r, act, 1e-5, st, persistent) for st in stats]
+                torch.cuda.synchronize()
+                moved = {p: getattr(k7.instance_norm_act, f"{p}_launches") - before[p]
+                         for p in NORM_PATHS}
+                check(moved == {p: 2 * (p == path) for p in NORM_PATHS},
+                      f"{where}: launches per path {moved}")
+                err, _ = hold(torch, "instance_norm_act", (x, r, act), where,
+                              (lambda *a: ys[0], k7.instance_norm_act_plain))
+                mean, inv = stats[0]
+                check(bool(((mean - rmean).abs() <= 1e-3 * (rmean.abs() + 1 / rinv)).all())
+                      and bool(((inv - rinv).abs() <= 1e-3 * rinv).all()),
+                      f"{where}: statistics off by {float((mean - rmean).abs().max()):.3g} "
+                      f"(mean), {float(((inv - rinv) / rinv).abs().max()):.3g} (1/std, relative)")
+                check(torch.equal(ys[0], ys[1]) and torch.equal(stats[0], stats[1]),
+                      f"{where}: two calls on one input differ")
+                out["cases"][path] += 1
+                if dtype == torch.bfloat16:
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+    print(f"instance_norm_act on both paths: {out['cases']} cases within tolerance, statistics "
+          f"within 1e-3, every call twice bitwise equal, each launch on its path; bf16 largest "
+          f"|dy| {out['max_abs_err']:.3g}")
+    return out
+
+
 def time_kernels(torch, shapes=GLOBE_CALLS) -> dict:
     """At each of a kernel's ``shapes`` (the globe shapes) in bf16: the
     kernel, its plain version and the library call, in turns (plain,
@@ -777,13 +862,15 @@ def timed(torch, fn, iters=20, warmup=3):
 # ring, the served ms/field). A plain checkout has none.
 PARENT_TREE = os.path.join(HERE, ".chip_archive", "parent")
 # timed in both trees (kernel_turn)
-COMPARE_KERNELS = ("conv3x3_fused", "conv3x3_valid", "conv7x7", "convt3x3s2_fused")
+COMPARE_KERNELS = ("conv3x3_fused", "conv3x3_valid", "conv7x7", "convt3x3s2_fused",
+                   "instance_norm_act")
 COMPARE_ROUNDS = 1  # of the turns this, parent, parent, this
 SHARDED_PATHS = ("spatial", "spatial_rdma", "spatial_rdma_fused")
 # the shapes kernel_turn times a kernel at: its globe shapes and, for the
 # block conv, the sharded path's halo W mode and the training step's
 # forwards (with the prologue at B 2, 3, 1; without it at B 2); for the 7x7
-# conv, the training step's stems and heads (B 2, 3, 1)
+# conv, the training step's stems and heads (B 2, 3, 1); for the instance
+# norm, the training step's shapes too (GRAD_CALLS, added below it)
 TURN_CALLS = {name: [(shape, opt) for shape, opt, _ in calls]
               for name, calls in GLOBE_CALLS.items()}
 TURN_CALLS["conv3x3_fused"] += (
@@ -960,6 +1047,12 @@ GRAD_CALLS = {
     "instance_norm_act": ("instance_norm_act", [
         (shape, dict(act=act), n) for shape, act, n in _in_norms((2, 3, 1), ((1, 2), (2, 2)))]),
 }
+TURN_CALLS["instance_norm_act"] += [(shape, opt) for shape, opt, _ in
+                                     GRAD_CALLS["instance_norm_act"][1]]
+# the instance norm's forward calls per served field or training step on the
+# paths that run it: (NHWC shape, calls), each on the path its plan names
+NORM_CALLS = {"plain_norm": [(shape, n) for shape, _, n in GLOBE_CALLS["instance_norm_act"]],
+              "all": [(shape, n) for shape, _, n in GRAD_CALLS["instance_norm_act"][1]]}
 # the shapes whose gradients are held to autograd through the plain version
 GRAD_CHECKS = {
     "conv3x3_fused_t": [((2, 64, 64, 256, 256), dict(prologue=True)),
@@ -1789,16 +1882,18 @@ def serve(torch, work: str, path: str):
         check(y.shape == (1, GLOBE_H, GLOBE_W, N_VARS), f"{path}: field {i} shape {y.shape}")
         check(bool(np.isfinite(y).all()), f"{path}: field {i} has non-finite values")
         fields.append(y)
-    per_field = with_path_counts(PATHS[path][1], "bfloat16")  # the fields are bf16
+    per_field = with_path_counts(PATHS[path][1], "bfloat16", NORM_CALLS.get(path, ()))
     want = {name: per_field.get(name, 0) * N_TIMES for name in per_rank[0]}
     for r, launches in enumerate(per_rank):
         check(launches == want, f"{path}: rank {r} kernel launches {launches}, expected "
               f"{want} ({N_TIMES} fields)")
     if "--halo_rdma" in PATHS[path][0]:
         check_halo_route(torch, path, log, want["halo_exchange_w"])
-    taken = {k: v for k, v in per_rank[0].items() if k.endswith(".wgmma_launches") and v}
+    taken = {k: v for k, v in per_rank[0].items()
+             if k.endswith((".wgmma_launches", ".cluster_launches", ".persistent_launches")) and v}
     if taken:
-        print(f"  {path}: launches on the bf16 (TMA / wgmma) path"
+        print(f"  {path}: launches on each kernel's path (bf16 TMA / wgmma, norm cluster or "
+              "persistent)"
               + (" on every rank" if sharded else "") + f" {taken}")
     return fields, [float(s[0]) for s in stamps], [float(s[1]) for s in stamps], per_rank[0]
 
@@ -1985,7 +2080,7 @@ def train_steps(torch, route, dtype, work, perturb=0.0, timed_steps=True, extra=
     losses, vis = step(state, batches[0], step_generator(cfg.seed, 0))
     torch.cuda.synchronize()
     counts = read_counts()
-    per_step = with_path_counts(TRAIN_ROUTES[route][1], dtype)
+    per_step = with_path_counts(TRAIN_ROUTES[route][1], dtype, NORM_CALLS.get(route, ()))
     want = {k: per_step.get(k, 0) for k in counts}
     check(counts == want, f"train {route} {dtype} step 1: launches {counts}, expected {want}")
     first = {"losses": {k: float(v) for k, v in losses.items()},
@@ -2069,7 +2164,7 @@ def train_cli(torch, route, dtype, work, save=False):
         state = train.main(train_argv(route, dtype, work, f"cli_{route}_{dtype}", save))
     torch.cuda.synchronize()
     counts = read_counts()
-    per_step = with_path_counts(TRAIN_ROUTES[route][1], dtype)
+    per_step = with_path_counts(TRAIN_ROUTES[route][1], dtype, NORM_CALLS.get(route, ()))
     want = {k: per_step.get(k, 0) * TRAIN_SAMPLES for k in counts}
     check(counts == want, f"train CLI {route} {dtype}: launches {counts}, expected {want}")
     log = out.getvalue()
@@ -2271,7 +2366,7 @@ def sharded_train_phase(torch, work) -> dict:
 
 
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
-                  trained, spatial_times, halo, loopback, sharded, parent) -> list:
+                  trained, spatial_times, halo, loopback, sharded, parent, norm_paths) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
@@ -2305,6 +2400,12 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
             counted = (trained["launches"][f"{path}/bfloat16"] if unit == "step"
                        else launches[path])
             entry["wgmma_launches"] = counted[f"{name}.{PATH_COUNTERS[name]}"]
+        if name == "instance_norm_act":
+            entry["path_launches"] = {
+                where: {p: counted[f"{name}.{p}_launches"] for p in NORM_PATHS}
+                for where, counted in (("plain_norm", launches["plain_norm"]),
+                                       ("all (training)", trained["launches"]["all/bfloat16"]))}
+            entry["path_cases"] = norm_paths["cases"]
         against = {k: v for k, v in parent.get("kernels", {}).items()
                    if k.split()[0] == name}
         if against:
@@ -2479,6 +2580,7 @@ def main() -> int:
         environment(torch)
         build_kernels()
         errs = check_kernels(torch)
+        norm_paths = check_norm_paths(torch)
         times = time_kernels(torch)
         spatial_times = time_kernels(torch, SPATIAL_CALLS)
         halo = check_halo_exchange(torch)
@@ -2502,7 +2604,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
                                                spatial_times, halo, loopback, sharded,
-                                               parent)}))
+                                               parent, norm_paths)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -369,20 +369,33 @@ def test_conv7x7_bf16_head_refuses_what_it_cannot_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("persistent", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [5, 64, 256, 264])
-def test_instance_norm_act_kernel_matches_plain(dtype, c):
+def test_instance_norm_act_kernel_matches_plain(dtype, c, persistent):
+    """Both one-launch paths (the cluster path, which these planes take,
+    and the persistent one forced): y within tolerance of the plain
+    version, the statistics of the forward within 1e-3, one launch a call
+    on its path's counter, a second call bitwise equal."""
     _needs_card()
+    path = "persistent" if persistent else "cluster"
     for i, (act, res) in enumerate((("relu", False), ("none", True), ("lrelu", True))):
         rng = np.random.default_rng(c + i)
         x = torch.from_numpy((rng.normal(size=(2, 13, 37, c)) * 3 + 1).astype(np.float32))
         r = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)) if res else None
         x = x.to(dtype).cuda()
         r = None if r is None else r.to(dtype).cuda()
-        before = instance_norm_act.launches
-        y = instance_norm_act(x, r, act)
-        assert instance_norm_act.launches == before + 1
+        assert k7_mod.plan_for(x, persistent).path == path
+        before = (instance_norm_act.launches, getattr(instance_norm_act, f"{path}_launches"))
+        y = instance_norm_act(x, r, act, persistent=persistent)
+        assert (instance_norm_act.launches, getattr(instance_norm_act, f"{path}_launches")) == (
+            before[0] + 1, before[1] + 1)
         _check_y(y, instance_norm_act_plain(x, r, act), dtype)
+        stats = torch.empty((2, 2, c), device="cuda")
+        assert torch.equal(k7_mod._launch(x, r, act, 1e-5, stats, persistent), y)
+        mean, inv = instance_norm_stats_plain(x)
+        assert bool(((stats[0] - mean).abs() <= 1e-3 * (mean.abs() + 1 / inv)).all())
+        assert bool(((stats[1] - inv).abs() <= 1e-3 * inv).all())
 
 
 # ---------------------------------------------------------------------------

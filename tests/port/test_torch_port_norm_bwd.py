@@ -129,6 +129,7 @@ def test_norm_bwd_kernel_branch_dispatch(monkeypatch):
     monkeypatch.setattr(k7, "check_device", lambda *a: False)
     monkeypatch.setattr(k7, "launch", fake_launch)
     monkeypatch.setattr(k7, "num_tiles", lambda *a: 3)
+    monkeypatch.setattr(k7, "sm_count", lambda device: 132)  # the forward's plan reads the card
     monkeypatch.setattr(k7, "instance_norm_act_bwd_plain", no_plain)
     monkeypatch.setattr(k7, "_act_grad_from_out", no_plain)
     g = torch.Generator().manual_seed(0)
