@@ -2,7 +2,7 @@
 
 Counterpart of ``biasgan_tpu/config.py`` (the reference family's three-tier
 argparse options), cut to the fields the ported paths read: inference
-(``TestConfig``) and CycleGAN training (``TrainConfig``). Field names and
+(``TestConfig``) and training (``TrainConfig``). Field names and
 defaults are the JAX package's, so the same command line drives
 ``infer.py`` / ``train.py`` and ``python -m biasgan_tpu_torch.infer`` /
 ``.train``. Its two signature behaviors are kept:
@@ -58,6 +58,7 @@ class BaseConfig:
     # data
     dataset_mode: str = "aligned"
     batch_size: int = 1
+    load_size: int = 286
     crop_size: int = 256
     max_dataset_size: int = -1  # -1 = unlimited (reference: inf)
     preprocess: str = "resize_and_crop"
@@ -148,6 +149,7 @@ class TestConfig(BaseConfig):
     phase: str = "test"
     # test-time loader defaults (reference TestOptions hardcodes these)
     batch_size: int = 1
+    load_size: int = 256  # reference parity: load_size = crop_size at test
     serial_batches: bool = True
 
 

@@ -17,8 +17,12 @@ The port holds them in the torch layout under torch module names:
 trip is bit-exact. Names follow the torch-oracle naming: the ResNet
 generator's ``blocks.{i}.conv{j}`` <-> ``block{i}/conv{j}``, the
 discriminators' ``convs.{n}`` / ``norms.{n}`` / ``out`` <-> ``conv{n}`` /
-``norm{n}`` / ``conv_out``, every other module the same on both sides; the
-U-Net naming joins with its slice.
+``norm{n}`` / ``conv_out``, the U-Net's ``downs.{i}`` / ``down_norms.{i}``
+/ ``ups.{i}`` / ``up_norms.{i}`` <-> ``down{i}`` / ``down_norm{i}`` /
+``up{i}`` / ``up_norm{i}``, every other module the same on both sides. The
+tree names alone do not tell a U-Net's ``down0`` from the ResNet's, so a
+tree without a ``stem`` (the ResNet's 7x7 input conv) whose modules include
+a ``down{i}`` is taken for a U-Net's.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ import torch
 
 # tree path <-> torch module prefix: the resnet blocks, the discriminators'
 # conv{n} / norm{n} / conv_out, every other module the same on both sides
+_UNET_TO_TORCH = (
+    (r"^(down|up)(\d+)$", r"\1s.\2"),
+    (r"^(down|up)_norm(\d+)$", r"\1_norms.\2"),
+)
 _TO_TORCH = (
     (r"^block(\d+)/(conv|norm)(\d+)$", r"blocks.\1.\2\3"),
     (r"^(conv|norm)(\d+)$", r"\1s.\2"),
@@ -39,6 +47,8 @@ _TO_TORCH = (
     (r"^([A-Za-z_0-9]+)$", r"\1"),
 )
 _TO_TREE = (
+    (r"^(down|up)s\.(\d+)$", r"\1\2"),
+    (r"^(down|up)_norms\.(\d+)$", r"\1_norm\2"),
     (r"^blocks\.(\d+)\.(conv|norm)(\d+)$", r"block\1/\2\3"),
     (r"^(conv|norm)s\.(\d+)$", r"\1\2"),
     (r"^out$", r"conv_out"),
@@ -56,7 +66,18 @@ def _rename(name: str, rules) -> str:
 
 
 def _is_convT(path: str, transpose_prefixes: Tuple[str, ...]) -> bool:
-    return any(path.split("/")[-1].startswith(p) for p in transpose_prefixes)
+    """Whether the tree module ``path`` is a conv-transpose: its name is a
+    prefix and an index (``up1``; not ``up_norm1``)."""
+    name = path.split("/")[-1]
+    return any(re.fullmatch(re.escape(p) + r"\d*", name) for p in transpose_prefixes)
+
+
+def _tree_rules(params: Mapping):
+    """The tree -> torch rules for ``params``: a U-Net's (no ``stem``, a
+    ``down{i}``) first."""
+    names = set(params)
+    unet = "stem" not in names and any(re.fullmatch(r"down\d+", n) for n in names)
+    return (_UNET_TO_TORCH if unet else ()) + _TO_TORCH
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -86,15 +107,16 @@ def params_to_state_dict(
     ``state_dict``. ``transpose_prefixes``: tree modules whose name starts
     with one of these are conv-transposes (HWIO -> IOHW)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    rules = _tree_rules(params)
     for key, v in _flatten(params).items():
         *mod, leaf = key.split("/")
         if mod and mod[-1] == _BN:
-            prefix = _rename("/".join(mod[:-1]), _TO_TORCH)
+            prefix = _rename("/".join(mod[:-1]), rules)
             name = {"scale": "weight", "bias": "bias"}[leaf]
             sd[f"{prefix}.{name}"] = torch.from_numpy(np.array(v, np.float32))
             continue
         path = "/".join(mod)
-        prefix = _rename(path, _TO_TORCH)
+        prefix = _rename(path, rules)
         if leaf == "kernel":
             axes = (2, 3, 0, 1) if _is_convT(path, transpose_prefixes) else (3, 2, 0, 1)
             w = np.ascontiguousarray(np.asarray(v, np.float32).transpose(axes))
@@ -107,7 +129,7 @@ def params_to_state_dict(
         *mod, leaf = key.split("/")
         if not mod or mod[-1] != _BN or leaf not in ("mean", "var"):
             raise KeyError(f"unrecognized batch statistic {key!r}")
-        prefix = _rename("/".join(mod[:-1]), _TO_TORCH)
+        prefix = _rename("/".join(mod[:-1]), rules)
         sd[f"{prefix}.running_{leaf}"] = torch.from_numpy(np.array(v, np.float32))
         if leaf == "mean":
             sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)

@@ -3,8 +3,9 @@
 Counterpart of ``biasgan_tpu/data/__init__.py`` (the reference's
 ``create_dataset(opt)`` -> iterable of dicts {'A','B','A_paths','B_paths'}),
 numpy-only: batches are NHWC float32 numpy arrays that the CLIs move to
-their device. The datasets registered so far are 'climate' and 'synthetic';
-the image datasets and the train/val split arrive with later slices.
+their device. The datasets registered so far are 'aligned', 'climate' and
+'synthetic'; the other image datasets and the train/val split arrive with
+later slices.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Any, Dict, Iterator, List
 
 import numpy as np
 
-from biasgan_tpu_torch.data import climate, synthetic  # noqa: F401 (registers both)
+from biasgan_tpu_torch.data import aligned, climate, synthetic  # noqa: F401 (registers them)
 
 
 class DataLoader:

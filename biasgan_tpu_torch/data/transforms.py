@@ -1,11 +1,15 @@
-"""Per-sample RNG, per-variable standardization and the in-step
-augmentation.
+"""Per-sample RNG, the host-side image preprocessing, per-variable
+standardization and the in-step augmentation.
 
-Counterpart of ``sample_rng``, ``standardize`` and ``in_graph_augment`` in
-``biasgan_tpu/data/transforms.py``. The augmentation runs on the training
-device inside the step, with an explicit ``torch.Generator`` (the JAX key's
-streams cannot be matched, so the parity tests turn it off). The image
-preprocessing there arrives with the image datasets.
+Counterpart of ``sample_rng``, ``get_params``, ``transform_image``,
+``standardize`` and ``in_graph_augment`` in
+``biasgan_tpu/data/transforms.py``. The image half (the reference's
+get_params / get_transform: resize to --load_size, crop to --crop_size with
+the pair's shared draws, power-of-2 snapping, flip, [-1, 1]) is a copy, on
+PIL and numpy, so both packages read the same arrays. The augmentation
+runs on the training device inside the step, with an explicit
+``torch.Generator`` (the JAX key's streams cannot be matched, so the parity
+tests turn it off).
 """
 
 from __future__ import annotations
@@ -21,6 +25,79 @@ def sample_rng(seed: int, epoch: int, index: int) -> np.random.Generator:
     sample index) so results are reproducible under --seed and independent of
     worker-thread scheduling, while still varying across epochs."""
     return np.random.default_rng((int(seed), int(epoch), int(index)))
+
+
+def get_params(cfg, size: Tuple[int, int], rng: np.random.Generator) -> Dict:
+    """Shared random transform draws for an aligned pair (reference
+    get_params). Crop positions range over the post-resize size: the actual
+    image size unless a resize precedes the crop."""
+    w, h = size
+    new_w, new_h = w, h
+    if cfg.preprocess == "resize_and_crop":
+        new_w = new_h = cfg.load_size
+    elif cfg.preprocess == "scale_width_and_crop":
+        new_w, new_h = cfg.load_size, int(cfg.load_size * h / w)
+    x = int(rng.integers(0, max(0, new_w - cfg.crop_size) + 1))
+    y = int(rng.integers(0, max(0, new_h - cfg.crop_size) + 1))
+    flip = bool(rng.random() > 0.5)
+    return {"crop_pos": (x, y), "flip": flip}
+
+
+def transform_image(
+    img,
+    cfg,
+    params: Optional[Dict] = None,
+    grayscale: bool = False,
+    method=None,
+    rng: Optional[np.random.Generator] = None,
+) -> np.ndarray:
+    """PIL image -> float32 HWC in [-1, 1], reference preprocess modes:
+    resize_and_crop | crop | scale_width | scale_width_and_crop | none."""
+    from PIL import Image
+
+    method = method or Image.BICUBIC
+    img = img.convert("L") if grayscale else img.convert("RGB")
+    pre = cfg.preprocess
+    if "resize" in pre:
+        img = img.resize((cfg.load_size, cfg.load_size), method)
+    elif "scale_width" in pre:
+        w, h = img.size
+        if w != cfg.load_size:
+            img = img.resize((cfg.load_size, int(cfg.load_size * h / w)), method)
+    if "crop" in pre:
+        if params is None:
+            w, h = img.size
+            r = rng if rng is not None else np.random.default_rng()
+            x = int(r.integers(0, max(0, w - cfg.crop_size) + 1))
+            y = int(r.integers(0, max(0, h - cfg.crop_size) + 1))
+        else:
+            x, y = params["crop_pos"]
+        img = img.crop((x, y, x + cfg.crop_size, y + cfg.crop_size))
+    if pre == "none":
+        img = _make_power_2(img, base=4, method=method)
+    if not cfg.no_flip:
+        # aligned pairs share their draws; unaligned / single images draw a
+        # fresh coin each (the reference's RandomHorizontalFlip)
+        if params is not None:
+            flip = params["flip"]
+        else:
+            r = rng if rng is not None else np.random.default_rng()
+            flip = bool(r.random() > 0.5)
+        if flip:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    arr = np.asarray(img, dtype=np.float32) / 127.5 - 1.0
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    return arr
+
+
+def _make_power_2(img, base: int, method):
+    ow, oh = img.size
+    w = int(round(ow / base) * base) or base
+    h = int(round(oh / base) * base) or base
+    if w == ow and h == oh:
+        return img
+    return img.resize((w, h), method)
 
 
 def standardize(x, mean, std, inverse: bool = False):

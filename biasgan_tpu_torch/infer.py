@@ -10,11 +10,12 @@ over W (longitude) with halo exchange.
 
 Counterpart of the repo-root ``infer.py``, with the same flags: read the
 fields, standardize with the source-domain stats, reflect-pad H to the
-2^downs multiple and wrap-pad W to n_shards * 2^downs (the JAX CLI pads W
-x8 wider under --fused_blocks for its TPU kernel; the padded columns enter
-the instance-norm statistics, so the port, whose kernels need no
-alignment, does not), run G,
-crop, destandardize with the target-domain stats, and write
+2^downs multiple (a U-Net's downs, the resnets' 2) and wrap-pad W to
+n_shards * 2^downs (the JAX CLI pads W x8 wider under --fused_blocks for
+its TPU kernel; the padded columns enter the instance-norm statistics, so
+the port, whose kernels need no alignment, does not), run G (a batch norm
+normalizes by its running averages), crop, destandardize with the
+target-domain stats, and write
 ``<results_dir>/<name>/fields/corrected_%05d.npy``. G loads from
 ``<checkpoints_dir>/<name>/<epoch>_net_<G>.pth``; --direction picks G_A or
 G_B of a CycleGAN run.
@@ -66,6 +67,7 @@ from biasgan_tpu_torch.data.transforms import standardize
 from biasgan_tpu_torch.kernels import launch_counts
 from biasgan_tpu_torch.kernels.halo_exchange import halo_counts
 from biasgan_tpu_torch.nn import compute_dtype_of, define_G
+from biasgan_tpu_torch.nn.factory import unet_downs
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
 from biasgan_tpu_torch.parallel import HaloCtx, pad_to_multiple, placement, spatial_apply, spawn
@@ -74,8 +76,11 @@ from biasgan_tpu_torch.utils import checkpoint
 
 
 def generator_downs(netG: str) -> int:
-    """Stride-product exponent of the generator (for pad divisibility);
-    the ported generators are the resnets, with two stride-2 downs."""
+    """Stride-product exponent of the generator (for pad divisibility): a
+    U-Net's downs, or the resnets' two stride-2 downs (JAX infer.py:38-50)."""
+    downs = unet_downs(netG)
+    if downs is not None:
+        return downs
     if netG.startswith("resnet"):
         return 2
     raise ValueError(netG)
@@ -182,7 +187,10 @@ def routing_notices(cfg, G: torch.nn.Module, sharded: bool = False) -> list:
         why = blocker or "it needs --fused_blocks"
         notes.append(f"--fused_updown: ignored — {why}; using cuDNN convs + norms")
     notes += pallas_conv_notices(cfg, blocker)
-    if conv7_on(cfg.conv7_pallas):
+    resnet = cfg.netG.startswith("resnet")
+    if conv7_on(cfg.conv7_pallas) and not resnet:
+        notes.append(f"--conv7_pallas: ignored — netG {cfg.netG!r} has no 7x7 conv")
+    elif conv7_on(cfg.conv7_pallas):
         for conv in ("stem", "head"):
             mod = getattr(G, conv)
             if not conv7_eligible(mod.weight.shape, mod.stride, mod.padding):
@@ -197,6 +205,9 @@ def routing_notices(cfg, G: torch.nn.Module, sharded: bool = False) -> list:
             notes.append(
                 f"--force_pallas_norm: ignored — norm {cfg.norm!r} is not instance norm"
             )
+        elif not resnet:
+            notes.append(f"--force_pallas_norm: ignored — netG {cfg.netG!r} normalizes "
+                         "without it, as the JAX U-Net")
         elif cfg.fused_blocks and cfg.fused_updown and blocker is None:
             notes.append(
                 "--force_pallas_norm: ignored — with --fused_blocks and "

@@ -3,9 +3,9 @@
 Counterpart of the registrations in ``biasgan_tpu/models/`` (pix2pix,
 cycle_gan, test). An entry carries the model's reference default flags,
 which generator checkpoint ``<epoch>_net_<name>.pth`` inference loads, and,
-for a model the port trains (cycle_gan), its training state and step
-(``create_state``, ``make_train_step``, ``loss_names``). Pix2pix training
-arrives with a later slice.
+for a model the port trains (pix2pix, cycle_gan), its training state and
+step (``create_state``, ``make_train_step``, ``loss_names``; pix2pix's G
+forward for evaluation too, ``make_eval_fn``).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict
 
-from biasgan_tpu_torch.models import cyclegan
+from biasgan_tpu_torch.models import cyclegan, pix2pix
 from biasgan_tpu_torch.registry import register_model
 
 
@@ -22,8 +22,13 @@ class TestModelConfig:
     model_suffix: str = ""  # reference: load "G<suffix>" (e.g. '_A' from CycleGAN)
 
 
-@register_model("pix2pix")
+@register_model("pix2pix", pix2pix.Pix2PixConfig)
 class Pix2PixModel:
+    loss_names = pix2pix.LOSS_NAMES
+    create_state = staticmethod(pix2pix.create_state)
+    make_train_step = staticmethod(pix2pix.make_train_step)
+    make_eval_fn = staticmethod(pix2pix.make_eval_fn)
+
     @staticmethod
     def config_defaults(train: bool) -> Dict[str, Any]:
         # reference Pix2PixModel.modify_commandline_options

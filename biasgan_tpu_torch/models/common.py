@@ -168,6 +168,13 @@ def resolve_direction(batch, direction: str):
     raise ValueError(f"unknown direction {direction!r}")
 
 
+def device_generator(generator: Optional[torch.Generator], device) -> torch.Generator:
+    """A generator on ``device`` seeded by one draw from the CPU
+    ``generator`` (the step's): the source of the step's dropout masks."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The CPU generator of one step's draws (augmentation, pools), derived
     from (--seed, step) alone, so a resumed run draws what an uninterrupted

@@ -43,6 +43,7 @@ from biasgan_tpu_torch.config import route_on
 from biasgan_tpu_torch.models.common import (
     GANTrainState,
     adam_of,
+    device_generator,
     make_lr_schedule,
     named_params,
     prepare_batch,
@@ -167,7 +168,10 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         if ctx is not None:
             batch = shard_batch(batch, ctx)
         real_A, real_B = resolve_direction(batch, cfg.direction)
-        G_A, G_B = (lambda x, G=state.nets[k]: G(x, ctx=ctx) for k in ("G_A", "G_B"))
+        # the resnet blocks' dropout masks, where dropout is on
+        drop = device_generator(generator, real_A.device) if cfg.dropout() else None
+        G_A, G_B = (lambda x, G=state.nets[k]: G(x, ctx=ctx, generator=drop)
+                    for k in ("G_A", "G_B"))
         D_A, D_B = state.nets["D_A"], state.nets["D_B"]
         lr = lr_fn(state.step, state.lr_scale)
         b = real_A.shape[0]

@@ -1,0 +1,218 @@
+"""pix2pix: paired image-to-image / bias-correction GAN, the training step.
+
+Counterpart of ``biasgan_tpu/models/pix2pix.py``, the reference's
+``Pix2PixModel``:
+
+  forward: fake_B = G(real_A), once, in training mode
+  D step (first): 0.5 (GAN(D(cat(A, fake_B.detach())), fake)
+                       + GAN(D(cat(A, B)), real)) [+ lambda_gp GP], Adam
+  G step: GAN(D_new(cat(A, fake_B)), real) + lambda_L1 L1(fake_B, B), the
+          gradient through the same G forward, Adam with the same LR
+
+Batch-norm running statistics move as the JAX step moves them: G's once
+(its one forward); D's on the fake pass, then the real pass, then the G
+head's pass with the updated D; the gradient penalty's D forward
+normalizes with batch statistics and leaves D's running averages as they
+were (the JAX step throws its stats away, :220-225). Without batch norm the
+fake and real D passes run as one 2B pass (``[fake; real]``), exact for a
+per-sample norm (:200-218). Dropout masks and the penalty's alpha come
+from the step's CPU generator (``step_generator``): the masks from a device
+generator it seeds.
+
+The kernel routes (--fused_blocks, --pallas_conv, --conv7_pallas,
+--force_pallas_norm) are attributes of the nets (``build_nets``), as in
+``models/cyclegan.py``: a resnet G takes them; the U-Net has no layer they
+take (the JAX U-Net reaches no Pallas kernel), and the CLIs say so.
+
+The sharded step (``--spatial_mesh N``, W-global batch moments) is not
+ported yet: a spatial context raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from biasgan_tpu_torch import losses
+from biasgan_tpu_torch.config import TrainConfig, route_on
+from biasgan_tpu_torch.models.common import (
+    GANTrainState,
+    adam_of,
+    device_generator,
+    make_lr_schedule,
+    named_params,
+    prepare_batch,
+    resolve_direction,
+    step_generator,
+)
+from biasgan_tpu_torch.nn import compute_dtype_of, define_D, define_G
+from biasgan_tpu_torch.nn.layers import running_stats_frozen
+
+LOSS_NAMES = ("G_GAN", "G_L1", "D_real", "D_fake")
+SHARDED = ("the sharded pix2pix step (--spatial_mesh N > 1, W-global batch-norm moments) "
+           "is not ported yet")
+
+
+@dataclass
+class Pix2PixConfig:
+    lambda_L1: float = 100.0
+    lambda_gp: float = 10.0  # only used when gan_mode == 'wgangp'
+
+
+def build_nets(cfg, generator: Optional[torch.Generator] = None,
+               train: bool = True) -> Dict[str, torch.nn.Module]:
+    """G (A -> B) and, with ``train``, the conditional D (judges cat(A, B)),
+    with the configuration's kernel routes. Weights are drawn from
+    ``generator`` in the order G, D."""
+    dtype = compute_dtype_of(cfg.compute_dtype)
+    nets = {"G": define_G(
+        cfg.netG, cfg.input_nc, cfg.output_nc, ngf=cfg.ngf, norm=cfg.norm,
+        use_dropout=cfg.dropout(), init_type=cfg.init_type, init_gain=cfg.init_gain,
+        w_mode=cfg.w_pad_mode or None, compute_dtype=dtype,
+        out_activation=cfg.netG_activation, fused_blocks=cfg.fused_blocks,
+        conv7=route_on("--conv7_pallas", cfg.conv7_pallas), fused_norm=cfg.force_pallas_norm,
+        pallas_conv=route_on("--pallas_conv", cfg.pallas_conv), generator=generator,
+    )}
+    if train:
+        nets["D"] = define_D(
+            cfg.netD, cfg.input_nc + cfg.output_nc, ndf=cfg.ndf, n_layers_D=cfg.n_layers_D,
+            norm=cfg.norm, init_type=cfg.init_type, init_gain=cfg.init_gain,
+            w_mode=cfg.w_pad_mode or "zero", compute_dtype=dtype,
+            fused_norm=cfg.force_pallas_norm, generator=generator,
+        )
+    return nets
+
+
+def create_state(cfg, device, nets: Optional[Dict[str, torch.nn.Module]] = None,
+                 ctx=None) -> GANTrainState:
+    """The state on ``device``, the nets seeded from --seed unless given: a
+    training config's G, D and an Adam for each; a test config's G alone
+    (the reference builds D and the optimizers only under isTrain,
+    :83-103)."""
+    if ctx is not None:
+        raise NotImplementedError(SHARDED)
+    train = isinstance(cfg, TrainConfig)
+    if nets is None:
+        nets = build_nets(cfg, torch.Generator().manual_seed(cfg.seed), train)
+    nets = {k: v.to(device).train() for k, v in nets.items()}
+    opts = {k: adam_of(cfg, named_params(nets, (k,))) for k in nets} if train else {}
+    return GANTrainState(step=0, lr_scale=1.0, nets=nets, opts=opts)
+
+
+def _zero_grads(opt) -> None:
+    for _, p in opt.params:
+        p.grad = None
+
+
+def _grad_norm(opt) -> torch.Tensor:
+    """The global L2 norm of the optimizer's gradients, in f32 (a missing
+    grad is zero)."""
+    sq = [p.grad.float().square().sum() for _, p in opt.params if p.grad is not None]
+    return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+
+
+def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None):
+    """The pix2pix step: ``step(state, batch, generator=None, gp_alpha=None)
+    -> (losses, visuals)``, updating ``state`` in place (module docstring).
+    ``batch`` holds device tensors (A, B and, for climate data, their
+    stats); ``generator`` (CPU; default ``step_generator(--seed, step)``)
+    draws the augmentation, the dropout masks' seed and the penalty's alpha;
+    ``gp_alpha`` ((N, 1, 1, 1)) gives that alpha instead. The losses are
+    G_GAN, G_L1, D_real, D_fake, and with ``debug_grad_norms`` the global
+    gradient norms g_grad_norm and d_grad_norm (the JAX step's hook)."""
+    if ctx is not None:
+        raise NotImplementedError(SHARDED)
+    lr_fn = make_lr_schedule(cfg)
+    gan_mode = cfg.gan_mode
+    lambda_l1, lambda_gp = cfg.lambda_L1, cfg.lambda_gp
+    fuse_d = cfg.norm != "batch"
+
+    def step(state: GANTrainState, batch, generator: Optional[torch.Generator] = None,
+             gp_alpha: Optional[torch.Tensor] = None):
+        if generator is None:
+            generator = step_generator(cfg.seed, state.step)
+        batch = prepare_batch(batch, generator, cfg, train=True)
+        real_A, real_B = resolve_direction(batch, cfg.direction)
+        G, D = state.nets["G"], state.nets["D"]
+        drop = device_generator(generator, real_A.device) if cfg.dropout() else None
+        lr = lr_fn(state.step, state.lr_scale)
+
+        # one G forward serves both updates (the reference's forward())
+        fake_B = G(real_A, generator=drop)
+        real_AB = torch.cat([real_A, real_B], dim=-1)
+        fake_AB = torch.cat([real_A, fake_B.detach()], dim=-1)
+
+        # ---- D update (first, as in the reference) ----
+        if fuse_d:
+            pred_fake, pred_real = torch.chunk(D(torch.cat([fake_AB, real_AB])), 2)
+        else:
+            pred_fake = D(fake_AB)
+            pred_real = D(real_AB)
+        loss_D_fake = losses.gan_loss(pred_fake, False, gan_mode)
+        loss_D_real = losses.gan_loss(pred_real, True, gan_mode)
+        loss_D = 0.5 * (loss_D_fake + loss_D_real)
+        if gan_mode == "wgangp":
+            with running_stats_frozen(D):
+                loss_D = loss_D + lambda_gp * losses.gradient_penalty(
+                    D, real_AB, fake_AB, alpha=gp_alpha, generator=generator)
+        _zero_grads(state.opts["D"])
+        loss_D.backward()
+        d_norm = _grad_norm(state.opts["D"]) if debug_grad_norms else None
+        state.opts["D"].step(lr)
+
+        # ---- G update, through the updated D (its grads not kept) ----
+        for p in D.parameters():
+            p.requires_grad_(False)
+        try:
+            loss_G_GAN = losses.gan_loss(D(torch.cat([real_A, fake_B], dim=-1)), True,
+                                         gan_mode)
+            loss_G_L1 = losses.l1_loss(fake_B, real_B) * lambda_l1
+            _zero_grads(state.opts["G"])
+            (loss_G_GAN + loss_G_L1).backward()
+        finally:
+            for p in D.parameters():
+                p.requires_grad_(True)
+        g_norm = _grad_norm(state.opts["G"]) if debug_grad_norms else None
+        state.opts["G"].step(lr)
+        for opt in state.opts.values():
+            _zero_grads(opt)
+        state.step += 1
+
+        vals = (loss_G_GAN, loss_G_L1, loss_D_real, loss_D_fake)
+        loss_dict = dict(zip(LOSS_NAMES, (v.detach().float() for v in vals)))
+        if debug_grad_norms:
+            loss_dict.update(g_grad_norm=g_norm, d_grad_norm=d_norm)
+        return loss_dict, {"real_A": real_A, "fake_B": fake_B.detach(), "real_B": real_B}
+
+    return step
+
+
+def make_eval_fn(cfg):
+    """G's forward (the reference's model.test()): ``eval_fn(state, batch,
+    generator=None, train=False) -> visuals``. ``train=True`` is the
+    reference's test without --eval: batch statistics and dropout (masks
+    from ``generator``, default ``step_generator(--seed, step)``), and G's
+    running averages move; otherwise the running averages normalize."""
+
+    @torch.no_grad()
+    def eval_fn(state: GANTrainState, batch, generator: Optional[torch.Generator] = None,
+                train: bool = False):
+        batch = prepare_batch(batch, None, cfg, train=False)
+        real_A, real_B = resolve_direction(batch, cfg.direction)
+        G = state.nets["G"]
+        was_training = G.training
+        G.train(train)
+        try:
+            drop = None
+            if train and cfg.dropout():
+                gen = generator if generator is not None else step_generator(cfg.seed,
+                                                                             state.step)
+                drop = device_generator(gen, real_A.device)
+            fake_B = G(real_A, generator=drop)
+        finally:
+            G.train(was_training)
+        return {"real_A": real_A, "fake_B": fake_B, "real_B": real_B}
+
+    return eval_fn

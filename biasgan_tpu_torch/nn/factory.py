@@ -16,9 +16,9 @@ import torch
 from torch import nn
 
 from biasgan_tpu_torch.nn.discriminators import NLayerDiscriminator, PixelDiscriminator
-from biasgan_tpu_torch.nn.generators import ResNetGenerator
+from biasgan_tpu_torch.nn.generators import ResNetGenerator, UNetGenerator
 
-_UNET_NAMES = ("unet_256", "unet_128", "unet_64", "unet_32")
+_UNET_DOWNS = {"unet_256": 8, "unet_128": 7, "unet_64": 6, "unet_32": 5}
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -49,11 +49,31 @@ def define_G(
     pallas_conv: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
-    """Build a generator module by name: resnet_9blocks | resnet_6blocks |
-    resnet_<K>blocks. ``w_mode`` overrides width-axis padding ('wrap' =
-    periodic longitude). ``fused_blocks``, ``fused_updown``, ``conv7``,
-    ``fused_norm`` and ``pallas_conv`` route the resnet's layers through the hand-written
-    kernels (``ResNetGenerator``). The U-Net names are not ported yet."""
+    """Build a generator module by name: unet_256 | unet_128 | unet_64 |
+    unet_32 (8 / 7 / 6 / 5 downs) | unet_d<K> (K downs) | resnet_9blocks |
+    resnet_6blocks | resnet_<K>blocks. ``w_mode`` overrides width-axis
+    padding ('wrap' = periodic longitude; unset, the U-Net pads zero and the
+    resnet reflects). ``fused_blocks``, ``fused_updown``, ``conv7``,
+    ``fused_norm`` and ``pallas_conv`` route the resnet's layers through the
+    hand-written kernels (``ResNetGenerator``); the U-Net has no layer they
+    take (the JAX U-Net reaches no kernel), and the CLIs say so
+    (``infer.routing_notices``, ``train.routing_notices``)."""
+    downs = unet_downs(netG)
+    if downs is not None:
+        return UNetGenerator(
+            input_nc=input_nc,
+            output_nc=output_nc,
+            ngf=ngf,
+            num_downs=downs,
+            norm_type=norm,
+            use_dropout=use_dropout,
+            out_activation=out_activation,
+            w_mode=w_mode or "zero",
+            init_type=init_type,
+            init_gain=init_gain,
+            compute_dtype=compute_dtype,
+            generator=generator,
+        )
     m = re.fullmatch(r"resnet_(\d+)blocks", netG)
     if m:
         return ResNetGenerator(
@@ -75,12 +95,13 @@ def define_G(
             pallas_conv=pallas_conv,
             generator=generator,
         )
-    if netG in _UNET_NAMES or re.fullmatch(r"unet_d(\d+)", netG):
-        raise NotImplementedError(
-            f"generator {netG!r} is not yet ported to biasgan_tpu_torch "
-            "(the U-Net arrives with the pix2pix training slice)"
-        )
     raise ValueError(f"unknown generator name {netG!r}")
+
+
+def unet_downs(netG: str) -> Optional[int]:
+    """The U-Net's number of downs for a U-Net name, else None."""
+    m = re.fullmatch(r"unet_d(\d+)", netG)
+    return int(m.group(1)) if m else _UNET_DOWNS.get(netG)
 
 
 def define_D(

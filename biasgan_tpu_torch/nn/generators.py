@@ -1,6 +1,15 @@
-"""ResNet generator (the CycleGAN / full-globe generator).
+"""The generators: the U-Net (pix2pix) and the ResNet (CycleGAN, the
+full globe).
 
-Counterpart of ``ResNetBlock`` and ``ResNetGenerator`` in
+``UNetGenerator`` is the counterpart of ``UNetGenerator`` in
+``biasgan_tpu/nn/generators.py`` (:50-133), module names those of the torch
+oracle (``downs.{i}``, ``down_norms.{i}``, ``ups.{i}``, ``up_norms.{i}``;
+``biasgan_tpu/utils/torch_import.py:28-37``). It runs no hand-written
+kernel: the JAX U-Net reaches no Pallas kernel (its 4x4 stride-2 convs and
+conv-transposes and its norms pass no kernel gate), so its convs are cuDNN's
+here.
+
+The ResNet is the counterpart of ``ResNetBlock`` and ``ResNetGenerator`` in
 ``biasgan_tpu/nn/generators.py``, whole-forward form (the JAX package's
 ``stage='all'``). Channel schedule, norm placement, bias rules and padding
 follow it; module names follow the torch oracle of
@@ -47,6 +56,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from biasgan_tpu_torch.kernels.common import stored_moments
@@ -71,6 +81,109 @@ def _check_spatial(ctx, w: int, stride: int, where: str) -> None:
             f"{where}: sharded local width {w} not divisible by stride {stride}; "
             "pad the global field to a multiple of n_shards * 2^n_downsamples"
         )
+
+
+class UNetGenerator(nn.Module):
+    """Reference ``UnetGenerator``: ``num_downs`` 4x4 stride-2 convs down to
+    a bottleneck (down channels ``min(2^i, 8) * ngf``; down0 without
+    pre-activation or norm, the innermost down without norm), mirrored by
+    4x4 stride-2 conv-transposes with skip concatenation ``cat([d_i, u])``
+    (input first), conv biases only where the norm is not batch norm (always
+    on the outermost up), output cast to f32, then tanh (or 'none').
+    unet_256 <=> num_downs 8. Input and output are NHWC.
+
+    ``use_dropout``: Dropout(0.5) (flax's: kept values scaled by 2) after
+    the norm of each up block i with ``dc[i] == dc[i-1] == 8 ngf``, the
+    ``num_downs - 5`` intermediate 8 ngf blocks, in training mode only; its
+    masks are drawn on the device from the ``generator`` the forward is
+    given (the step's), never from torch's global stream.
+
+    ``w_mode``: the downs' W pad ('zero', or 'wrap' for periodic
+    longitude); the conv-transposes wrap when it wraps. Under a spatial
+    context ``ctx`` (this rank's W shard) every conv pads W by halo
+    exchange, the instance norms take W-global statistics and batch norm
+    normalizes by its running averages (in training it raises)."""
+
+    def __init__(
+        self,
+        input_nc: int,
+        output_nc: int,
+        ngf: int = 64,
+        num_downs: int = 8,
+        norm_type: str = "batch",
+        use_dropout: bool = False,
+        out_activation: str = "tanh",
+        w_mode: str = "zero",
+        init_type: str = "normal",
+        init_gain: float = 0.02,
+        compute_dtype: Optional[torch.dtype] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        D = self.num_downs = num_downs
+        self.out_activation = out_activation
+        use_bias = norm_uses_bias(norm_type)
+        common = dict(init_type=init_type, init_gain=init_gain,
+                      compute_dtype=compute_dtype, generator=generator)
+        dc = [min(2**i, 8) * ngf for i in range(D)]
+        up_w = "wrap" if w_mode == "wrap" else "zero"
+
+        def norm(ch: int) -> nn.Module:
+            return make_norm(norm_type, ch, compute_dtype, generator)
+
+        def up(cin: int, cout: int, bias: bool) -> ConvTranspose2d:
+            return ConvTranspose2d(cin, cout, (4, 4), stride=(2, 2), padding=(1, 1),
+                                   use_bias=bias, w_mode=up_w, **common)
+
+        self.downs = nn.ModuleList()
+        self.down_norms = nn.ModuleDict()
+        prev = input_nc
+        for i in range(D):
+            self.downs.append(Conv2d(prev, dc[i], (4, 4), stride=(2, 2), padding=(1, 1),
+                                     use_bias=use_bias, w_mode=w_mode, **common))
+            if 0 < i < D - 1:
+                self.down_norms[str(i)] = norm(dc[i])
+            prev = dc[i]
+        # ups[i] makes level i: from the innermost down's output alone at
+        # i = D - 1, else from the skip concatenation of level i + 1
+        self.ups = nn.ModuleList(
+            [up(2 * dc[0], output_nc, True)]
+            + [up(2 * dc[i], dc[i - 1], use_bias) for i in range(1, D - 1)]
+            + [up(dc[D - 1], dc[D - 2], use_bias)])
+        self.up_norms = nn.ModuleDict({str(i): norm(dc[i - 1]) for i in range(1, D)})
+        self.drop_at = {i for i in range(1, D - 1)
+                        if use_dropout and dc[i] == dc[i - 1] == 8 * ngf}
+
+    def forward(self, x: torch.Tensor, ctx=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        D = self.num_downs
+        _check_spatial(ctx, x.shape[2], 2, "unet down0")
+        d = [self.downs[0](x, ctx=ctx)]
+        for i in range(1, D):
+            _check_spatial(ctx, d[-1].shape[2], 2, f"unet down{i}")
+            h = self.downs[i](F.leaky_relu(d[-1], negative_slope=0.2), ctx=ctx)
+            if i < D - 1:
+                h = norm_act(h, self.down_norms[str(i)], ctx=ctx)
+            d.append(h)
+        u = norm_act(self.ups[D - 1](F.relu(d[D - 1]), ctx=ctx), self.up_norms[str(D - 1)],
+                     ctx=ctx)
+        for i in range(D - 2, 0, -1):
+            u = self.ups[i](F.relu(torch.cat([d[i], u], dim=-1)), ctx=ctx)
+            u = norm_act(u, self.up_norms[str(i)], ctx=ctx)
+            if i in self.drop_at and self.training:
+                u = dropout(u, 0.5, generator)
+        u = self.ups[0](F.relu(torch.cat([d[0], u], dim=-1)), ctx=ctx).float()
+        return torch.tanh(u) if self.out_activation == "tanh" else u
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout(rate)`` in training: each value kept with probability
+    1 - rate and scaled by 1 / (1 - rate), else 0. The mask is drawn on x's
+    device from ``generator``, which must be given and live there."""
+    if generator is None:
+        raise ValueError("dropout in training needs the step's torch.Generator")
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 
 def fused_blocks_blocker(norm_type: str, use_dropout: bool) -> Optional[str]:
@@ -113,7 +226,7 @@ class ResNetBlock(nn.Module):
 
         self.conv0 = conv()
         self.norm0 = make_norm(norm_type, dim, compute_dtype, generator)
-        self.dropout = nn.Dropout(0.5) if use_dropout else None
+        self.use_dropout = use_dropout
         self.conv1 = conv()
         self.norm1 = make_norm(norm_type, dim, compute_dtype, generator)
 
@@ -124,6 +237,7 @@ class ResNetBlock(nn.Module):
         fused_norm: bool = False,
         pallas_conv: bool = False,
         ctx=None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         if fused and ctx is not None:
             return self._forward_fused_sharded(x, ctx)
@@ -138,8 +252,8 @@ class ResNetBlock(nn.Module):
             return apply_affine(y1, a1, b1) + x
         h = self.conv0(x, pallas_conv=pallas_conv, ctx=ctx)
         h = norm_act(h, self.norm0, activation="relu", fused=fused_norm, ctx=ctx)
-        if self.dropout is not None:
-            h = self.dropout(h)
+        if self.use_dropout and self.training:
+            h = dropout(h, 0.5, generator)
         h = self.conv1(h, pallas_conv=pallas_conv, ctx=ctx)
         return norm_act(h, self.norm1, residual=x, fused=fused_norm, ctx=ctx)
 
@@ -285,9 +399,12 @@ class ResNetGenerator(nn.Module):
     def _norm_act(self, h, norm, **kw):
         return norm_act(h, norm, fused=self.fused_norm, **kw)
 
-    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """NHWC ``x`` -> NHWC output; under a spatial context ``ctx``, this
-        rank's W shard of both (module docstring)."""
+        rank's W shard of both (module docstring). ``generator``: the
+        device generator the blocks' dropout masks come from, in training
+        with dropout on (``dropout``)."""
         fused_down, fused_up = self.updown_engaged(x) if ctx is None else (False, False)
         h = self.stem(x, conv7=self.conv7, ctx=ctx)
         if fused_down:
@@ -309,7 +426,7 @@ class ResNetGenerator(nn.Module):
         for block in self.blocks:
             h = block(
                 h, fused=fused, fused_norm=self.fused_norm,
-                pallas_conv=self.pallas_conv, ctx=ctx,
+                pallas_conv=self.pallas_conv, ctx=ctx, generator=generator,
             )
         if fused_up:
             # up0's norm + ReLU rides into up1

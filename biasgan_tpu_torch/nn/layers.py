@@ -37,6 +37,7 @@ fused stride-2 down and up convs as ``Conv2d.forward_fused_s2`` and
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Tuple
 
@@ -306,6 +307,8 @@ def norm_act(
         if fused and ctx is None:
             return instance_norm_act(x, residual, activation, norm.eps)
         h = instance_norm(x, norm.eps, ctx)
+    elif isinstance(norm, BatchNorm):
+        h = norm(x, ctx)
     else:
         h = norm(x)
     if residual is not None:
@@ -338,11 +341,18 @@ class InstanceNorm(nn.Module):
 class BatchNorm(nn.Module):
     """Batch norm on NHWC with the buffers and names of torch
     ``BatchNorm2d`` (weight, bias, running_mean, running_var,
-    num_batches_tracked), evaluated like the JAX package's flax BatchNorm
-    with running averages: f32 math, output in ``dtype`` (None = f32).
+    num_batches_tracked), with the arithmetic of the JAX package's flax
+    ``BatchNorm`` (biasgan_tpu/nn/layers.py:699-740, flax 0.12.3): f32
+    statistics, output in ``dtype`` (None = f32).
 
-    Only the eval form exists: batch-statistics training arrives with the
-    pix2pix training slice."""
+    In training the statistics are the batch's over (N, H, W): the mean and
+    the biased variance max(E[x^2] - E[x]^2, 0) (flax's
+    ``use_fast_variance``), with gradients through both; each forward moves
+    the running averages as flax does, ``r = 0.9 r + 0.1 batch`` with the
+    biased variance (torch's own running update would take the unbiased
+    one), unless ``update_stats`` is off (``running_stats_frozen``). In eval
+    the running averages normalize. Either way
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, flax's order."""
 
     def __init__(
         self,
@@ -354,21 +364,50 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.out_dtype = dtype
+        self.update_stats = True
         self.weight = nn.Parameter(batchnorm_scale_init((num_features,), generator))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm training is not ported yet (pix2pix training slice)"
-            )
-        # flax _normalize order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+            if ctx is not None:
+                raise NotImplementedError(
+                    "batch-norm training on a sharded W (W-global batch moments) is not "
+                    "ported yet: it comes with the sharded pix2pix step"
+                )
+            mean = xf.mean(dim=(0, 1, 2))
+            var = torch.clamp(xf.square().mean(dim=(0, 1, 2)) - mean.square(), min=0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    # flax: ra = momentum * ra + (1 - momentum) * batch
+                    self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
+                    self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+                    self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * mul + self.bias
         return y.to(self.out_dtype or torch.float32)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Within the block, ``module``'s batch norms normalize as they would
+    (batch statistics in training) but leave their running averages as they
+    are: the JAX pix2pix step throws away the stats its gradient penalty's
+    D forward updates (biasgan_tpu/models/pix2pix.py:220-225)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 def make_norm(

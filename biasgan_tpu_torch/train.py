@@ -4,13 +4,19 @@
       --netG resnet_9blocks --ngf 64 --ndf 64 --crop_size 256 --input_nc 3 \\
       --output_nc 3 --batch_size 1 --compute_dtype bfloat16 --fused_blocks \\
       --name RUN --device cuda
+  python -m biasgan_tpu_torch.train --model pix2pix --dataset_mode synthetic \\
+      --compute_dtype bfloat16 --name RUN --device cuda
+
+(pix2pix at the reference's defaults: unet_256 G, basic D, batch norm,
+vanilla GAN + L1, dropout on, 256x256.)
 
 Counterpart of the repo-root ``train.py`` (:130-249), with its flags:
 parse the config, build the dataset and the training state, then the epoch
 loop (fetch a batch, move it to the device, one optimization step; print
 and log the losses, save at the cadences; advance the LR schedule at each
 epoch's end). The loss line is the reference's, ``(epoch: E, iters: I,
-time: T, data: D) D_A: ... idt_B: ...``, to stdout and
+time: T, data: D) G_GAN: ... D_fake: ...`` (CycleGAN: ``D_A: ... idt_B:
+...``), to stdout and
 ``<run_dir>/loss_log.txt``. Saves write the full training state
 (``ckpt/<tag>.pt``) and each net's ``<tag>_net_<name>.pth``, which
 ``python -m biasgan_tpu_torch.infer`` loads; ``--continue_train`` resumes
@@ -36,8 +42,9 @@ ignored, with a notice (the kernel has no backward, and the JAX training
 context has no rdma); --fused_blocks takes the block conv's halo W mode.
 
 Not carried: --steps_per_call (a scan of steps per dispatch), --profile,
---data_mesh, the validation metrics and the HTML pages. Only CycleGAN
-trains so far.
+--data_mesh, the validation metrics and the HTML pages. pix2pix trains on
+one device (``models.pix2pix``; its sharded step is not ported yet and
+raises), CycleGAN on one device or sharded.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ def routing_notices(cfg, state) -> list:
     """One line per kernel flag: engaged, or ignored and why."""
     notes = []
     resnet = cfg.netG.startswith("resnet")
+    gens = [k for k in state.nets if k.startswith("G")]
     blocker = (fused_blocks_blocker(cfg.norm, cfg.dropout()) if resnet
                else f"netG {cfg.netG!r} has no resnet block chain")
     fused = cfg.fused_blocks and blocker is None
@@ -83,22 +91,27 @@ def routing_notices(cfg, state) -> list:
             "--pallas_conv: engaged (conv3x3_op on the block convs, forward and input "
             "gradient)"]
     if route_on("--conv7_pallas", cfg.conv7_pallas):
-        for g in ("G_A", "G_B"):
+        if not resnet:
+            notes.append(f"--conv7_pallas: ignored — netG {cfg.netG!r} has no 7x7 conv")
+        for g in gens if resnet else ():
             for conv in ("stem", "head"):
-                mod = getattr(state.nets[g], conv, None)
-                if mod is None or not conv7_eligible(mod.weight.shape, mod.stride,
-                                                     mod.padding):
+                mod = getattr(state.nets[g], conv)
+                if not conv7_eligible(mod.weight.shape, mod.stride, mod.padding):
                     notes.append(f"--conv7_pallas: the {g} {conv} stays on cuDNN — the "
                                  "kernel takes a 7x7 conv with exactly one channel "
                                  "side of at most 8")
         if not any(n.startswith("--conv7_pallas") for n in notes):
             notes.append("--conv7_pallas: engaged (conv7x7 on the stems and heads)")
     if cfg.force_pallas_norm:
-        notes.append(
-            "--force_pallas_norm: engaged (instance_norm_act on the instance norms "
-            "of G and D)" if cfg.norm == "instance" else
-            f"--force_pallas_norm: ignored — norm {cfg.norm!r} is not instance norm"
-        )
+        if cfg.norm != "instance":
+            notes.append(f"--force_pallas_norm: ignored — norm {cfg.norm!r} is not "
+                         "instance norm")
+        elif resnet:
+            notes.append("--force_pallas_norm: engaged (instance_norm_act on the instance "
+                         "norms of G and D)")
+        else:
+            notes.append("--force_pallas_norm: engaged on the D's instance norms only — "
+                         f"netG {cfg.netG!r} normalizes without it, as the JAX U-Net")
     return notes
 
 
@@ -265,8 +278,11 @@ def main(argv=None):
     model = get_model(cfg.model)
     if not hasattr(model, "make_train_step"):
         raise NotImplementedError(f"training model {cfg.model!r} is not ported yet "
-                                  "(the port trains cycle_gan)")
+                                  "(the port trains pix2pix and cycle_gan)")
     n = max(cfg.spatial_mesh, 1)
+    if n > 1 and cfg.model != "cycle_gan":
+        raise NotImplementedError(f"sharded training of model {cfg.model!r} is not ported "
+                                  "yet (--spatial_mesh > 1 trains cycle_gan)")
     if n > 1:
         sharded_w_mode(cfg)
     dataset = create_dataset(cfg)

@@ -138,7 +138,23 @@ checkout is missing, and at the first failure of any phase:
      exact launch counts per rank and every rank's parameters bitwise
      equal; then ``train.main --spatial_mesh 4`` runs three bf16 steps on
      each route (finite losses, exact launches, equal parameters), and
-     rank 0's ms/step is printed.
+     rank 0's ms/step is printed;
+  9. pix2pix, the reference's default model: the JAX bench's
+     configuration (unet_256 G, basic D, batch norm, vanilla + L1, no
+     pool, dropout on, 256x256, 3 channels, ngf / ndf 64) through
+     ``biasgan_tpu_torch.train.main`` in bf16 at batch 1, six steps and a
+     save (finite losses, no kernel launched, every saved running mean
+     moved from 0); step 1 with dropout off in f32 on the card and on the
+     CPU (which the CPU tests hold to JAX), for vanilla, lsgan and wgangp
+     (its alpha from the step's seeded CPU generator), held by the rules
+     of 7, the noise floor the larger of the card's and the CPU's; three
+     bf16 steps at bench.py's batch of 128 (ms/step, samples/s,
+     max_memory_allocated); the step on
+     a kernel route (resnet_9blocks, instance norm, --fused_blocks, lsgan,
+     bf16): step 1 held to the same step without the flag, then the CLI's
+     two steps with K2's forward and backward on each of the 18 block
+     convs once a step, exact; and the saved U-Net serving one field of
+     the store of 5 through ``biasgan_tpu_torch.infer.main``.
 
 On a host with a card per rank the sharded phases run over NCCL, the halo
 kernel writing across NVLink peers and signalling on the device.
@@ -823,6 +839,18 @@ def device_time(torch, fn, iters=10) -> dict:
     characters), from torch.profiler over ``iters`` calls after a warm-up:
     what the card ran, apart from the host work of the call (the CUDA-event
     time includes the host's when it is the slower)."""
+    return profile_calls(torch, fn, iters)[0]
+
+
+def _kernel_events(torch, prof) -> list:
+    """The profile's kernels on the card (copies and fills apart)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def profile_calls(torch, fn, iters=10):
+    """(``device_time``'s ms per call by kernel, the number of kernel
+    events the profile of ``iters`` calls holds)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -832,12 +860,34 @@ def device_time(torch, fn, iters=10) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(
-                ("Memcpy", "Memset")):
-            k = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)[:48]
-            out[k] = out.get(k, 0.0) + e.device_time_total / 1e3 / iters
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+    events = _kernel_events(torch, prof)
+    for e in events:
+        k = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)[:48]
+        out[k] = out.get(k, 0.0) + e.device_time_total / 1e3 / iters
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])), len(events)
+
+
+def counted_device_time(torch, fn, iters=10) -> dict:
+    """``device_time`` with a check of the profile: the kernels one call
+    runs on the card (a profile of one call after a warm-up, at least the
+    port's kernel launches the call counts), and the events of the ``iters``
+    timed calls, which must be ``iters`` times that many. torch.profiler
+    has lost or doubled a call's events in some profiles, which then read a
+    device time that was not the card's; such a reading is marked
+    invalid."""
+    from biasgan_tpu_torch.kernels import launch_counts
+
+    def launches():  # the wrappers' launches (their per-path counts apart)
+        return sum(v for k, v in launch_counts().items() if "." not in k)
+
+    before = launches()
+    per_call = device_kernels(torch, fn)[0]
+    launched = (launches() - before) // 2  # the warm-up call and the profiled one
+    by_kernel, events = profile_calls(torch, fn, iters)
+    valid = per_call >= max(launched, 1) and events == iters * per_call
+    return {"device_ms": sum(by_kernel.values()), "device_ms_by_kernel": by_kernel,
+            "kernels_per_call": per_call, "launches_per_call": launched,
+            "events": events, "expected_events": iters * per_call, "device_valid": valid}
 
 
 def timed(torch, fn, iters=20, warmup=3):
@@ -885,7 +935,7 @@ def kernel_turn(torch) -> dict:
     """One turn of compare_parent, in the tree this process imports the
     port from: each COMPARE_KERNELS kernel at its TURN_CALLS shapes in bf16
     on seeded inputs, ms per call (best of three timed runs) and the call's
-    device ms by kernel."""
+    device ms by kernel, with the profile's check (``counted_device_time``)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for name in COMPARE_KERNELS:
@@ -893,10 +943,8 @@ def kernel_turn(torch) -> dict:
             fn = kernel_fns(name, opt.get("bwd"))[0]
             args = make_case(torch, g, name, shape, torch.bfloat16, **opt)[0]
             ms = min(timed(torch, lambda: fn(*args)) for _ in range(3))
-            device = device_time(torch, lambda: fn(*args))
             key = f"{name} {tuple(shape)}" + "".join(f" {k}={v}" for k, v in opt.items())
-            out[key] = {"ms": ms, "device_ms": sum(device.values()),
-                        "device_ms_by_kernel": device}
+            out[key] = {"ms": ms, **counted_device_time(torch, lambda: fn(*args))}
     return out
 
 
@@ -961,7 +1009,10 @@ def compare_parent(torch, work: str) -> dict:
     parent_turn (a copy of it under ``work``, which the turn's spawned ranks
     import), so both sides see the same inputs and timing; the store and
     checkpoint of ``work`` serve the sharded paths. Returns each side's
-    best: per kernel shape its ms and device ms; per sharded path the halo
+    best: per kernel shape its ms and device ms, the latter over the turns
+    whose profile held the kernel events the calls make (the others are
+    printed as dropped and counted; a side with no such turn reads None);
+    per sharded path the halo
     exchange and plain ring per forward per rank, and the served ms/field
     (the median of fields 2..N of a turn) ({} without a parent tree)."""
     if not os.path.isdir(os.path.join(PARENT_TREE, "biasgan_tpu_torch")):
@@ -990,11 +1041,18 @@ def compare_parent(torch, work: str) -> dict:
             for key, r in turn["kernels"].items():
                 print(f"  {side:6s} {key}: {r['ms']:.4f} ms per call (CUDA events), "
                       f"{r['device_ms']:.4f} on the card (torch.profiler): "
-                      + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms_by_kernel"].items()))
+                      + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms_by_kernel"].items())
+                      + ("" if r["device_valid"] else
+                         f"; device reading DROPPED: {r['events']} kernel events in the "
+                         f"profile, expected {r['expected_events']} ({r['kernels_per_call']} "
+                         f"a call, the port's launches {r['launches_per_call']})"))
                 b = best["kernels"].setdefault(key, {}).setdefault(
-                    side, {"ms": r["ms"], "device_ms": r["device_ms"]})
+                    side, {"ms": r["ms"], "device_ms": None, "dropped_device_turns": 0})
                 b["ms"] = min(b["ms"], r["ms"])
-                b["device_ms"] = min(b["device_ms"], r["device_ms"])
+                if not r["device_valid"]:
+                    b["dropped_device_turns"] += 1
+                elif b["device_ms"] is None or r["device_ms"] < b["device_ms"]:
+                    b["device_ms"] = r["device_ms"]
             sh = turn["sharded"]
             mine = best["sharded"].setdefault(side, {})
             for path in SHARDED_PATHS:
@@ -2365,8 +2423,236 @@ def sharded_train_phase(torch, work) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# pix2pix: the reference's default model on one card
+# ---------------------------------------------------------------------------
+
+# the JAX bench's configuration (bench.py:180-195): unet_256 G, basic D,
+# batch norm, vanilla GAN + L1, no pool, dropout on, 256x256, 3 channels,
+# ngf / ndf 64; here at the reference's batch 1 on seeded synthetic data
+P2P_ARGS = [
+    "--model", "pix2pix", "--dataset_mode", "synthetic", "--seed", "0",
+    "--netG", "unet_256", "--netD", "basic", "--norm", "batch", "--gan_mode", "vanilla",
+    "--pool_size", "0", "--ngf", "64", "--ndf", "64", "--crop_size", "256",
+    "--input_nc", "3", "--output_nc", "3", "--batch_size", "1",
+    "--synthetic_samples", str(TRAIN_SAMPLES), "--n_epochs", "1", "--n_epochs_decay", "0",
+    "--print_freq", "1", "--save_latest_freq", "1000000",
+]
+# the kernel route through the pix2pix step: K2 on the resnet's 18 block
+# convs, forward and backward, once a step (one G forward), held to the
+# same step without it
+P2P_PLAIN = ["--netG", "resnet_9blocks", "--norm", "instance", "--no_dropout",
+             "--gan_mode", "lsgan"]
+P2P_ROUTE = P2P_PLAIN + ["--fused_blocks"]
+P2P_ROUTE_STEP = {"conv3x3_fused": 18, "conv3x3_fused_t": 18, "conv3x3_fused_bwd": 18}
+P2P_ROUTE_STEPS = 2
+BENCH_BATCH, BENCH_STEPS = 128, 3  # bench.py's batch, three timed steps
+
+
+def p2p_argv(work, name, *extra):
+    return P2P_ARGS + ["--checkpoints_dir", os.path.join(work, "pix2pix"), "--name", name,
+                       *extra]
+
+
+def p2p_first_step(torch, device, argv, perturb=0.0) -> dict:
+    """Step 1 of the pix2pix step on ``device`` from the seeded nets (drawn
+    on the CPU, so the same on every device) and the first synthetic batch
+    (moved by ``perturb`` relative noise for the noise floor): the losses,
+    and the step's gradients as Adam's first moment after it gives them
+    (mu = (1 - b1) g, the moments start at 0), per net."""
+    from biasgan_tpu_torch.config import parse_config
+    from biasgan_tpu_torch.data import create_dataset
+    from biasgan_tpu_torch.models.common import step_generator
+    from biasgan_tpu_torch.models.pix2pix import create_state, make_train_step
+    from biasgan_tpu_torch.train import batch_to
+
+    cfg = parse_config(argv + ["--device", str(device)], train=True)
+    cfg.steps_per_epoch = TRAIN_SAMPLES
+    batch = batch_to(next(iter(create_dataset(cfg))), device)
+    if perturb:
+        g = torch.Generator().manual_seed(11)
+        for k in ("A", "B"):
+            x = batch[k]
+            batch[k] = x * (1 + perturb * torch.randn(x.shape, generator=g).to(device))
+    state = create_state(cfg, device)
+    losses, _ = make_train_step(cfg)(state, batch, step_generator(cfg.seed, 0))
+    grads = {net: {k: (v / (1 - opt.b1)).cpu() for k, v in opt.mu.items()}
+             for net, opt in state.opts.items()}
+    return {"losses": {k: float(v) for k, v in losses.items()}, **grads}
+
+
+def p2p_cli(torch, argv, steps) -> tuple:
+    """``train.main`` on ``argv``; every launch count set to 0 just before
+    and read just after. Returns (launches, state, the loss lines)."""
+    from biasgan_tpu_torch import train
+
+    out = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(out):
+        state = train.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("(epoch:")]
+    check(len(lines) == steps, f"pix2pix CLI: {len(lines)} loss lines, expected {steps}")
+    check(not any("nan" in ln or "inf" in ln for ln in lines), "pix2pix CLI: non-finite loss")
+    for ln in out.getvalue().splitlines():
+        if ln.startswith("--") or ln.startswith("(epoch:"):
+            print(f"  cli: {ln}")
+    return counts, state, lines
+
+
+def pix2pix_phase(torch, work) -> dict:
+    """pix2pix on the card (module docstring, phase 9): the bench
+    configuration through the training CLI; its first step on the card held
+    to the CPU's for vanilla, lsgan and wgangp; bench.py's batch of 128;
+    K2 through the pix2pix step; the trained U-Net serving a globe field."""
+    import numpy as np
+
+    from biasgan_tpu_torch import infer
+    from biasgan_tpu_torch.config import parse_config
+    from biasgan_tpu_torch.models.pix2pix import create_state, make_train_step
+
+    name = card()
+    out = {"card": name}
+    fails = []
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+
+    # (1) the bench configuration through the CLI, bf16, six steps, a save
+    argv = p2p_argv(work, "cli", "--compute_dtype", "bfloat16", "--save_epoch_freq", "1",
+                    "--device", "cuda")
+    t0 = time.perf_counter()
+    counts, state, lines = p2p_cli(torch, argv, TRAIN_SAMPLES)
+    out["cli_s"] = time.perf_counter() - t0
+    check(not any(counts.values()), f"pix2pix unet_256: kernel launches {counts}, expected "
+          "none (the U-Net and the PatchGAN reach no kernel, as in JAX)")
+    run_dir = os.path.join(work, "pix2pix", "cli")
+    moved = {}
+    for net in ("G", "D"):
+        sd = torch.load(os.path.join(run_dir, f"latest_net_{net}.pth"), weights_only=True)
+        means = [v for k, v in sd.items() if k.endswith("running_mean")]
+        moved[net] = sum(int((v != 0).any()) for v in means)
+        check(means and moved[net] == len(means),
+              f"pix2pix: saved {net} has {moved[net]} of {len(means)} running means moved")
+    out["running_means_moved"] = moved
+    out["cli_loss_lines"] = lines
+    del state
+
+    # (2) step 1 at full width, dropout off, f32 (TF32 off): the card's
+    # against the CPU's (which the CPU tests hold to JAX), per GAN mode. The
+    # noise floor is the larger of the two sides' own moves under the input
+    # perturbation: the first chip run read the card's wgangp G floor at
+    # 9.6e-6 and the CPU's at 6.8e-4 (the step's D update is Adam's
+    # sign-like first step, so which near-zero D gradients flip decides
+    # how far G's gradients move), and CPU against card at 1.6e-3
+    out["first_step"] = {}
+    for mode in ("vanilla", "lsgan", "wgangp"):
+        argv = p2p_argv(work, f"step_{mode}", "--no_dropout", "--gan_mode", mode)
+        ref = p2p_first_step(torch, dev, argv)
+        floor_card = grad_distance(
+            p2p_first_step(torch, dev, argv, perturb=NOISE_INPUT["float32"]), ref)[1]
+        t0 = time.perf_counter()
+        got = p2p_first_step(torch, cpu, argv)
+        cpu_s = time.perf_counter() - t0
+        floor_cpu = grad_distance(
+            p2p_first_step(torch, cpu, argv, perturb=NOISE_INPUT["float32"]), got)[1]
+        floor = {net: max(floor_card[net], floor_cpu[net]) for net in floor_card}
+        held = hold_first_step(f"pix2pix {mode} CPU", "float32", got, ref, floor)
+        fails += held["fails"]
+        out["first_step"][mode] = {"losses_card": ref["losses"], "losses_cpu": got["losses"],
+                                   "grad_rel_l2": held["grad_rel_l2"],
+                                   "noise_floor_card": floor_card, "noise_floor_cpu": floor_cpu,
+                                   "worst_grad_err": held["worst_grad_err"]}
+        print(f"pix2pix {mode} f32 step 1, CPU vs {name}: losses card {ref['losses']} cpu "
+              f"{got['losses']}; relative L2 per net {held['grad_rel_l2']} (noise floor: card "
+              f"{floor_card}, CPU {floor_cpu}); CPU step {cpu_s:.1f} s")
+        torch.cuda.empty_cache()
+
+    # (3) bench.py's batch: 128 at 256x256, bf16, dropout on
+    cfg = parse_config(p2p_argv(work, "bench", "--batch_size", str(BENCH_BATCH),
+                                "--compute_dtype", "bfloat16", "--no-in_graph_aug",
+                                "--device", "cuda"), train=True)
+    cfg.steps_per_epoch = 1000
+    a = torch.randn((BENCH_BATCH, 256, 256, 3), generator=torch.Generator().manual_seed(1))
+    batch = {"A": a.to(dev), "B": torch.tanh(a).to(dev)}
+    torch.cuda.reset_peak_memory_stats()
+    state = create_state(cfg, dev)
+    step = make_train_step(cfg)
+    ms = []
+    for i in range(BENCH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(float(v)) for v in losses.values()),
+              f"pix2pix batch {BENCH_BATCH}: non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    out["bench"] = {"batch": BENCH_BATCH, "step_ms": ms,
+                    "samples_per_s": BENCH_BATCH * 1e3 / statistics.mean(ms[1:]),
+                    "max_memory_allocated": peak}
+    print(f"pix2pix bench configuration, batch {BENCH_BATCH}, 256x256 bf16, dropout on: "
+          f"ms/step {ms} (step 1 warms up), {out['bench']['samples_per_s']:.1f} samples/s "
+          f"over steps 2-{BENCH_STEPS}, max_memory_allocated {peak / 2**30:.2f} GiB on "
+          f"{name} (smoke)")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    # (4) K2 through the pix2pix step: step 1 held to the plain route's,
+    # then the CLI's two steps with exact launches
+    plain = p2p_argv(work, "route", *P2P_PLAIN, "--compute_dtype", "bfloat16")
+    ref = p2p_first_step(torch, dev, plain)
+    floor = grad_distance(p2p_first_step(torch, dev, plain, perturb=NOISE_INPUT["bfloat16"]),
+                          ref)[1]
+    zero_counts()
+    got = p2p_first_step(torch, dev, plain + ["--fused_blocks"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: v for k, v in with_path_counts(P2P_ROUTE_STEP, "bfloat16").items() if v}
+    check({k: v for k, v in counts.items() if v} == want,
+          f"pix2pix --fused_blocks step 1: launches {counts}, expected {want}")
+    held = hold_first_step("pix2pix fused", "bfloat16", got, ref, floor)
+    fails += held["fails"]
+    print(f"pix2pix resnet_9blocks --fused_blocks bf16 step 1 held to plain: losses "
+          f"{got['losses']} vs {ref['losses']}; relative L2 per net {held['grad_rel_l2']} "
+          f"(noise floor {floor})")
+    argv = p2p_argv(work, "route_cli", *P2P_ROUTE, "--compute_dtype", "bfloat16",
+                    "--synthetic_samples", str(P2P_ROUTE_STEPS), "--device", "cuda")
+    counts, state, _ = p2p_cli(torch, argv, P2P_ROUTE_STEPS)
+    want = {k: v * P2P_ROUTE_STEPS
+            for k, v in with_path_counts(P2P_ROUTE_STEP, "bfloat16").items() if v}
+    check({k: v for k, v in counts.items() if v} == want,
+          f"pix2pix --fused_blocks CLI: launches {counts}, expected {want}")
+    out["route"] = {"flags": P2P_ROUTE, "launches": counts,
+                    "grad_rel_l2": held["grad_rel_l2"], "noise_floor": floor}
+    del state
+    torch.cuda.empty_cache()
+
+    # (5) the trained U-Net serves one field of the globe store
+    res = io.StringIO()
+    with contextlib.redirect_stdout(res):
+        out_dir = infer.main([
+            "--model", "pix2pix", "--dataset_mode", "climate",
+            "--dataroot", os.path.join(work, "data"), "--full_field",
+            "--checkpoints_dir", os.path.join(work, "pix2pix"), "--name", "cli",
+            "--results_dir", os.path.join(work, "results_pix2pix"),
+            "--netG", "unet_256", "--norm", "batch", "--ngf", "64",
+            "--input_nc", str(N_VARS), "--output_nc", str(N_VARS),
+            "--compute_dtype", "bfloat16", "--num_test", "1", "--device", "cuda"])
+    stamps = re.findall(r"corrected in ([0-9.]+) ms", res.getvalue())
+    y = np.load(os.path.join(out_dir, "corrected_00000.npy"))
+    check(len(stamps) == 1 and y.shape == (1, GLOBE_H, GLOBE_W, N_VARS)
+          and bool(np.isfinite(y).all()), f"pix2pix serve: {stamps}, field {y.shape}")
+    out["serve_ms_per_field"] = float(stamps[0])
+    ph, pw = (-(-n // 256) * 256 for n in (GLOBE_H, GLOBE_W))
+    print(f"pix2pix unet_256 serves a {GLOBE_H}x{GLOBE_W}x{N_VARS} field (padded to {ph}x{pw}) "
+          f"in {stamps[0]} ms (one field, the first: a cold call) on {name}")
+    check(not fails, "; ".join(fails))
+    return out
+
+
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
-                  trained, spatial_times, halo, loopback, sharded, parent, norm_paths) -> list:
+                  trained, spatial_times, halo, loopback, sharded, parent, norm_paths,
+                  p2p) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
@@ -2376,7 +2662,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
     routes; the instance norm's backward kernel on the all-kernel training
     route; the halo exchange on the sharded --halo_rdma path, on the route
     the ranks' cards give, and its signalled route on the loopback ring;
-    with a parent tree, the best times there and here (compare_parent).
+    the block conv's differentiable form and its backward kernel on the
+    pix2pix --fused_blocks route (``pix2pix_phase``); with a parent tree,
+    the best times there and here (compare_parent).
     Backward bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
            "step": "step: each call's best time times its launches per 256x256 CycleGAN "
@@ -2466,6 +2754,10 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
                         f"times its count; launches per rank in the {SHARDED_CLI_STEPS}-step "
                         "CLI run"),
                 "calls": g["calls"]}
+            entry["train"]["pix2pix"] = {
+                "route": " ".join(["--model pix2pix"] + P2P_ROUTE),
+                "launches": p2p["route"]["launches"]["conv3x3_fused_t"],
+                "per": f"the {P2P_ROUTE_STEPS}-step bf16 CLI run, 256x256 batch 1"}
         kernels.append(entry)
     bwd = {}
     for form, route, n in (("conv3x3_fused_t", "fused", trained["launches"]["fused/bfloat16"]),
@@ -2494,6 +2786,7 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
                 "through autograd, autograd_ms the kernel through conv3x3_fused_t's autograd; "
                 "launches in the six-step bf16 CLI run"),
         "halo": bwd["conv3x3_fused_t_halo"],
+        "pix2pix_launches": p2p["route"]["launches"]["conv3x3_fused_bwd"],
     })
     g = grad_times["instance_norm_act"]
     norm = next(i for i, k in enumerate(kernels) if k["name"] == "instance_norm_act")
@@ -2595,16 +2888,17 @@ def main() -> int:
         parent = compare_parent(torch, work)
         trained = train_phase(torch, work)
         sharded = sharded_train_phase(torch, work)
+        p2p = pix2pix_phase(torch, work)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(json.dumps({"training": trained, "sharded_training": sharded}))
+    print(json.dumps({"training": {**trained, "pix2pix": p2p}, "sharded_training": sharded}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
                                                spatial_times, halo, loopback, sharded,
-                                               parent, norm_paths)}))
+                                               parent, norm_paths, p2p)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

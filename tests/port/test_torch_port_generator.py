@@ -73,8 +73,12 @@ def test_fused_gate_follows_jax_eligibility():
 
 
 def test_unported_generators_refuse():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        define_G("unet_256", 3, 3)
+    """The U-Net names build (unet_256: 8 downs); an unknown name still
+    refuses."""
+    from biasgan_tpu_torch.nn.generators import UNetGenerator
+
+    G = define_G("unet_256", 3, 3, ngf=1)
+    assert isinstance(G, UNetGenerator) and G.num_downs == 8
     with pytest.raises(ValueError, match="unknown generator"):
         define_G("bogus", 3, 3)
 
