@@ -140,6 +140,17 @@ class TrainConfig(BaseConfig):
     save_by_iter: bool = False
     # dataset-size dependent; set by train.py for the LR schedules
     steps_per_epoch: int = 0
+    # data-parallel ranks, one process each (1 = single device); each steps
+    # on its slice of every global batch of --batch_size
+    data_mesh: int = 1
+    # the validation metric bundle (rmse, bias, pdf_tv, log-spectral
+    # distance) every --val_freq samples; 0 = off
+    val_freq: int = 0
+    # hold out the last N samples of the dataset as the validation split:
+    # the held-out bundles and the plateau LR metric are computed on them in
+    # eval mode; 0 = no split (climate and aligned data may bring a 'val'
+    # phase instead)
+    val_split: int = 0
 
 
 @dataclass
@@ -151,6 +162,23 @@ class TestConfig(BaseConfig):
     batch_size: int = 1
     load_size: int = 256  # reference parity: load_size = crop_size at test
     serial_batches: bool = True
+
+
+TWO_D_MESH = ("the 2-D mesh (--data_mesh with --spatial_mesh > 1) is not ported yet: it "
+              "comes with the sharded pix2pix step")
+
+
+def mesh_of(cfg) -> tuple:
+    """(data ranks, spatial ranks) of a training config. Raises for both
+    above 1 (``TWO_D_MESH``), and where the global --batch_size does not
+    split evenly over the data ranks."""
+    data, spatial = max(cfg.data_mesh, 1), max(cfg.spatial_mesh, 1)
+    if data > 1 and spatial > 1:
+        raise NotImplementedError(f"--data_mesh {data} --spatial_mesh {spatial}: {TWO_D_MESH}")
+    if cfg.batch_size % data:
+        raise ValueError(f"--batch_size {cfg.batch_size} (the global batch) does not split "
+                         f"evenly over --data_mesh {data} ranks")
+    return data, spatial
 
 
 ROUTE_VALUES = ("", "0", "1", "interpret")

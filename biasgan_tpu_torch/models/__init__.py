@@ -4,8 +4,8 @@ Counterpart of the registrations in ``biasgan_tpu/models/`` (pix2pix,
 cycle_gan, test). An entry carries the model's reference default flags,
 which generator checkpoint ``<epoch>_net_<name>.pth`` inference loads, and,
 for a model the port trains (pix2pix, cycle_gan), its training state and
-step (``create_state``, ``make_train_step``, ``loss_names``; pix2pix's G
-forward for evaluation too, ``make_eval_fn``).
+step (``create_state``, ``make_train_step``, ``loss_names``) and its G
+forwards for evaluation (``make_eval_fn``).
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ class CycleGANModel:
     loss_names = cyclegan.LOSS_NAMES
     create_state = staticmethod(cyclegan.create_state)
     make_train_step = staticmethod(cyclegan.make_train_step)
+    make_eval_fn = staticmethod(cyclegan.make_eval_fn)
 
     @staticmethod
     def config_defaults(train: bool) -> Dict[str, Any]:

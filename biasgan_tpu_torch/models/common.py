@@ -180,3 +180,14 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     from (--seed, step) alone, so a resumed run draws what an uninterrupted
     one does."""
     return torch.Generator().manual_seed(int(seed) * 1_000_003 + int(step))
+
+
+def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
+    """Data rank ``rank``'s own CPU generator in a step whose shared draws
+    come from ``generator`` (``step_generator``'s): seeded from that
+    generator's seed and the rank, so it draws nothing from the shared
+    stream, and a seed gives the same run and a resume the same draws. The
+    JAX step folds the data index into its key likewise
+    (``jax.random.fold_in``) for dropout, augmentation and the penalty."""
+    seed = (generator.initial_seed() * 1_000_033 + int(rank) + 1) % (1 << 63)
+    return torch.Generator().manual_seed(seed)

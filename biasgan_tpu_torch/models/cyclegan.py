@@ -47,8 +47,10 @@ from biasgan_tpu_torch.models.common import (
     make_lr_schedule,
     named_params,
     prepare_batch,
+    rank_generator,
     resolve_direction,
     shard_batch,
+    step_generator,
 )
 from biasgan_tpu_torch.nn import compute_dtype_of, define_D, define_G
 from biasgan_tpu_torch.utils.image_pool import create_pool, pool_query
@@ -133,7 +135,7 @@ def _grads(opt) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = False,
-                    ctx=None):
+                    ctx=None, data=None):
     """The CycleGAN step: ``step(state, batch, generator) -> (losses,
     visuals)``, updating ``state`` in place. ``batch`` holds device tensors
     (A, B and, for climate data, their stats); ``generator`` draws the
@@ -144,7 +146,12 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
     ``ctx``: the step of one rank of a spatially sharded run (module
     docstring). ``batch`` is then the global batch, the same on every
     rank, and the visuals are this rank's W shards; the losses and the
-    grads are the means over the ranks."""
+    grads are the means over the ranks.
+
+    ``data``: the step of one rank of a data-parallel run (module
+    docstring); ``batch`` is then the rank's slice, and the losses and the
+    grads the means over the ranks. ``generator`` defaults to
+    ``step_generator(--seed, step)``."""
     lr_fn = make_lr_schedule(cfg)
     gan_mode = cfg.gan_mode
     lam_A, lam_B, lam_idt = cfg.lambda_A, cfg.lambda_B, cfg.lambda_identity
@@ -158,18 +165,33 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         return t if ctx is None else ctx.all_gather_w(t)
 
     def mean_grads(opt):
-        if ctx is not None:
-            ctx.mean_grads_([p for _, p in opt.params])
+        for c in (ctx, data):
+            if c is not None:
+                c.mean_grads_([p for _, p in opt.params])
+
+    def query(pool, fake, generator):
+        """The pool's answer to this rank's fakes: under data parallelism
+        the global batch's fakes query the one pool, and this rank takes
+        its slice back."""
+        if data is None:
+            return pool_query(pool, fake, generator)
+        pool, out = pool_query(pool, data.all_gather_batch(fake), generator)
+        return pool, data.rank_slice(out)
 
     def step(state: GANTrainState, batch, generator: Optional[torch.Generator] = None):
-        batch = prepare_batch(batch, generator, cfg, train=True)
+        if generator is None:
+            generator = step_generator(cfg.seed, state.step)
+        # the rank's own draws (augmentation, dropout); the pools draw from
+        # the shared generator
+        own = generator if data is None else rank_generator(generator, data.rank)
+        batch = prepare_batch(batch, own, cfg, train=True)
         # the Ds' real inputs: the whole W, which every rank holds
         whole_A, whole_B = resolve_direction(batch, cfg.direction)
         if ctx is not None:
             batch = shard_batch(batch, ctx)
         real_A, real_B = resolve_direction(batch, cfg.direction)
         # the resnet blocks' dropout masks, where dropout is on
-        drop = device_generator(generator, real_A.device) if cfg.dropout() else None
+        drop = device_generator(own, real_A.device) if cfg.dropout() else None
         G_A, G_B = (lambda x, G=state.nets[k]: G(x, ctx=ctx, generator=drop)
                     for k in ("G_A", "G_B"))
         D_A, D_B = state.nets["D_A"], state.nets["D_B"]
@@ -218,8 +240,8 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         # ---- replay pools (reference ImagePool.query) ----
         fake_B_q, fake_A_q = fake_B, fake_A
         if state.pools:
-            state.pools["fake_B"], fake_B_q = pool_query(state.pools["fake_B"], fake_B, generator)
-            state.pools["fake_A"], fake_A_q = pool_query(state.pools["fake_A"], fake_A, generator)
+            state.pools["fake_B"], fake_B_q = query(state.pools["fake_B"], fake_B, generator)
+            state.pools["fake_A"], fake_A_q = query(state.pools["fake_A"], fake_A, generator)
 
         # ---- D update (reference backward_D_basic, 0.5 weighting) ----
         def d_pair(D, real, fake):
@@ -239,13 +261,17 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         state.opts["D"].step(lr)
         for _, p in state.opts["G"].params + state.opts["D"].params:
             p.grad = None
+        if data is not None:
+            for net in state.nets.values():
+                data.mean_buffers_(net)
         state.step += 1
 
         vals = (loss_D_A, loss_G_A, loss_cycle_A, loss_idt_A,
                 loss_D_B, loss_G_B, loss_cycle_B, loss_idt_B)
         vals = torch.stack([v.detach().float() for v in vals])
-        if ctx is not None:
-            vals = ctx.mean(vals)
+        for c in (ctx, data):
+            if c is not None:
+                vals = c.mean(vals)
         loss_dict = dict(zip(LOSS_NAMES, vals))
         visuals = {
             "real_A": real_A, "fake_B": fake_B, "rec_A": rec_A.detach(),
@@ -256,3 +282,44 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         return loss_dict, visuals
 
     return step
+
+
+def make_eval_fn(cfg):
+    """The four G forwards of the reference's test() (JAX :399-424):
+    ``eval_fn(state, batch, generator=None, train=False, ctx=None) ->
+    visuals`` with fake_B = G_A(A), rec_A = G_B(fake_B), fake_A = G_B(B),
+    rec_B = G_A(fake_A). ``train=False`` normalizes with the running
+    averages and drops no unit; ``train=True`` is the reference's test
+    without --eval (batch statistics, dropout masks from ``generator``,
+    default ``step_generator(--seed, step)``; the running averages move).
+    Under a spatial context ``ctx`` the batch is the global one and the
+    visuals are this rank's W shards."""
+
+    @torch.no_grad()
+    def eval_fn(state: GANTrainState, batch, generator: Optional[torch.Generator] = None,
+                train: bool = False, ctx=None):
+        batch = prepare_batch(batch, None, cfg, train=False)
+        if ctx is not None:
+            batch = shard_batch(batch, ctx)
+        real_A, real_B = resolve_direction(batch, cfg.direction)
+        gens = [state.nets["G_A"], state.nets["G_B"]]
+        modes = [g.training for g in gens]
+        drop = None
+        if train and cfg.dropout():
+            gen = generator if generator is not None else step_generator(cfg.seed, state.step)
+            drop = device_generator(gen, real_A.device)
+        try:
+            for g in gens:
+                g.train(train)
+            G_A, G_B = (lambda x, G=g: G(x, ctx=ctx, generator=drop) for g in gens)
+            fake_B = G_A(real_A)
+            rec_A = G_B(fake_B)
+            fake_A = G_B(real_B)
+            rec_B = G_A(fake_A)
+        finally:
+            for g, m in zip(gens, modes):
+                g.train(m)
+        return {"real_A": real_A, "fake_B": fake_B, "rec_A": rec_A,
+                "real_B": real_B, "fake_A": fake_A, "rec_B": rec_B}
+
+    return eval_fn

@@ -24,6 +24,14 @@ The kernel routes (--fused_blocks, --pallas_conv, --conv7_pallas,
 ``models/cyclegan.py``: a resnet G takes them; the U-Net has no layer they
 take (the JAX U-Net reaches no Pallas kernel), and the CLIs say so.
 
+Under data parallelism (``data``, a ``parallel.DataCtx``; JAX :151-153,
+:232, :257, :264-266, :280) each rank steps on its slice of the global
+batch with its own draws (``rank_generator``): D's grads are averaged over
+the ranks before D's Adam, G's before G's, the losses after, and the
+batch-norm running averages of G and D after the update; the forward's
+batch statistics stay the rank's, as in the JAX step. The visuals are the
+rank's.
+
 The sharded step (``--spatial_mesh N``, W-global batch moments) is not
 ported yet: a spatial context raises.
 """
@@ -44,6 +52,7 @@ from biasgan_tpu_torch.models.common import (
     make_lr_schedule,
     named_params,
     prepare_batch,
+    rank_generator,
     resolve_direction,
     step_generator,
 )
@@ -113,7 +122,7 @@ def _grad_norm(opt) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
 
 
-def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None):
+def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
     """The pix2pix step: ``step(state, batch, generator=None, gp_alpha=None)
     -> (losses, visuals)``, updating ``state`` in place (module docstring).
     ``batch`` holds device tensors (A, B and, for climate data, their
@@ -121,7 +130,13 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None):
     draws the augmentation, the dropout masks' seed and the penalty's alpha;
     ``gp_alpha`` ((N, 1, 1, 1)) gives that alpha instead. The losses are
     G_GAN, G_L1, D_real, D_fake, and with ``debug_grad_norms`` the global
-    gradient norms g_grad_norm and d_grad_norm (the JAX step's hook)."""
+    norms of the grads Adam takes, g_grad_norm and d_grad_norm (the JAX
+    step's hook).
+
+    ``data``: the step of one rank of a data-parallel run (module
+    docstring); ``batch`` and ``gp_alpha`` are then the rank's slice, the
+    draws the rank's own, and the losses and grad norms the means over the
+    ranks."""
     if ctx is not None:
         raise NotImplementedError(SHARDED)
     lr_fn = make_lr_schedule(cfg)
@@ -133,6 +148,8 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None):
              gp_alpha: Optional[torch.Tensor] = None):
         if generator is None:
             generator = step_generator(cfg.seed, state.step)
+        if data is not None:
+            generator = rank_generator(generator, data.rank)
         batch = prepare_batch(batch, generator, cfg, train=True)
         real_A, real_B = resolve_direction(batch, cfg.direction)
         G, D = state.nets["G"], state.nets["D"]
@@ -159,6 +176,8 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None):
                     D, real_AB, fake_AB, alpha=gp_alpha, generator=generator)
         _zero_grads(state.opts["D"])
         loss_D.backward()
+        if data is not None:
+            data.mean_grads_([p for _, p in state.opts["D"].params])
         d_norm = _grad_norm(state.opts["D"]) if debug_grad_norms else None
         state.opts["D"].step(lr)
 
@@ -174,16 +193,26 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None):
         finally:
             for p in D.parameters():
                 p.requires_grad_(True)
+        if data is not None:
+            data.mean_grads_([p for _, p in state.opts["G"].params])
         g_norm = _grad_norm(state.opts["G"]) if debug_grad_norms else None
         state.opts["G"].step(lr)
         for opt in state.opts.values():
             _zero_grads(opt)
+        if data is not None:
+            for net in (G, D):
+                data.mean_buffers_(net)
         state.step += 1
 
-        vals = (loss_G_GAN, loss_G_L1, loss_D_real, loss_D_fake)
-        loss_dict = dict(zip(LOSS_NAMES, (v.detach().float() for v in vals)))
+        vals = [loss_G_GAN, loss_G_L1, loss_D_real, loss_D_fake]
+        names = list(LOSS_NAMES)
         if debug_grad_norms:
-            loss_dict.update(g_grad_norm=g_norm, d_grad_norm=d_norm)
+            vals += [g_norm, d_norm]
+            names += ["g_grad_norm", "d_grad_norm"]
+        vals = torch.stack([v.detach().float() for v in vals])
+        if data is not None:
+            vals = data.mean(vals)
+        loss_dict = dict(zip(names, vals))
         return loss_dict, {"real_A": real_A, "fake_B": fake_B.detach(), "real_B": real_B}
 
     return step

@@ -1,10 +1,12 @@
-"""Spatial sharding of the generator over W, one process per shard
-(counterpart of ``biasgan_tpu/parallel``): process groups and the spawn
-runner (``mesh``), the halo context and ``spatial_apply`` (``spatial``),
-and the rank programs that hold the sharded path to the whole field
-(``checks``)."""
+"""Spatial sharding of the generator over W and data-parallel training, one
+process per rank (counterpart of ``biasgan_tpu/parallel``): process groups,
+the contexts' shared collectives and the spawn runner (``mesh``), the halo
+context and ``spatial_apply`` (``spatial``), the data context
+(``data_parallel``), and the rank programs that hold the sharded and the
+data-parallel paths to what they must equal (``checks``)."""
 
+from biasgan_tpu_torch.parallel.data_parallel import DataCtx
 from biasgan_tpu_torch.parallel.mesh import placement, spawn
 from biasgan_tpu_torch.parallel.spatial import HaloCtx, pad_to_multiple, spatial_apply
 
-__all__ = ["HaloCtx", "pad_to_multiple", "placement", "spatial_apply", "spawn"]
+__all__ = ["DataCtx", "HaloCtx", "pad_to_multiple", "placement", "spatial_apply", "spawn"]

@@ -1,7 +1,7 @@
-"""Rank programs that hold the spatially sharded path to what it must equal,
-for ``parallel.mesh.spawn``. The CPU tests spawn them (their ranks import
-torch and the port only, never JAX) and ``chip_smoke.py`` runs them on the
-card. Each is ``fn(rank, n, device, say, *args)`` with numpy in and out;
+"""Rank programs that hold the spatially sharded and the data-parallel
+paths to what they must equal, for ``parallel.mesh.spawn``. The CPU tests
+spawn them (their ranks import torch and the port only, never JAX) and
+``chip_smoke.py`` runs them on the card. Each is ``fn(rank, n, device, say, *args)`` with numpy in and out;
 rank 0's return value is the result. Beside them, ``LoopbackRing`` runs the
 halo kernel's signalled exchange among the peers of a ring inside one
 process on one card, and ``ring_halos`` gives the halos a ring must bring.
@@ -312,3 +312,70 @@ def grad_checks(rank, n, device, say, adjoint: tuple, generator: tuple):
     in one spawn."""
     return (adjoint_cases(rank, n, device, say, *adjoint),
             generator_grad_cases(rank, n, device, say, *generator))
+
+
+def data_cases(rank, n, device, say, cases: Sequence[dict]):
+    """Data-parallel steps, one rank of ``n``: for each case ``{"argv":
+    [...], "batches": [global numpy batches], "gp_alpha": [per step, per
+    rank (B / n, 1, 1, 1) arrays] (pix2pix wgangp, optional), "fakes":
+    bool (optional)}``, the
+    training config of ``argv`` (pix2pix or cycle_gan), the state seeded
+    from --seed (as ``create_state`` draws it, on the CPU), one step per
+    batch on this rank's slice with the step generators of (--seed, step),
+    as the training loop draws them. Per case on rank 0: each step's
+    losses (pix2pix with its g_grad_norm and d_grad_norm), each rank's
+    kernel launches (counted from 0), whether every rank's state, the
+    pools included, is bitwise rank 0's, and the nets' state dicts, Adam's
+    first moments and the replay pools after the steps; with ``"grads":
+    path`` in place of the last three, rank 0 saves there the gradients
+    behind Adam's first moments (after one step, mu / (1 - b1): the
+    averaged grads) per optimizer (``torch.save``). With ``"fakes"``, each
+    rank's fake_B of the last step."""
+    from biasgan_tpu_torch.config import parse_config
+    from biasgan_tpu_torch.models.common import step_generator
+    from biasgan_tpu_torch.parallel.data_parallel import DataCtx
+    from biasgan_tpu_torch.registry import get_model
+    from biasgan_tpu_torch.train import params_equal_across_ranks
+
+    out = []
+    for case in cases:
+        cfg = parse_config(list(case["argv"]), train=True)
+        cfg.steps_per_epoch = max(cfg.steps_per_epoch, len(case["batches"]))
+        model = get_model(cfg.model)
+        data = DataCtx(n)
+        state = model.create_state(cfg, device)
+        debug = ({"debug_grad_norms": True} if cfg.model == "pix2pix" else {})
+        step = model.make_train_step(cfg, data=data, **debug)
+        _zero_counts()
+        losses = []
+        for i, batch in enumerate(case["batches"]):
+            local = {k: data.rank_slice(torch.from_numpy(v)).to(device) for k, v in batch.items()}
+            kw = {}
+            if case.get("gp_alpha") is not None:
+                kw["gp_alpha"] = torch.from_numpy(case["gp_alpha"][i][rank]).to(device)
+            ls, vis = step(state, local, step_generator(cfg.seed, i), **kw)
+            losses.append({k: float(v) for k, v in ls.items()})
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        launches = [None] * n
+        dist.all_gather_object(launches, kernel_counts())
+        res = {"losses": losses, "launches": launches,
+               "params_equal": params_equal_across_ranks(state, data, pools=True)}
+        if case.get("fakes"):
+            res["fakes"] = [None] * n
+            dist.all_gather_object(res["fakes"], vis["fake_B"].float().cpu().numpy())
+        if case.get("grads"):
+            if rank == 0:
+                torch.save({k: {name: (t / (1 - o.b1)).cpu() for name, t in o.mu.items()}
+                            for k, o in state.opts.items()}, case["grads"])
+        else:
+            res.update(
+                nets={k: {name: t.detach().cpu().numpy() for name, t in v.state_dict().items()}
+                      for k, v in state.nets.items()},
+                mu={k: {name: t.cpu().numpy() for name, t in o.mu.items()}
+                    for k, o in state.opts.items()},
+                pools={k: p.buffer.cpu().numpy() for k, p in state.pools.items()})
+        data.close()
+        del state, step, vis
+        out.append(res)
+    return out

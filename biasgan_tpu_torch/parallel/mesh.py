@@ -1,7 +1,8 @@
-"""Process groups for spatial sharding: one process per W shard.
+"""Process groups for spatial sharding and data parallelism: one process
+per W shard or per data rank.
 
 Counterpart of ``biasgan_tpu/parallel/mesh.py``. Where JAX runs the shards
-as one SPMD program over a device mesh, the port runs one process per shard
+as one SPMD program over a device mesh, the port runs one process per rank
 on ``torch.distributed``:
 
 * placement: with a CUDA device, rank r runs on ``cuda:(r % device_count)``
@@ -13,6 +14,10 @@ on ``torch.distributed``:
   fallback: the halo kernel runs under either, device-signalled where every
   rank has a card of its own, host-synchronised where ranks share one
   (``halo_route``);
+* ``RankCtx``: what the spatial context (``parallel/spatial.py``) and the
+  data context (``parallel/data_parallel.py``) share: this rank, where the
+  group's collectives take a tensor, the sums and means over the ranks
+  without autograd, the mean of the grads, and the bitwise check;
 * ``spawn`` starts the ranks (``torch.multiprocessing``, start method
   ``spawn``), each on a fresh ``file://`` rendezvous with an explicit group
   timeout, forwards rank 0's messages as they come, and returns rank 0's
@@ -74,18 +79,86 @@ HALO_ROUTES = {
 }
 
 
-def placement(n: int, device: str, halo_rdma: bool = False) -> str:
+def placement(n: int, device: str, halo_rdma: bool = False, kind: str = "spatial") -> str:
     """The one-line notice of where ``n`` ranks run and how they talk (with
-    ``halo_rdma``, also the route of the halo kernel's exchanges)."""
+    ``halo_rdma``, also the route of the halo kernel's exchanges); ``kind``
+    ('spatial' or 'data') starts the line."""
     devices = ", ".join(f"{r}->{rank_device(r, device)}" for r in range(n))
     backend = backend_for(n, device)
-    line = f"spatial: {n} rank(s) (rank->device {devices}), backend {backend}"
+    line = f"{kind}: {n} rank(s) (rank->device {devices}), backend {backend}"
     if backend == "gloo" and torch.device(device).type == "cuda":
         line += ("; ranks share a card, so collectives on CUDA tensors go through "
                  "host copies")
     if halo_rdma:
         line += f"; halos: {HALO_ROUTES[halo_route(n, device)]}"
     return line
+
+
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+class RankCtx:
+    """One rank of ``size`` ranks of a process group (``group``; None: the
+    world), each its own process. Build it on every rank at the same point.
+
+    ``via_host``: the group's backend is gloo, which takes no CUDA tensors,
+    so the collectives stage them through host copies (``_staged``)."""
+
+    def __init__(self, size: int = 1, group=None):
+        distributed = _distributed()
+        if size > 1 and not distributed:
+            raise RuntimeError(f"{size} ranks need torch.distributed initialised, one "
+                               "process per rank")
+        if distributed and dist.get_world_size(group) != size:
+            raise ValueError(f"{size} ranks in a group of {dist.get_world_size(group)}")
+        self.size, self.group = size, group
+        self.rank = dist.get_rank(group) if distributed else 0
+        self.via_host = distributed and dist.get_backend(group) == "gloo"
+
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """A copy of ``t`` where the group's collectives take it."""
+        return t.detach().to("cpu" if self.via_host else t.device, copy=True).contiguous()
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, with no autograd (a new tensor
+        on t's device)."""
+        staged = self._staged(t)
+        dist.all_reduce(staged, group=self.group)
+        return staged.to(t.device)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the ranks, with no autograd (the step's
+        losses, ``pmean``)."""
+        return t if self.size == 1 else self._sum(t) / self.size
+
+    def _mean_flat_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Each of ``tensors`` (of one dtype) replaced in place by its mean
+        over the ranks, in one ``all_reduce`` of them all, flattened."""
+        if self.size == 1 or not tensors:
+            return
+        flat = self._sum(torch.cat([t.reshape(-1) for t in tensors])) / self.size
+        for t, m in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(m.view_as(t))
+
+    @torch.no_grad()
+    def mean_grads_(self, params: Sequence[torch.nn.Parameter]) -> None:
+        """Each parameter's ``.grad`` replaced by its mean over the ranks
+        (a missing grad counts as zeros), in one ``all_reduce``: ``pmean``
+        of the JAX step's grads. Every rank then holds the same grads."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self._mean_flat_([p.grad for p in params])
+
+    def same_on_every_rank(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` is bitwise rank 0's on every rank (collective)."""
+        mine = self._staged(t)
+        ref = mine.clone()
+        dist.broadcast(ref, src=0, group=self.group)
+        every = [None] * self.size
+        dist.all_gather_object(every, torch.equal(mine, ref), group=self.group)
+        return all(every)
 
 
 def _entry(rank, fn, n, args, device, init_method, group_timeout, queue):
@@ -138,7 +211,7 @@ def spawn(
     import torch.multiprocessing as mp
 
     queue = mp.get_context("spawn").SimpleQueue()
-    rendezvous = tempfile.mkdtemp(prefix="spatial_rdv_")
+    rendezvous = tempfile.mkdtemp(prefix="ranks_rdv_")
     init_method = "file://" + os.path.join(rendezvous, "group")
     procs = mp.start_processes(
         _entry, args=(fn, n, tuple(args), device, init_method, group_timeout, queue),
@@ -162,7 +235,7 @@ def spawn(
             if procs.join(timeout=0.1):
                 break
             if deadline is not None and time.monotonic() > deadline:
-                raise TimeoutError(f"{n} spatial ranks still running after {timeout} s")
+                raise TimeoutError(f"{n} ranks of {fn.__name__} still running after {timeout} s")
         drain()
     finally:
         for p in procs.processes:

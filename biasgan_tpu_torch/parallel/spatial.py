@@ -50,12 +50,14 @@ from biasgan_tpu_torch.kernels.halo_exchange import (
     halo_exchange_w_plain,
 )
 from biasgan_tpu_torch.ops.padding import pad_axis
+from biasgan_tpu_torch.parallel.mesh import RankCtx
 
 
-class HaloCtx:
+class HaloCtx(RankCtx):
     """The spatial context of one rank of ``n_shards`` W shards (the
     process group's ranks, in order of W). Build it on every rank at the
-    same point; ``close`` likewise.
+    same point; ``close`` likewise. The losses' mean, the grads' mean and
+    the bitwise check are ``RankCtx``'s.
 
     ``rdma``: exchange halos with the ``halo_exchange_w`` kernel (on a CUDA
     tensor; on the CPU its plain version) in place of the plain
@@ -63,13 +65,9 @@ class HaloCtx:
 
     def __init__(self, n_shards: int = 1, periodic: bool = True, rdma: bool = False,
                  group=None):
+        super().__init__(n_shards, group)
         self.n_shards, self.periodic, self.rdma = n_shards, periodic, rdma
-        self.group = group
         self.ring = HaloRing(n_shards, periodic, group)
-
-    @property
-    def rank(self) -> int:
-        return self.ring.rank
 
     def pad_w(self, x: torch.Tensor, left: int, right: int) -> torch.Tensor:
         """x (N, H, W_local, C) with ``left`` neighbour columns before and
@@ -88,17 +86,6 @@ class HaloCtx:
         else:
             lh, rh = halo_exchange_w_plain(x, left, right, self.ring)
         return torch.cat([lh, x, rh], dim=2)
-
-    def _staged(self, t: torch.Tensor) -> torch.Tensor:
-        """A copy of ``t`` where the group's collectives take it."""
-        return t.detach().to("cpu" if self.ring.via_host else t.device, copy=True).contiguous()
-
-    def _sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks, with no autograd (a new tensor
-        on t's device)."""
-        staged = self._staged(t)
-        dist.all_reduce(staged, group=self.group)
-        return staged.to(t.device)
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks (a new tensor on t's device);
@@ -121,34 +108,6 @@ class HaloCtx:
         """A per-shard sum over W (the fused convs' moments) summed over
         the shards."""
         return self._all_reduce(t)
-
-    def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean of ``t`` over the ranks, with no autograd (the step's
-        losses, ``pmean``)."""
-        return t if self.n_shards == 1 else self._sum(t) / self.n_shards
-
-    @torch.no_grad()
-    def mean_grads_(self, params: Sequence[torch.nn.Parameter]) -> None:
-        """Each parameter's ``.grad`` replaced by its mean over the ranks
-        (a missing grad counts as zeros), in one ``all_reduce``: ``pmean``
-        of the JAX step's grads. Every rank then holds the same grads."""
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.n_shards == 1 or not params:
-            return
-        flat = self._sum(torch.cat([p.grad.reshape(-1) for p in params])) / self.n_shards
-        for p, g in zip(params, flat.split([p.numel() for p in params])):
-            p.grad.copy_(g.view_as(p))
-
-    def same_on_every_rank(self, t: torch.Tensor) -> bool:
-        """Whether ``t`` is bitwise rank 0's on every rank (collective)."""
-        mine = self._staged(t)
-        ref = mine.clone()
-        dist.broadcast(ref, src=0, group=self.group)
-        every = [None] * self.n_shards
-        dist.all_gather_object(every, torch.equal(mine, ref), group=self.group)
-        return all(every)
 
     def all_gather_w(self, y: torch.Tensor) -> torch.Tensor:
         """The shards of ``y`` concatenated along W, on every rank (JAX

@@ -1,4 +1,5 @@
-"""Training CLI: the reference's train.py loop on one device.
+"""Training CLI: the reference's train.py loop on one device, on N data
+ranks, or on N W shards.
 
   python -m biasgan_tpu_torch.train --model cycle_gan --dataset_mode synthetic \\
       --netG resnet_9blocks --ngf 64 --ndf 64 --crop_size 256 --input_nc 3 \\
@@ -6,21 +7,35 @@
       --name RUN --device cuda
   python -m biasgan_tpu_torch.train --model pix2pix --dataset_mode synthetic \\
       --compute_dtype bfloat16 --name RUN --device cuda
+  python -m biasgan_tpu_torch.train --model pix2pix --dataset_mode synthetic \\
+      --compute_dtype bfloat16 --batch_size 128 --data_mesh 2 --val_split 128 \\
+      --val_freq 256 --name RUN --device cuda
 
 (pix2pix at the reference's defaults: unet_256 G, basic D, batch norm,
 vanilla GAN + L1, dropout on, 256x256.)
 
-Counterpart of the repo-root ``train.py`` (:130-249), with its flags:
+Counterpart of the repo-root ``train.py`` (:59-249), with its flags:
 parse the config, build the dataset and the training state, then the epoch
-loop (fetch a batch, move it to the device, one optimization step; print
-and log the losses, save at the cadences; advance the LR schedule at each
-epoch's end). The loss line is the reference's, ``(epoch: E, iters: I,
-time: T, data: D) G_GAN: ... D_fake: ...`` (CycleGAN: ``D_A: ... idt_B:
-...``), to stdout and
+loop (fetch a batch, move it to the device, one optimization step; the
+validation metrics, print and log the losses, save at the cadences;
+advance the LR schedule at each epoch's end). The loss line is the
+reference's, ``(epoch: E, iters: I, time: T, data: D) G_GAN: ... D_fake:
+...`` (CycleGAN: ``D_A: ... idt_B: ...``), to stdout and
 ``<run_dir>/loss_log.txt``. Saves write the full training state
 (``ckpt/<tag>.pt``) and each net's ``<tag>_net_<name>.pth``, which
 ``python -m biasgan_tpu_torch.infer`` loads; ``--continue_train`` resumes
 from the state at ``--epoch`` (with ``--epoch_count`` the next epoch).
+
+Validation (the repo-root train.py's, :32-57, :166-245): --val_split N holds the
+last N samples out ("The number of validation images = N"), else a 'val'
+phase directory of climate or aligned data serves. Every --val_freq
+samples (global) the loop prints ``validation (train batch): rmse: ...
+bias: ... pdf_tv: ... log_spectral_distance: ...`` of the step's visuals,
+then ``validation (held out): ...``, the mean over at most 4 held-out
+batches of an eval-mode forward (``models.base``). Under --lr_policy
+plateau the tracked metric is the held-out RMSE over every held-out batch,
+else (no held-out data) that of an eval forward on the last training
+batch; the warning line prints only where neither exists.
 
 The kernel routes are the JAX CLI's flags: --fused_blocks (the block convs
 through conv3x3_fused_t: the fused kernel with its exact backward),
@@ -29,26 +44,46 @@ conv3x3_valid), --conv7_pallas 1 (the 7x7 stem and head through conv7x7)
 and --force_pallas_norm (the instance norms of G and D through
 instance_norm_act). Each prints whether it engaged, or why not.
 
+--data_mesh N (N > 1) trains data-parallel (the JAX CLI's
+``data_parallel_step``): N spawned ranks (``parallel.mesh``), each building
+the same state from --seed and stepping on its contiguous slice of every
+global batch of --batch_size (which must split evenly), with its own
+dropout and augmentation draws; the grads, losses and batch-norm running
+averages are averaged over the ranks (``parallel.DataCtx``), so every
+rank's parameters stay bitwise equal. The kernel routes engage on every
+rank as on one device. Ranks sharing a card (one card, N ranks) talk over
+gloo through host copies; a card per rank, over NCCL: the startup line
+says which.
+
 --spatial_mesh N (N > 1) trains spatially sharded (the JAX CLI's
-``models/base.py:55-100``): N spawned ranks, one process per W shard
-(``parallel.mesh``), each building the same state from --seed and reading
-the same global batches; each rank runs the step on its W shard
+``models/base.py:55-100``): N spawned ranks, one process per W shard,
+each building the same state from --seed and reading the same global
+batches; each rank runs the step on its W shard
 (``models.cyclegan.make_train_step(..., ctx=...)``), and the losses, the
-grads and so the updated parameters are the one-device step's. Rank 0
-prints the loss lines and writes ``loss_log.txt`` and the checkpoints (the
-pools gathered on W); a rank that fails fails the run. Sharding needs a W
-pad that does not reflect (--w_pad_mode wrap or zero); --halo_rdma is
-ignored, with a notice (the kernel has no backward, and the JAX training
-context has no rdma); --fused_blocks takes the block conv's halo W mode.
+grads and so the updated parameters are the one-device step's. Sharding
+needs a W pad that does not reflect (--w_pad_mode wrap or zero);
+--halo_rdma is ignored, with a notice (the kernel has no backward, and the
+JAX training context has no rdma); --fused_blocks takes the block conv's
+halo W mode.
+
+Under either, rank 0 prints the loss lines and writes ``loss_log.txt`` and
+the checkpoints (the pools gathered on W where they are sharded), a rank
+that fails fails the run, and the parent prints each rank's kernel
+launches and ``<data|spatial>: parameters bitwise equal on every rank:
+True`` (the running averages included; False raises).
 
 Not carried: --steps_per_call (a scan of steps per dispatch), --profile,
---data_mesh, the validation metrics and the HTML pages. pix2pix trains on
-one device (``models.pix2pix``; its sharded step is not ported yet and
-raises), CycleGAN on one device or sharded.
+the HTML pages, the 2-D mesh (--data_mesh with --spatial_mesh > 1: it
+comes with the sharded pix2pix step, and raises), and the held-out
+directories of the unaligned and single datasets (not ported). pix2pix
+trains on one device or data-parallel (its sharded step is not ported yet
+and raises), CycleGAN on one device, data-parallel or sharded.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import os
 import sys
@@ -57,13 +92,26 @@ import time
 import torch
 import torch.distributed as dist
 
-from biasgan_tpu_torch.config import format_config, parse_config, route_on, save_config
+from biasgan_tpu_torch.config import (
+    format_config,
+    mesh_of,
+    parse_config,
+    route_on,
+    save_config,
+)
 from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.infer import pallas_conv_notices
+from biasgan_tpu_torch.models.base import (
+    Plateau,
+    average_metrics,
+    evaluate_metrics_on,
+    plateau_update,
+    validation_metrics_of,
+)
 from biasgan_tpu_torch.models.common import make_lr_schedule, step_generator
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
-from biasgan_tpu_torch.parallel import HaloCtx, placement, spawn
+from biasgan_tpu_torch.parallel import DataCtx, HaloCtx, placement, spawn
 from biasgan_tpu_torch.parallel.checks import kernel_counts
 from biasgan_tpu_torch.registry import get_model
 from biasgan_tpu_torch.utils import checkpoint
@@ -172,18 +220,48 @@ def sharded_w_mode(cfg) -> str:
     return w_mode
 
 
-def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None):
+
+
+def build_val_loader(cfg, rank: int = 0, ranks: int = 1):
+    """The held-out loader (the repo-root train.py's ``_build_val_loader``):
+    --val_split N's last N samples, else a 'val' phase directory of climate
+    or aligned data; None where neither exists. ``rank`` of ``ranks``: a
+    data-parallel rank's slices."""
+    if cfg.val_split > 0:
+        return create_dataset(cfg, "val", rank, ranks)
+    if cfg.dataset_mode in ("climate", "aligned"):
+        try:
+            return create_dataset(dataclasses.replace(cfg, phase="val"), None, rank, ranks)
+        except FileNotFoundError:
+            return None
+    return None
+
+
+def format_metrics(metrics) -> str:
+    return " ".join(f"{k}: {v:.4f}" for k, v in metrics.items())
+
+
+def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, data=None,
+               step_times=None):
     """The reference's epoch loop on ``device`` (module docstring) over
     ``dataset`` (made from ``cfg`` unless given): state, resume, the steps,
-    the loss lines, the saves. Under a spatial context ``ctx`` this is one
-    rank of a sharded run: every rank steps, only rank 0's ``say`` prints,
-    and only rank 0 writes. Returns the state."""
+    the validation metrics, the loss lines, the saves, the plateau policy.
+    Under a spatial context ``ctx`` or a data context ``data`` this is one
+    rank of a sharded or data-parallel run: every rank steps, only rank
+    0's ``say`` prints, and only rank 0 writes. ``step_times``: a list that
+    takes each step's seconds, the batch's copy to the device included,
+    the device synchronized after the step (before any validation).
+    Returns the state."""
     model = get_model(cfg.model)
-    writes = ctx is None or ctx.rank == 0
+    rank, ranks = (0, 1) if data is None else (data.rank, data.size)
+    writes = all(c is None or c.rank == 0 for c in (ctx, data))
     if dataset is None:
-        dataset = create_dataset(cfg)
+        dataset = create_dataset(cfg, "train" if cfg.val_split > 0 else None, rank, ranks)
     cfg.steps_per_epoch = len(dataset)
     say(f"The number of training images = {dataset.num_samples}")
+    val_loader = build_val_loader(cfg, rank, ranks)
+    if val_loader is not None:
+        say(f"The number of validation images = {val_loader.num_samples}")
 
     state = model.create_state(cfg, device, ctx=ctx)
     run_dir = cfg.run_dir()
@@ -196,8 +274,22 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None):
     if ctx is None:
         for note in routing_notices(cfg, state):
             say(note)
-    step_fn = model.make_train_step(cfg, ctx=ctx)
+    step_fn = model.make_train_step(cfg, ctx=ctx, data=data)
+    eval_fn = model.make_eval_fn(cfg)
     lr_fn = make_lr_schedule(cfg)
+    plateau = Plateau()
+
+    def held_out(limit=None):
+        return average_metrics(
+            evaluate_metrics_on(state, eval_fn, batch_to(vb, device), cfg, ctx, data)
+            for vb in itertools.islice(val_loader, limit))
+
+    def save(tag, meta):
+        # a data-parallel run's state is the same on every rank: rank 0
+        # saves it alone; a sharded run gathers its pools from every rank
+        if data is None or writes:
+            checkpoint.save_state(run_dir, tag, state, meta, ctx)
+
     log_name = os.path.join(run_dir, "loss_log.txt")
     if writes:
         with open(log_name, "a") as f:
@@ -209,14 +301,27 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None):
     for epoch in range(cfg.epoch_count, n_total + 1):
         epoch_start = time.time()
         dataset.epoch = epoch - 1  # the shuffle order of this epoch
+        last_batch = None
         t_data_mark = time.time()
-        for data in dataset:
+        for data_batch in dataset:
             t_data = time.time() - t_data_mark
             iter_start = time.time()
             total_iters += cfg.batch_size
-            batch = batch_to(data, device)
-            losses, _ = step_fn(state, batch, step_generator(cfg.seed, host_step))
+            last_batch = batch_to(data_batch, device)
+            losses, visuals = step_fn(state, last_batch, step_generator(cfg.seed, host_step))
             host_step += 1
+            if step_times is not None:
+                sync()
+                step_times.append(time.time() - iter_start)
+            if cfg.val_freq and total_iters % cfg.val_freq < cfg.batch_size:
+                metrics = validation_metrics_of(visuals, cfg, ctx, data)
+                if metrics:
+                    say(f"validation (train batch): {format_metrics(metrics)}")
+                if val_loader is not None:
+                    metrics = held_out(4)
+                    if metrics:
+                        say(f"validation (held out): {format_metrics(metrics)}")
+            del visuals
             if total_iters % cfg.print_freq < cfg.batch_size:
                 values = {k: float(v) for k, v in losses.items()}  # syncs the device
                 sync()
@@ -228,78 +333,117 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None):
                         f.write(msg + "\n")
             if total_iters % cfg.save_latest_freq < cfg.batch_size:
                 say(f"saving latest (epoch {epoch}, total_iters {total_iters})")
-                tag = f"iter_{total_iters}" if cfg.save_by_iter else "latest"
-                checkpoint.save_state(run_dir, tag, state, {"host_step": host_step,
-                                                            "epoch": epoch}, ctx)
+                save(f"iter_{total_iters}" if cfg.save_by_iter else "latest",
+                     {"host_step": host_step, "epoch": epoch})
             t_data_mark = time.time()
         if epoch % cfg.save_epoch_freq == 0:
             say(f"saving model at end of epoch {epoch}, iters {total_iters}")
             meta = {"host_step": host_step, "epoch": epoch}
-            checkpoint.save_state(run_dir, "latest", state, meta, ctx)
-            checkpoint.save_state(run_dir, f"epoch_{epoch}", state, meta, ctx)
+            save("latest", meta)
+            save(f"epoch_{epoch}", meta)
         if cfg.lr_policy == "plateau":
-            # the tracked metric is the validation RMSE, not ported yet
-            say("warning: plateau policy found no rmse metric; lr will not decay "
-                "this epoch")
+            # the tracked metric: the held-out RMSE (eval mode) over every
+            # held-out batch, else an eval forward on the last training batch
+            if val_loader is not None:
+                metric = held_out().get("rmse")
+            elif last_batch is not None:
+                metric = evaluate_metrics_on(state, eval_fn, last_batch, cfg, ctx, data).get("rmse")
+            else:
+                metric = None
+            if metric is None:
+                say("warning: plateau policy found no rmse metric; lr will not decay "
+                    "this epoch")
+            plateau_update(state, plateau, metric)
         lr = lr_fn(state.step, state.lr_scale)
         say(f"End of epoch {epoch} / {n_total} \t Time: {time.time() - epoch_start:.1f}s"
             f" \t lr: {lr:.3e}")
     return state
 
 
-def params_equal_across_ranks(state, ctx) -> bool:
-    """Whether every net's parameters on every rank equal rank 0's,
-    bitwise (collective)."""
-    return ctx.same_on_every_rank(torch.cat([
-        p.detach().reshape(-1) for net in state.nets.values() for p in net.parameters()]))
+def params_equal_across_ranks(state, ctx, pools: bool = False) -> bool:
+    """Whether every net's parameters and running averages (and with
+    ``pools``, the replay pools) on every rank equal rank 0's, bitwise
+    (collective)."""
+    parts = [t.detach().float().reshape(-1) for net in state.nets.values()
+             for t in (*net.parameters(), *net.buffers()) if t.is_floating_point()]
+    if pools:
+        parts += [p.buffer.reshape(-1) for p in state.pools.values()]
+    return ctx.same_on_every_rank(torch.cat(parts))
 
 
 def train_rank(rank, n, device, say, argv):
-    """One rank of a sharded run (``parallel.spawn``): the command line's
-    config, its W shard of every step. Returns each rank's kernel launches
-    (with ``conv3x3_fused_t``'s, the differentiable block conv's) and
-    whether the parameters ended bitwise equal on every rank."""
+    """One rank of a data-parallel (--data_mesh) or sharded (--spatial_mesh)
+    run (``parallel.spawn``): the command line's config, its slice or W
+    shard of every step. Returns each rank's kernel launches (with
+    ``conv3x3_fused_t``'s, the differentiable block conv's), whether the
+    state ended bitwise equal on every rank, rank 0's ms per step and, for
+    a data-parallel run, each rank's host ms per grads'
+    all-reduce and peak memory allocated (None on the CPU)."""
     cfg = parse_config(argv, train=True)
-    ctx = HaloCtx(n, periodic=sharded_w_mode(cfg) == "wrap")
-    state = train_loop(cfg, device, say, ctx)
+    data = ctx = None
+    if mesh_of(cfg)[0] > 1:
+        data = DataCtx(n)
+    else:
+        ctx = HaloCtx(n, periodic=sharded_w_mode(cfg) == "wrap")
+    group = data or ctx
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    step_times = []
+    state = train_loop(cfg, device, say, ctx, data=data, step_times=step_times)
     launches = [None] * n
     dist.all_gather_object(launches, kernel_counts())
-    equal = params_equal_across_ranks(state, ctx)
-    ctx.close()
-    return {"launches": launches, "params_equal": equal}
+    result = {"launches": launches, "step_ms": [s * 1e3 for s in step_times],
+              "params_equal": params_equal_across_ranks(state, group, pools=data is not None)}
+    if data is not None:
+        mine = {"grad_reduce_ms": [s * 1e3 for s in data.grad_reduce_s],
+                "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                         if device.type == "cuda" else None)}
+        result["ranks"] = [None] * n
+        dist.all_gather_object(result["ranks"], mine)
+    group.close()
+    return result
 
 
 def main(argv=None):
-    """Train on one device; with --spatial_mesh N > 1, on N spawned ranks
-    (module docstring). Returns the state, or for a sharded run rank 0's
-    result (``train_rank``)."""
+    """Train on one device; with --data_mesh N > 1 or --spatial_mesh N > 1,
+    on N spawned ranks (module docstring). Returns the state, or for a run
+    on ranks rank 0's result (``train_rank``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     cfg = parse_config(argv, train=True)
     model = get_model(cfg.model)
     if not hasattr(model, "make_train_step"):
         raise NotImplementedError(f"training model {cfg.model!r} is not ported yet "
                                   "(the port trains pix2pix and cycle_gan)")
-    n = max(cfg.spatial_mesh, 1)
-    if n > 1 and cfg.model != "cycle_gan":
+    data_n, spatial_n = mesh_of(cfg)
+    if spatial_n > 1 and cfg.model != "cycle_gan":
         raise NotImplementedError(f"sharded training of model {cfg.model!r} is not ported "
                                   "yet (--spatial_mesh > 1 trains cycle_gan)")
-    if n > 1:
+    if spatial_n > 1:
         sharded_w_mode(cfg)
-    dataset = create_dataset(cfg)
+    dataset = create_dataset(cfg, "train" if cfg.val_split > 0 else None)
     cfg.steps_per_epoch = len(dataset)
     print(format_config(cfg))
     save_config(cfg)
+    n, kind = (data_n, "data") if data_n > 1 else (spatial_n, "spatial")
     if n == 1:
         return train_loop(cfg, torch.device(cfg.device), dataset=dataset)
-    print(placement(n, cfg.device))
-    for note in spatial_notices(cfg):
-        print(note)
+    print(placement(n, cfg.device, kind=kind))
+    if kind == "spatial":
+        for note in spatial_notices(cfg):
+            print(note)
     result = spawn(train_rank, n, (argv,), device=cfg.device)
-    print(f"spatial: kernel launches per rank {json.dumps(result['launches'])}")
-    print(f"spatial: parameters bitwise equal on every rank: {result['params_equal']}")
+    print(f"{kind}: kernel launches per rank {json.dumps(result['launches'])}")
+    if kind == "data":
+        for r, got in enumerate(result["ranks"]):
+            ms, mem = got["grad_reduce_ms"], got["max_memory_allocated"]
+            print(f"data: rank {r}: the grads' all-reduce {len(ms)} calls, host ms mean "
+                  f"{sum(ms) / max(len(ms), 1):.3f}, max {max(ms, default=0.0):.3f}; "
+                  "max_memory_allocated "
+                  f"{'n/a (CPU)' if mem is None else f'{mem / 2**30:.2f} GiB'}")
+    print(f"{kind}: parameters bitwise equal on every rank: {result['params_equal']}")
     if not result["params_equal"]:
-        raise RuntimeError("the ranks' parameters differ after training: the sharded "
-                           "steps diverged")
+        raise RuntimeError(f"the ranks' parameters differ after training: the {kind} "
+                           "ranks' steps diverged")
     return result
 
 

@@ -154,7 +154,29 @@ checkout is missing, and at the first failure of any phase:
      bf16): step 1 held to the same step without the flag, then the CLI's
      two steps with K2's forward and backward on each of the 18 block
      convs once a step, exact; and the saved U-Net serving one field of
-     the store of 5 through ``biasgan_tpu_torch.infer.main``.
+     the store of 5 through ``biasgan_tpu_torch.infer.main``;
+  10. data parallelism over two ranks (one card: gloo, the ranks sharing
+     it through host copies; a card per rank: NCCL; a notice line says
+     which): the bench configuration (batch norm, dropout on, bf16) at
+     global batch 128 through ``biasgan_tpu_torch.train.main --data_mesh
+     2`` for five steps with --val_split and --val_freq (both validation
+     lines; ms/step, samples/s, each rank's host ms in the grads'
+     all-reduce and peak memory; every rank's parameters, running averages
+     and pools bitwise equal; no kernel launched); step 1 in f32 at global
+     batch 2, dropout off: instance norm, the card's ranks against the
+     one-card step on the global batch, batch norm, the card's ranks
+     against two CPU ranks (which the CPU tests hold to JAX's
+     data-parallel step), by the rules of 7 with phase 9's noise floors;
+     CycleGAN at its defaults with --data_mesh 2 for two bf16 steps on
+     three kernel routes of 7 (--fused_blocks: K2's forward, all on its
+     wgmma kernel, and backward 54 launches per rank per step;
+     --pallas_conv 1: the VALID conv's 54 forwards and 54 input gradients;
+     the all-kernel route: the 7x7 conv's 6, the instance norm's 27
+     forwards on the paths its plan names and 27 backwards), each rank's
+     launches exact; and the validation metric bundle
+     on the card against the CPU for the same fields (rmse, bias and the
+     log-spectral distance within 1e-4 relative, pdf_tv within one
+     count), with its time on the card. The phase prints its seconds.
 
 On a host with a card per rank the sharded phases run over NCCL, the halo
 kernel writing across NVLink peers and signalling on the device.
@@ -2650,9 +2672,257 @@ def pix2pix_phase(torch, work) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: --data_mesh 2, and the validation metrics
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_STEPS = 5  # the bench configuration's CLI steps; ms/step over steps 2-5
+DP_HELD_BATCH = 2  # the held step's global batch: one sample a rank
+# CycleGAN at its defaults through --data_mesh 2 on the kernel routes of
+# phase 7, two bf16 steps of global batch 2 (one sample a rank, as batch 1
+# on one card); the kernels each route runs, by name
+DP_CG_STEPS = 2
+DP_CG_FLAGS = ["--data_mesh", str(DP_RANKS), "--batch_size", str(DP_RANKS),
+               "--synthetic_samples", str(DP_RANKS * DP_CG_STEPS)]
+DP_CG_ROUTES = {"fused": ("conv3x3_fused", "conv3x3_fused_bwd"),
+                "pallas_conv": ("conv3x3_valid",),
+                "all": ("conv7x7", "instance_norm_act", "instance_norm_act_bwd")}
+METRIC_RTOL = 1e-4  # rmse, bias and the log-spectral distance, card against CPU
+
+
+def dp_rank(rank, n, device, say, cases):
+    """``parallel.checks.data_cases`` with TF32 off on the card."""
+    import torch
+
+    from biasgan_tpu_torch.parallel.checks import data_cases
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return data_cases(rank, n, device, say, cases)
+
+
+def dp_first_batch(argv, perturb=0.0) -> dict:
+    """The first global batch of ``argv``'s synthetic dataset as numpy
+    (its A and B moved by ``perturb`` relative noise, for the noise
+    floor)."""
+    import numpy as np
+
+    from biasgan_tpu_torch.config import parse_config
+    from biasgan_tpu_torch.data import create_dataset
+
+    batch = next(iter(create_dataset(parse_config(argv + ["--device", "cpu"], train=True))))
+    batch = {k: v for k, v in batch.items() if not k.endswith("_paths")}
+    if perturb:
+        rng = np.random.default_rng(11)
+        batch = {k: (v * (1 + perturb * rng.normal(size=v.shape))).astype(np.float32)
+                 for k, v in batch.items()}
+    return batch
+
+
+def dp_held_steps(torch, work) -> tuple:
+    """Step 1 of the data-parallel pix2pix step at the bench configuration's
+    widths, f32, dropout off, global batch DP_HELD_BATCH, held by the rules
+    of phase 7 (noise floors as phase 9 takes them): instance norm, the
+    ranks on the card against the one-device step on the card on the
+    global batch; batch norm, the ranks on the card against the ranks on
+    the CPU (which tier-1 holds to JAX's data-parallel step). Returns
+    (results, failures)."""
+    from biasgan_tpu_torch.parallel import spawn
+
+    base = P2P_ARGS + ["--no_dropout", "--no-in_graph_aug", "--batch_size",
+                       str(DP_HELD_BATCH), "--checkpoints_dir", os.path.join(work, "dp_held")]
+    argv = {norm: base + ["--norm", norm, "--name", norm] for norm in ("instance", "batch")}
+
+    def case(norm, device, perturb=0.0):
+        tag = f"{norm}_{device}_{'moved' if perturb else 'ref'}"
+        return {"argv": argv[norm] + ["--device", device],
+                "batches": [dp_first_batch(argv[norm], perturb)],
+                "grads": os.path.join(work, f"dp_grads_{tag}.pt"), "tag": tag}
+
+    on_card = [case("instance", "cuda"), case("batch", "cuda"),
+               case("batch", "cuda", NOISE_INPUT["float32"])]
+    on_cpu = [case("batch", "cpu"), case("batch", "cpu", NOISE_INPUT["float32"])]
+    got = {}
+    for device, cases in (("cuda", on_card), ("cpu", on_cpu)):
+        t0 = time.perf_counter()
+        res = spawn(dp_rank, DP_RANKS, (cases,), device=device, timeout=600,
+                    group_timeout=600)
+        print(f"data-parallel held steps: {len(cases)} cases on {DP_RANKS} {device} ranks "
+              f"({time.perf_counter() - t0:.1f} s)")
+        for c, r in zip(cases, res):
+            check(r["params_equal"], f"data-parallel {c['tag']}: the ranks' state differs")
+            check(not any(v for counts in r["launches"] for v in counts.values()),
+                  f"data-parallel {c['tag']}: kernel launches {r['launches']}")
+            grads = torch.load(c["grads"], weights_only=True)
+            got[c["tag"]] = {"losses": r["losses"][0], **grads}
+    dev = torch.device("cuda")
+    one = p2p_first_step(torch, dev, argv["instance"])
+    moved = p2p_first_step(torch, dev, argv["instance"], perturb=NOISE_INPUT["float32"])
+    floor_one = grad_distance(moved, one)[1]
+    out, fails = {}, []
+    held = hold_first_step("data-parallel instance norm, card ranks vs one card", "float32",
+                           got["instance_cuda_ref"], one, floor_one)
+    fails += held["fails"]
+    out["instance"] = {"losses_ranks": got["instance_cuda_ref"]["losses"],
+                       "losses_one": one["losses"], "grad_rel_l2": held["grad_rel_l2"],
+                       "noise_floor": floor_one}
+    floor_card = grad_distance(got["batch_cuda_moved"], got["batch_cuda_ref"])[1]
+    floor_cpu = grad_distance(got["batch_cpu_moved"], got["batch_cpu_ref"])[1]
+    floor = {net: max(floor_card[net], floor_cpu[net]) for net in floor_card}
+    held_bn = hold_first_step("data-parallel batch norm, card ranks vs CPU ranks", "float32",
+                              got["batch_cuda_ref"], got["batch_cpu_ref"], floor)
+    fails += held_bn["fails"]
+    out["batch"] = {"losses_card": got["batch_cuda_ref"]["losses"],
+                    "losses_cpu": got["batch_cpu_ref"]["losses"],
+                    "grad_rel_l2": held_bn["grad_rel_l2"], "noise_floor_card": floor_card,
+                    "noise_floor_cpu": floor_cpu}
+    for norm, h in (("instance", held), ("batch", held_bn)):
+        print(f"data-parallel pix2pix {norm} norm f32 step 1 held: relative L2 per net "
+              f"{h['grad_rel_l2']} (noise floor {out[norm].get('noise_floor', floor)})")
+    return out, fails
+
+
+def dp_metrics(torch) -> dict:
+    """The metric bundle on the card against the same functions on the CPU
+    for the same fields: rmse, bias and the log-spectral distance within
+    METRIC_RTOL relative, pdf_tv within one count; and its time on the card
+    at the bench batch."""
+    import numpy as np
+
+    from biasgan_tpu_torch.data.synthetic import smooth_field
+    from biasgan_tpu_torch.ops.metrics import validation_metrics
+
+    rng = np.random.default_rng(5)
+    cases = {
+        "bench batch (128,256,256,3) bf16, [-1, 1]": (
+            np.tanh(rng.normal(size=(128, 256, 256, 3))), -1.0, 1.0, torch.bfloat16),
+        "globe (1,721,1440,3) f32, [-5, 5]": (
+            np.stack([smooth_field(rng, GLOBE_H, GLOBE_W, 2.0) for _ in range(N_VARS)],
+                     -1)[None] * 3.0, -5.0, 5.0, torch.float32),
+    }
+    out = {}
+    for name, (a, lo, hi, dtype) in cases.items():
+        a = a.astype(np.float32)
+        b = (a * 1.1 + 0.05 + 0.1 * rng.normal(size=a.shape)).astype(np.float32)
+        fields = [torch.from_numpy(x).to(dtype) for x in (a, b)]
+        want = {k: float(v) for k, v in validation_metrics(*fields, lo, hi).items()}
+        on_card = [f.cuda() for f in fields]
+        got = {k: float(v) for k, v in validation_metrics(*on_card, lo, hi).items()}
+        m = a.size // a.shape[-1]
+        for k in ("rmse", "bias", "log_spectral_distance"):
+            check(abs(got[k] - want[k]) <= METRIC_RTOL * abs(want[k]),
+                  f"metrics {name}: {k} card {got[k]} vs CPU {want[k]}")
+        check(abs(got["pdf_tv"] - want["pdf_tv"]) <= 1.0 / m + 1e-7,
+              f"metrics {name}: pdf_tv card {got['pdf_tv']} vs CPU {want['pdf_tv']}")
+        ms = timed(torch, lambda: validation_metrics(*on_card, lo, hi), iters=5, warmup=1)
+        out[name] = {"card": got, "cpu": want, "ms": ms}
+        print(f"metric bundle {name}: card {got}, CPU {want}; {ms:.3f} ms on the card")
+    return out
+
+
+def data_parallel_phase(torch, work) -> dict:
+    """Data parallelism on the card (module docstring, phase 10): the bench
+    configuration through ``train.main --data_mesh 2`` with the validation
+    flags; step 1 held in f32; CycleGAN --fused_blocks --data_mesh 2 with
+    K2's launches per rank; the metric bundle against the CPU."""
+    from biasgan_tpu_torch import train
+    from biasgan_tpu_torch.parallel import placement
+
+    t_phase = time.perf_counter()
+    name = card()
+    print(placement(DP_RANKS, "cuda", kind="data"))
+    out = {"card": name, "ranks": DP_RANKS}
+
+    # (a) the bench configuration, bf16, global batch 128, dropout on, with
+    # a held-out batch and one validation point (the last step)
+    argv = p2p_argv(work, "dp_bench", "--batch_size", str(BENCH_BATCH), "--data_mesh",
+                    str(DP_RANKS), "--compute_dtype", "bfloat16", "--no-in_graph_aug",
+                    "--synthetic_samples", str(BENCH_BATCH * (DP_STEPS + 1)),
+                    "--val_split", str(BENCH_BATCH), "--val_freq", str(BENCH_BATCH * DP_STEPS),
+                    "--device", "cuda")
+    log = io.StringIO()
+    zero_counts()
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(log):
+        result = train.main(argv)
+    text = log.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("(epoch:")]
+    check(len(lines) == DP_STEPS and not any("nan" in ln or "inf" in ln for ln in lines),
+          f"data-parallel bench CLI: loss lines {lines}")
+    for want in ("The number of validation images", "validation (train batch):",
+                 "validation (held out):", "data: parameters bitwise equal on every rank: True"):
+        check(want in text, f"data-parallel bench CLI: no line {want!r}")
+    check(result["params_equal"], "data-parallel bench CLI: the ranks' state differs")
+    check(not any(v for counts in result["launches"] for v in counts.values()),
+          f"data-parallel bench CLI: kernel launches {result['launches']}, expected none")
+    ms = result["step_ms"]
+    reduce_ms = [[sum(r["grad_reduce_ms"][2 * i:2 * i + 2]) for i in range(DP_STEPS)]
+                 for r in result["ranks"]]
+    peak = [r["max_memory_allocated"] for r in result["ranks"]]
+    out["bench"] = {
+        "batch": BENCH_BATCH, "step_ms": ms,
+        "samples_per_s": BENCH_BATCH * 1e3 / statistics.mean(ms[1:]),
+        "grad_all_reduce_ms_per_step": reduce_ms, "max_memory_allocated": peak,
+        "validation": [ln for ln in text.splitlines() if ln.startswith("validation")]}
+    for ln in text.splitlines():
+        if re.match(r"data:|validation|The number|\(epoch", ln):
+            print(f"  dp cli: {ln}")
+    shared = ("" if torch.cuda.device_count() >= DP_RANKS else
+              f"; {DP_RANKS} ranks share this one card over gloo: a smoke reading, not a "
+              "multi-card speed")
+    print(f"data-parallel pix2pix bench configuration, --data_mesh {DP_RANKS}, global batch "
+          f"{BENCH_BATCH}, 256x256 bf16, dropout on: ms/step {ms} (step 1 warms up), "
+          f"{out['bench']['samples_per_s']:.1f} samples/s over steps 2-{DP_STEPS}; the grads' "
+          f"all-reduce host ms per step per rank {reduce_ms}; max_memory_allocated per rank "
+          f"{[round(p / 2**30, 2) for p in peak]} GiB on {name}{shared}")
+
+    # (b) step 1 held, f32
+    out["held"], fails = dp_held_steps(torch, work)
+
+    # (c) CycleGAN at its defaults under --data_mesh 2 on the kernel
+    # routes: every rank launches each route's kernels as one card does
+    # per step at batch 1, every bf16 call on its wgmma kernel or on the
+    # path its plan names
+    out["cyclegan"] = {}
+    for route in DP_CG_ROUTES:
+        log = io.StringIO()
+        zero_counts()
+        torch.cuda.empty_cache()
+        with contextlib.redirect_stdout(log):
+            result = train.main(train_argv(route, "bfloat16", work, f"dp_{route}",
+                                           extra=DP_CG_FLAGS))
+        lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("(epoch:")]
+        check(len(lines) == DP_CG_STEPS and not any("nan" in ln or "inf" in ln
+                                                    for ln in lines),
+              f"data-parallel CycleGAN {route}: loss lines {lines}")
+        check(result["params_equal"], f"data-parallel CycleGAN {route}: the ranks' state "
+              "differs")
+        per_step = with_path_counts(TRAIN_ROUTES[route][1], "bfloat16",
+                                    NORM_CALLS.get(route, ()))
+        for r, counts in enumerate(result["launches"]):
+            want = {k: per_step.get(k, 0) * DP_CG_STEPS for k in counts}
+            check(counts == want, f"data-parallel CycleGAN {route}: rank {r} launches "
+                  f"{ {k: v for k, v in counts.items() if v} }, expected "
+                  f"{ {k: v for k, v in want.items() if v} }")
+        out["cyclegan"][route] = {"flags": TRAIN_ROUTES[route][0] + DP_CG_FLAGS,
+                                  "launches": result["launches"],
+                                  "step_ms": result["step_ms"]}
+        nonzero = [{k: v for k, v in c.items() if v} for c in result["launches"]]
+        print(f"data-parallel CycleGAN {route}, {DP_CG_STEPS} bf16 steps of global batch "
+              f"{DP_RANKS}: launches per rank {nonzero}; rank 0 ms/step {result['step_ms']}")
+
+    # (d) the metric bundle, card against CPU
+    out["metrics"] = dp_metrics(torch)
+    check(not fails, "; ".join(fails))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"data-parallel phase: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
                   trained, spatial_times, halo, loopback, sharded, parent, norm_paths,
-                  p2p) -> list:
+                  p2p, dp) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
@@ -2663,7 +2933,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
     route; the halo exchange on the sharded --halo_rdma path, on the route
     the ranks' cards give, and its signalled route on the loopback ring;
     the block conv's differentiable form and its backward kernel on the
-    pix2pix --fused_blocks route (``pix2pix_phase``); with a parent tree,
+    pix2pix --fused_blocks route (``pix2pix_phase``); each kernel's
+    launches per data rank on the CycleGAN --data_mesh 2 routes that run it
+    (``data_parallel_phase``); with a parent tree,
     the best times there and here (compare_parent).
     Backward bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
@@ -2848,6 +3120,18 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
     if parent.get("sharded"):
         entry["parent"] = parent["sharded"]
     kernels.append(entry)
+    for route, names in DP_CG_ROUTES.items():
+        run = dp["cyclegan"][route]
+        for k in kernels:
+            if k["name"] in names:
+                k["data_parallel"] = {
+                    "route": " ".join(["--model cycle_gan"] + run["flags"][:-2]),
+                    "launches_per_rank": [c[k["name"]] for c in run["launches"]],
+                    "per": (f"each rank of the {DP_CG_STEPS}-step bf16 CLI run, 256x256, "
+                            f"global batch {DP_RANKS}"),
+                    **{f"{attr}_per_rank": [c[f"{k['name']}.{attr}"] for c in run["launches"]]
+                       for attr in ("wgmma_launches", "cluster_launches", "persistent_launches")
+                       if f"{k['name']}.{attr}" in run["launches"][0]}}
     return kernels
 
 
@@ -2889,16 +3173,18 @@ def main() -> int:
         trained = train_phase(torch, work)
         sharded = sharded_train_phase(torch, work)
         p2p = pix2pix_phase(torch, work)
+        dp = data_parallel_phase(torch, work)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(json.dumps({"training": {**trained, "pix2pix": p2p}, "sharded_training": sharded}))
+    print(json.dumps({"training": {**trained, "pix2pix": p2p}, "sharded_training": sharded,
+                      "data_parallel": dp}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
                                                spatial_times, halo, loopback, sharded,
-                                               parent, norm_paths, p2p)}))
+                                               parent, norm_paths, p2p, dp)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
