@@ -164,20 +164,25 @@ class TestConfig(BaseConfig):
     serial_batches: bool = True
 
 
-TWO_D_MESH = ("the 2-D mesh (--data_mesh with --spatial_mesh > 1) is not ported yet: it "
-              "comes with the sharded pix2pix step")
-
-
 def mesh_of(cfg) -> tuple:
-    """(data ranks, spatial ranks) of a training config. Raises for both
-    above 1 (``TWO_D_MESH``), and where the global --batch_size does not
-    split evenly over the data ranks."""
+    """(data ranks, spatial ranks) of a training config: --data_mesh D and
+    --spatial_mesh S, both above 1 being the 2-D mesh of D x S ranks.
+    Raises where the global --batch_size does not split evenly over the
+    data ranks, and where the crop's W does not split over S shards of
+    the generator's 2^downs (each shard must halve at every down)."""
+    from biasgan_tpu_torch.nn.factory import generator_downs
+
     data, spatial = max(cfg.data_mesh, 1), max(cfg.spatial_mesh, 1)
-    if data > 1 and spatial > 1:
-        raise NotImplementedError(f"--data_mesh {data} --spatial_mesh {spatial}: {TWO_D_MESH}")
     if cfg.batch_size % data:
         raise ValueError(f"--batch_size {cfg.batch_size} (the global batch) does not split "
                          f"evenly over --data_mesh {data} ranks")
+    if spatial > 1:
+        unit = spatial * 2 ** generator_downs(cfg.netG)
+        if cfg.crop_size % unit:
+            raise ValueError(
+                f"--crop_size {cfg.crop_size} (the field's W) does not split over "
+                f"--spatial_mesh {spatial} shards of netG {cfg.netG!r}: W must be a multiple "
+                f"of {spatial} x 2^{generator_downs(cfg.netG)} = {unit}")
     return data, spatial
 
 

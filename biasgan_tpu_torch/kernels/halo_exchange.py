@@ -190,13 +190,20 @@ class HaloRing:
         self.n, self.periodic, self.group = n, periodic, group
         self.rank = dist.get_rank(group) if distributed else 0
         self.left, self.right = (self.rank - 1) % n, (self.rank + 1) % n
+        # the world's numbers of the group's ranks: a point-to-point op
+        # names its peer so
+        self.ranks = (list(range(n)) if group is None or not distributed
+                      else dist.get_process_group_ranks(group))
         self.via_host = distributed and dist.get_backend(group) == "gloo"
         # the slab's handle gathers and the host route's barriers run on the
-        # host, in the group itself under gloo, else in a gloo group beside it
+        # host, in the group itself under gloo, else in a gloo group of the
+        # same ranks beside it (a sub-group's made by its members alone)
         self._host_sync = distributed and n > 1
         self._host_group = group
         if self._host_sync and not self.via_host:
-            self._host_group = dist.new_group(backend="gloo")
+            self._host_group = (
+                dist.new_group(backend="gloo") if group is None else
+                dist.new_group(self.ranks, backend="gloo", use_local_synchronization=True))
         self.route: Optional[str] = None
         self.step = 0  # host-route exchanges on this slab (the ping-pong parity)
         self.seq = SignalSeq()  # signalled exchanges on this slab
@@ -353,19 +360,20 @@ def _check_args(x: torch.Tensor, left: int, right: int) -> None:
 def _swap(ring: HaloRing, like: torch.Tensor, legs) -> None:
     """One ``batch_isend_irecv`` of the ring's ``legs``, each ``(k, send,
     to, sends, out, frm, receives, tag)``: where ``k`` > 0, ``send`` goes to
-    rank ``to`` if ``sends``, and ``out`` is filled from rank ``frm`` if
-    ``receives`` (else it keeps what it holds). Under gloo a CUDA tensor
-    goes through host copies."""
+    group rank ``to`` if ``sends``, and ``out`` is filled from group rank
+    ``frm`` if ``receives`` (else it keeps what it holds). Under gloo a CUDA
+    tensor goes through host copies."""
     where = torch.device("cpu") if ring.via_host and like.is_cuda else like.device
     ops, landed = [], []
     for k, send, to, sends, out, frm, receives, tag in legs:
         if k == 0:
             continue
         if sends:
-            ops.append(dist.P2POp(dist.isend, send.contiguous().to(where), to, ring.group, tag))
+            ops.append(dist.P2POp(dist.isend, send.contiguous().to(where), ring.ranks[to],
+                                  ring.group, tag))
         if receives:
             buf = torch.empty(out.shape, dtype=like.dtype, device=where)
-            ops.append(dist.P2POp(dist.irecv, buf, frm, ring.group, tag))
+            ops.append(dist.P2POp(dist.irecv, buf, ring.ranks[frm], ring.group, tag))
             landed.append((out, buf))
     for req in dist.batch_isend_irecv(ops) if ops else ():
         req.wait()

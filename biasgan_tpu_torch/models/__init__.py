@@ -28,6 +28,7 @@ class Pix2PixModel:
     create_state = staticmethod(pix2pix.create_state)
     make_train_step = staticmethod(pix2pix.make_train_step)
     make_eval_fn = staticmethod(pix2pix.make_eval_fn)
+    check_sharded = staticmethod(pix2pix.check_sharded)
 
     @staticmethod
     def config_defaults(train: bool) -> Dict[str, Any]:

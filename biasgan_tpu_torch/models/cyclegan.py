@@ -29,6 +29,11 @@ grads are averaged over the ranks before Adam, and the replay pools hold
 this rank's W slice of every pooled fake, with the same decisions on every
 rank. So every rank takes the one-device step, and every rank's parameters
 stay equal to every other's.
+
+On the 2-D mesh (both contexts: ``ctx`` the rank's row, ``data`` its
+column) each row steps on its data slice sharded on W: the pools gather
+the fakes over the data group and stay sharded on W, and the grads, the
+running averages and the losses are averaged over every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -164,10 +169,12 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         rank, differentiably) under a context."""
         return t if ctx is None else ctx.all_gather_w(t)
 
+    # what spans every rank: the data context spans the mesh where both are
+    mesh = data or ctx
+
     def mean_grads(opt):
-        for c in (ctx, data):
-            if c is not None:
-                c.mean_grads_([p for _, p in opt.params])
+        if mesh is not None:
+            mesh.mean_grads_([p for _, p in opt.params])
 
     def query(pool, fake, generator):
         """The pool's answer to this rank's fakes: under data parallelism
@@ -261,17 +268,16 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         state.opts["D"].step(lr)
         for _, p in state.opts["G"].params + state.opts["D"].params:
             p.grad = None
-        if data is not None:
+        if mesh is not None:
             for net in state.nets.values():
-                data.mean_buffers_(net)
+                mesh.mean_buffers_(net)
         state.step += 1
 
         vals = (loss_D_A, loss_G_A, loss_cycle_A, loss_idt_A,
                 loss_D_B, loss_G_B, loss_cycle_B, loss_idt_B)
         vals = torch.stack([v.detach().float() for v in vals])
-        for c in (ctx, data):
-            if c is not None:
-                vals = c.mean(vals)
+        if mesh is not None:
+            vals = mesh.mean(vals)
         loss_dict = dict(zip(LOSS_NAMES, vals))
         visuals = {
             "real_A": real_A, "fake_B": fake_B, "rec_A": rec_A.detach(),

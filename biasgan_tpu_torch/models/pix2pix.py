@@ -32,8 +32,21 @@ batch-norm running averages of G and D after the update; the forward's
 batch statistics stay the rank's, as in the JAX step. The visuals are the
 rank's.
 
-The sharded step (``--spatial_mesh N``, W-global batch moments) is not
-ported yet: a spatial context raises.
+Under spatial sharding (``ctx``, a ``parallel.spatial.HaloCtx``; JAX
+:107-289 under ``spatial_train_step``) every rank of the spatial row
+prepares the row's global batch with the same draws (flip and roll are not
+local to a shard) and takes its W shard; G runs once on the shard under
+the context (halos, W-global batch moments, each rank's columns of the
+whole-W dropout masks), the D on the whole W gathered on every rank (a
+PatchGAN's W-shrinking final convs cannot shard; the pixel D, which JAX
+keeps sharded, computes the same function gathered), its fake input
+gathered differentiably, so the G head's cotangent returns to each shard; the penalty runs on the gathered fields with one alpha per
+row. D's grads are averaged before D's Adam, G's before G's, then the
+losses and the running averages. So every rank takes the one-device step
+of its row's batch, and the visuals are this rank's W shards. wgangp with
+the pixel D raises, as in JAX (:129-134). With ``data`` too (the 2-D
+mesh), the data context is the rank's column: the draws are the data
+index's, and the means span every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -54,14 +67,23 @@ from biasgan_tpu_torch.models.common import (
     prepare_batch,
     rank_generator,
     resolve_direction,
+    shard_batch,
     step_generator,
 )
 from biasgan_tpu_torch.nn import compute_dtype_of, define_D, define_G
 from biasgan_tpu_torch.nn.layers import running_stats_frozen
 
 LOSS_NAMES = ("G_GAN", "G_L1", "D_real", "D_fake")
-SHARDED = ("the sharded pix2pix step (--spatial_mesh N > 1, W-global batch-norm moments) "
-           "is not ported yet")
+
+
+def check_sharded(cfg) -> None:
+    """Raises for the one configuration the sharded step refuses, as the
+    JAX step does (:129-134): wgangp with the pixel D."""
+    if cfg.gan_mode == "wgangp" and cfg.netD == "pixel":
+        raise NotImplementedError(
+            "--spatial_mesh with --gan_mode wgangp and --netD pixel: the gradient "
+            "penalty's norms are W-global, and the JAX package keeps the pixel D sharded, "
+            "so it refuses the pair; use a PatchGAN --netD")
 
 
 @dataclass
@@ -99,9 +121,7 @@ def create_state(cfg, device, nets: Optional[Dict[str, torch.nn.Module]] = None,
     """The state on ``device``, the nets seeded from --seed unless given: a
     training config's G, D and an Adam for each; a test config's G alone
     (the reference builds D and the optimizers only under isTrain,
-    :83-103)."""
-    if ctx is not None:
-        raise NotImplementedError(SHARDED)
+    :83-103). The state is the same under a spatial context ``ctx``."""
     train = isinstance(cfg, TrainConfig)
     if nets is None:
         nets = build_nets(cfg, torch.Generator().manual_seed(cfg.seed), train)
@@ -136,13 +156,25 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
     ``data``: the step of one rank of a data-parallel run (module
     docstring); ``batch`` and ``gp_alpha`` are then the rank's slice, the
     draws the rank's own, and the losses and grad norms the means over the
-    ranks."""
+    ranks.
+
+    ``ctx``: the step of one rank of a spatially sharded run (module
+    docstring); ``batch`` is then the row's global batch, the same on
+    every rank of the row, ``gp_alpha`` the row's, and the losses and grad
+    norms the means over the ranks."""
     if ctx is not None:
-        raise NotImplementedError(SHARDED)
+        check_sharded(cfg)
     lr_fn = make_lr_schedule(cfg)
     gan_mode = cfg.gan_mode
     lambda_l1, lambda_gp = cfg.lambda_L1, cfg.lambda_gp
     fuse_d = cfg.norm != "batch"
+    # what spans every rank: the data context spans the mesh where both are
+    mesh = data or ctx
+
+    def for_d(t):
+        """What D sees of a W-sharded field: the whole W (gathered on every
+        rank, differentiably) under a context."""
+        return t if ctx is None else ctx.all_gather_w(t)
 
     def step(state: GANTrainState, batch, generator: Optional[torch.Generator] = None,
              gp_alpha: Optional[torch.Tensor] = None):
@@ -151,15 +183,19 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
         if data is not None:
             generator = rank_generator(generator, data.rank)
         batch = prepare_batch(batch, generator, cfg, train=True)
+        # D's real inputs: the whole W, which every rank of the row holds
+        whole_A, whole_B = resolve_direction(batch, cfg.direction)
+        if ctx is not None:
+            batch = shard_batch(batch, ctx)
         real_A, real_B = resolve_direction(batch, cfg.direction)
         G, D = state.nets["G"], state.nets["D"]
         drop = device_generator(generator, real_A.device) if cfg.dropout() else None
         lr = lr_fn(state.step, state.lr_scale)
 
         # one G forward serves both updates (the reference's forward())
-        fake_B = G(real_A, generator=drop)
-        real_AB = torch.cat([real_A, real_B], dim=-1)
-        fake_AB = torch.cat([real_A, fake_B.detach()], dim=-1)
+        fake_B = G(real_A, ctx=ctx, generator=drop)
+        real_AB = torch.cat([whole_A, whole_B], dim=-1)
+        fake_AB = torch.cat([whole_A, for_d(fake_B.detach())], dim=-1)
 
         # ---- D update (first, as in the reference) ----
         if fuse_d:
@@ -176,8 +212,8 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
                     D, real_AB, fake_AB, alpha=gp_alpha, generator=generator)
         _zero_grads(state.opts["D"])
         loss_D.backward()
-        if data is not None:
-            data.mean_grads_([p for _, p in state.opts["D"].params])
+        if mesh is not None:
+            mesh.mean_grads_([p for _, p in state.opts["D"].params])
         d_norm = _grad_norm(state.opts["D"]) if debug_grad_norms else None
         state.opts["D"].step(lr)
 
@@ -185,7 +221,7 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
         for p in D.parameters():
             p.requires_grad_(False)
         try:
-            loss_G_GAN = losses.gan_loss(D(torch.cat([real_A, fake_B], dim=-1)), True,
+            loss_G_GAN = losses.gan_loss(D(torch.cat([whole_A, for_d(fake_B)], dim=-1)), True,
                                          gan_mode)
             loss_G_L1 = losses.l1_loss(fake_B, real_B) * lambda_l1
             _zero_grads(state.opts["G"])
@@ -193,15 +229,15 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
         finally:
             for p in D.parameters():
                 p.requires_grad_(True)
-        if data is not None:
-            data.mean_grads_([p for _, p in state.opts["G"].params])
+        if mesh is not None:
+            mesh.mean_grads_([p for _, p in state.opts["G"].params])
         g_norm = _grad_norm(state.opts["G"]) if debug_grad_norms else None
         state.opts["G"].step(lr)
         for opt in state.opts.values():
             _zero_grads(opt)
-        if data is not None:
+        if mesh is not None:
             for net in (G, D):
-                data.mean_buffers_(net)
+                mesh.mean_buffers_(net)
         state.step += 1
 
         vals = [loss_G_GAN, loss_G_L1, loss_D_real, loss_D_fake]
@@ -210,8 +246,8 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
             vals += [g_norm, d_norm]
             names += ["g_grad_norm", "d_grad_norm"]
         vals = torch.stack([v.detach().float() for v in vals])
-        if data is not None:
-            vals = data.mean(vals)
+        if mesh is not None:
+            vals = mesh.mean(vals)
         loss_dict = dict(zip(names, vals))
         return loss_dict, {"real_A": real_A, "fake_B": fake_B.detach(), "real_B": real_B}
 
@@ -220,15 +256,20 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
 
 def make_eval_fn(cfg):
     """G's forward (the reference's model.test()): ``eval_fn(state, batch,
-    generator=None, train=False) -> visuals``. ``train=True`` is the
-    reference's test without --eval: batch statistics and dropout (masks
-    from ``generator``, default ``step_generator(--seed, step)``), and G's
-    running averages move; otherwise the running averages normalize."""
+    generator=None, train=False, ctx=None) -> visuals``. ``train=True`` is
+    the reference's test without --eval: batch statistics and dropout
+    (masks from ``generator``, default ``step_generator(--seed, step)``),
+    and G's running averages move; otherwise the running averages
+    normalize. Under a spatial context ``ctx`` the batch is the global one
+    and the visuals are this rank's W shards (JAX models/base.py:220-245
+    runs the eval forward on the sharded batch)."""
 
     @torch.no_grad()
     def eval_fn(state: GANTrainState, batch, generator: Optional[torch.Generator] = None,
-                train: bool = False):
+                train: bool = False, ctx=None):
         batch = prepare_batch(batch, None, cfg, train=False)
+        if ctx is not None:
+            batch = shard_batch(batch, ctx)
         real_A, real_B = resolve_direction(batch, cfg.direction)
         G = state.nets["G"]
         was_training = G.training
@@ -239,7 +280,7 @@ def make_eval_fn(cfg):
                 gen = generator if generator is not None else step_generator(cfg.seed,
                                                                              state.step)
                 drop = device_generator(gen, real_A.device)
-            fake_B = G(real_A, generator=drop)
+            fake_B = G(real_A, ctx=ctx, generator=drop)
         finally:
             G.train(was_training)
         return {"real_A": real_A, "fake_B": fake_B, "real_B": real_B}

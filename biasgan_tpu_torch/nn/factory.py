@@ -104,6 +104,12 @@ def unet_downs(netG: str) -> Optional[int]:
     return int(m.group(1)) if m else _UNET_DOWNS.get(netG)
 
 
+def generator_downs(netG: str) -> int:
+    """The generator's stride-2 downs: a U-Net's count, a resnet's 2."""
+    downs = unet_downs(netG)
+    return 2 if downs is None else downs
+
+
 def define_D(
     netD: str,
     input_nc: int,

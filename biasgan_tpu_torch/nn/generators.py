@@ -171,18 +171,29 @@ class UNetGenerator(nn.Module):
             u = self.ups[i](F.relu(torch.cat([d[i], u], dim=-1)), ctx=ctx)
             u = norm_act(u, self.up_norms[str(i)], ctx=ctx)
             if i in self.drop_at and self.training:
-                u = dropout(u, 0.5, generator)
+                u = dropout(u, 0.5, generator, ctx)
         u = self.ups[0](F.relu(torch.cat([d[0], u], dim=-1)), ctx=ctx).float()
         return torch.tanh(u) if self.out_activation == "tanh" else u
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            ctx=None) -> torch.Tensor:
     """flax ``Dropout(rate)`` in training: each value kept with probability
     1 - rate and scaled by 1 / (1 - rate), else 0. The mask is drawn on x's
-    device from ``generator``, which must be given and live there."""
+    device from ``generator``, which must be given and live there. Under a
+    spatial context ``ctx`` (x this rank's W shard) every rank draws the
+    whole-W mask from the same generator and keeps its shard's columns, so
+    the sharded forward drops what the whole-field forward does (JAX draws
+    a mask per shard from one key: a deliberate difference)."""
     if generator is None:
         raise ValueError("dropout in training needs the step's torch.Generator")
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    shape = list(x.shape)
+    if ctx is not None:  # x is NHWC: the whole W's mask
+        w = shape[2]
+        shape[2] *= ctx.n_shards
+    keep = torch.empty(shape, device=x.device).bernoulli_(1.0 - rate, generator=generator)
+    if ctx is not None:
+        keep = keep[:, :, ctx.rank * w:(ctx.rank + 1) * w]
     return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 
@@ -253,7 +264,7 @@ class ResNetBlock(nn.Module):
         h = self.conv0(x, pallas_conv=pallas_conv, ctx=ctx)
         h = norm_act(h, self.norm0, activation="relu", fused=fused_norm, ctx=ctx)
         if self.use_dropout and self.training:
-            h = dropout(h, 0.5, generator)
+            h = dropout(h, 0.5, generator, ctx)
         h = self.conv1(h, pallas_conv=pallas_conv, ctx=ctx)
         return norm_act(h, self.norm1, residual=x, fused=fused_norm, ctx=ctx)
 

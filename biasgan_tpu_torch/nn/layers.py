@@ -347,7 +347,13 @@ class BatchNorm(nn.Module):
 
     In training the statistics are the batch's over (N, H, W): the mean and
     the biased variance max(E[x^2] - E[x]^2, 0) (flax's
-    ``use_fast_variance``), with gradients through both; each forward moves
+    ``use_fast_variance``), with gradients through both. Under a spatial
+    context ``ctx`` (this rank's W shard) the moments E[x] and E[x^2] are
+    W-global: the means of the shards' local moments over the context's
+    ranks, through its differentiable ``mean_w``, as flax's ``axis_name``
+    ``pmean``s them (biasgan_tpu/nn/layers.py:722-734; exact for equal
+    shard widths); so they are the row's, never averaged over data ranks.
+    Each forward moves
     the running averages as flax does, ``r = 0.9 r + 0.1 batch`` with the
     biased variance (torch's own running update would take the unbiased
     one), unless ``update_stats`` is off (``running_stats_frozen``). In eval
@@ -374,13 +380,12 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, ctx=None) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            if ctx is not None:
-                raise NotImplementedError(
-                    "batch-norm training on a sharded W (W-global batch moments) is not "
-                    "ported yet: it comes with the sharded pix2pix step"
-                )
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp(xf.square().mean(dim=(0, 1, 2)) - mean.square(), min=0.0)
+            if ctx is None:
+                mean, mean2 = xf.mean(dim=(0, 1, 2)), xf.square().mean(dim=(0, 1, 2))
+            else:
+                mean, mean2 = (m.reshape(-1) for m in ctx.mean_w(xf, xf.square(),
+                                                                 dims=(0, 1, 2)))
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     # flax: ra = momentum * ra + (1 - momentum) * batch

@@ -1,5 +1,6 @@
 """Spatial sharding of the generator over W and data-parallel training, one
-process per rank (counterpart of ``biasgan_tpu/parallel``): process groups,
+process per rank, alone or as a 2-D mesh (counterpart of
+``biasgan_tpu/parallel``): process groups and the mesh's rows and columns,
 the contexts' shared collectives and the spawn runner (``mesh``), the halo
 context and ``spatial_apply`` (``spatial``), the data context
 (``data_parallel``), and the rank programs that hold the sharded and the

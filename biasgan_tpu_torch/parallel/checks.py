@@ -25,6 +25,7 @@ from biasgan_tpu_torch.kernels.halo_exchange import (
     signal_recv,
     signal_send,
 )
+from biasgan_tpu_torch.parallel.mesh import RankCtx
 from biasgan_tpu_torch.parallel.spatial import HaloCtx, shard_w, spatial_apply
 
 
@@ -242,69 +243,140 @@ def generator_grad_cases(rank, n, device, say, spec: dict, state: Dict[str, np.n
 def train_cases(rank, n, device, say, argv: Sequence[str], cases: Sequence[dict],
                 nets: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
                 batches: Optional[Sequence[Dict[str, np.ndarray]]] = None):
-    """Sharded CycleGAN steps, one rank of ``n``: for each case ``{"flags":
-    [...], "steps": k}`` (and optionally ``"grads": path``), the training
-    config of ``argv`` + flags, the state from the weights ``nets`` (net ->
-    state dict; else seeded from --seed, as ``create_state`` draws it),
-    ``k`` steps on ``batches`` (the global batches; else the dataset's
-    first ``k``) with the step generators of (--seed, step), as the
-    training loop draws them. Per case on rank 0: each step's losses; each
-    rank's kernel launches over the steps (counted from 0); whether every
-    rank's parameters are bitwise rank 0's; where ``nets`` is given, the
-    nets' parameters and the replay pools (gathered on W) after the steps.
-    With ``"grads"``, rank 0 saves step 1's mean G and D gradients there
-    (``torch.save``)."""
+    """Sharded training steps (pix2pix or CycleGAN, as --model says), one
+    rank of ``n``: for each case ``{"flags": [...], "steps": k}`` (and
+    optionally ``"grads": path``, ``"gp_alpha"``, ``"fakes"``), the training
+    config of ``argv`` + flags and its contexts (``train.rank_contexts``: W
+    shards over the ``n`` ranks, or with --data_mesh D --spatial_mesh S the
+    2-D mesh), the state from the weights ``nets`` (net -> state dict; else
+    seeded from --seed, as ``create_state`` draws it), ``k`` steps on
+    ``batches`` (the global batches, each data rank stepping on its slice;
+    else the dataset's first ``k``) with the step generators of (--seed,
+    step), as the training loop draws them. Per case on rank 0: each step's
+    losses (pix2pix with its g_grad_norm and d_grad_norm); each rank's
+    kernel launches over the steps (counted from 0); whether every rank's
+    parameters are bitwise rank 0's (the pools every data rank's); where
+    ``nets`` is given or the case says ``"state": True``, the nets' state
+    dicts and the replay pools (gathered on W) after the steps.
+    ``"gp_alpha"``: per step, per data rank, pix2pix wgangp's alpha. ``"fakes"``: the last step's fake_B, gathered over W
+    and the data ranks. ``"perturb"``: the first global batch's A and B
+    moved by that relative noise (a noise floor). With ``"grads"``, rank 0
+    saves step 1's mean G and D gradients there (``torch.save``; CycleGAN's
+    from the step, pix2pix's from Adam's first moment, (1 - b1) g after one
+    step)."""
     from biasgan_tpu_torch.config import parse_config
     from biasgan_tpu_torch.data import create_dataset
     from biasgan_tpu_torch.models.common import step_generator
-    from biasgan_tpu_torch.models.cyclegan import build_nets, create_state, make_train_step
-    from biasgan_tpu_torch.train import batch_to, params_equal_across_ranks, sharded_w_mode
+    from biasgan_tpu_torch.registry import get_model
+    from biasgan_tpu_torch.train import batch_to, params_equal_across_ranks, rank_contexts
 
     out = []
     for case in cases:
         cfg = parse_config(list(argv) + list(case["flags"]), train=True)
+        model = get_model(cfg.model)
         steps = case["steps"]
+        ctx, data = rank_contexts(cfg, n)
         if batches is None:
-            data = create_dataset(cfg)
-            cfg.steps_per_epoch = len(data)
-            run = [batch_to(d, device) for _, d in zip(range(steps), data)]
+            loader = create_dataset(cfg)
+            cfg.steps_per_epoch = len(loader)
+            run = [batch_to(d, device) for _, d in zip(range(steps), loader)]
         else:
             cfg.steps_per_epoch = max(cfg.steps_per_epoch, len(batches))
             run = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
                    for b in batches[:steps]]
-        ctx = HaloCtx(n, periodic=sharded_w_mode(cfg) == "wrap")
-        built = None
+        if case.get("perturb"):
+            g = torch.Generator().manual_seed(11)
+            run[0] = {k: v * (1 + case["perturb"] * torch.randn(v.shape, generator=g).to(device))
+                      if k in ("A", "B") else v for k, v in run[0].items()}
+        if data is not None:
+            run = [{k: data.rank_slice(v) for k, v in b.items()} for b in run]
+        state = model.create_state(cfg, device, ctx=ctx)
         if nets is not None:
-            built = build_nets(cfg)
-            for name, net in built.items():
+            for name, net in state.nets.items():
                 net.load_state_dict({k: torch.from_numpy(v) for k, v in nets[name].items()})
-        state = create_state(cfg, device, built, ctx)
-        step = make_train_step(cfg, debug_grads=bool(case.get("grads")), ctx=ctx)
+        debug = ({"debug_grads": bool(case.get("grads"))} if cfg.model == "cycle_gan"
+                 else {"debug_grad_norms": True})
+        step = model.make_train_step(cfg, ctx=ctx, data=data, **debug)
         _zero_counts()
         losses, grads = [], None
         for i, batch in enumerate(run):
-            ls, vis = step(state, batch, step_generator(cfg.seed, i))
+            kw = {}
+            if case.get("gp_alpha") is not None:
+                kw["gp_alpha"] = torch.from_numpy(
+                    case["gp_alpha"][i][0 if data is None else data.rank]).to(device)
+            ls, vis = step(state, batch, step_generator(cfg.seed, i), **kw)
             losses.append({k: float(v) for k, v in ls.items()})
             if i == 0 and case.get("grads"):
-                grads = {w: {k: v.cpu() for k, v in vis[f"_{w.lower()}_grads"].items()}
-                         for w in ("G", "D")}
+                grads = ({w: {k: v.cpu() for k, v in vis[f"_{w.lower()}_grads"].items()}
+                          for w in ("G", "D")} if cfg.model == "cycle_gan" else
+                         {w: {k: (t / (1 - o.b1)).cpu() for k, t in o.mu.items()}
+                          for w, o in state.opts.items()})
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         launches = [None] * n
         dist.all_gather_object(launches, kernel_counts())
         res = {"losses": losses, "launches": launches,
-               "params_equal": params_equal_across_ranks(state, ctx)}
-        if nets is not None:  # the state after the steps, where it is small
+               "params_equal": params_equal_across_ranks(state, RankCtx(n), pools=data)}
+        if nets is not None or case.get("state"):  # the state after, where it is small
             res["pools"] = {k: _gathered(ctx, p.buffer) for k, p in state.pools.items()}
             res["nets"] = {k: {name: t.detach().cpu().numpy()
                                for name, t in v.state_dict().items()}
                            for k, v in state.nets.items()}
+        if case.get("fakes"):
+            fake = vis["fake_B"].detach().float()
+            fake = fake if ctx is None else ctx.all_gather_w(fake)
+            fake = fake if data is None else data.all_gather_batch(fake)
+            res["fakes"] = fake.cpu().numpy()
         if grads is not None and rank == 0:
             torch.save(grads, case["grads"])
-        ctx.close()
-        del state, step, run
+        for c in (ctx, data):
+            if c is not None:
+                c.close()
+        del state, step, run, vis
         out.append(res)
     return out
+
+
+def layout_cases(rank, n, device, say, data: int, x: np.ndarray,
+                 pads: Sequence[Tuple[int, int, bool]]):
+    """The 2-D mesh's groups on a ``data`` x ``n / data`` mesh
+    (``mesh.mesh_groups``), one rank's view, gathered on rank 0 over the
+    world: each rank's (d, s), its row's and column's world ranks; for each
+    ``(left, right, periodic)`` row d's halo exchange of its W shard of
+    ``x[d]`` (a global NHWC field per row), gathered on W at the row's
+    rank 0; and on every row, ``same_on_every_rank`` of a tensor equal on
+    the row and of one that differs on the row's last rank, and
+    ``gather_w`` of ``x[d]``'s shards (None off the row's rank 0)."""
+    from biasgan_tpu_torch.parallel.mesh import mesh_groups
+
+    spatial = n // data
+    data_group, spatial_group = mesh_groups(data, spatial)
+    xt = torch.from_numpy(x).to(device)
+    mine = {"ds": divmod(rank, spatial),
+            "row": dist.get_process_group_ranks(spatial_group),
+            "column": dist.get_process_group_ranks(data_group), "pads": {}}
+    d = mine["ds"][0]
+    for left, right, periodic in pads:
+        ctx = HaloCtx(spatial, periodic, group=spatial_group)
+        y = ctx.gather_w(ctx.pad_w(shard_w(xt[d], ctx), left, right))
+        mine["pads"][(left, right, periodic)] = None if y is None else y.cpu().numpy()
+        ctx.close()
+    ctx = HaloCtx(spatial, True, group=spatial_group)
+    same = torch.full((3,), float(d), device=device)
+    mine["same"] = ctx.same_on_every_rank(same)
+    mine["differs"] = ctx.same_on_every_rank(same + (ctx.rank == spatial - 1))
+    y = ctx.gather_w(shard_w(xt[d], ctx))
+    mine["gathered"] = None if y is None else y.cpu().numpy()
+    ctx.close()
+    every = [None] * n
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def mesh_checks(rank, n, device, say, layout: tuple, train: tuple):
+    """``layout_cases(*layout)`` and ``train_cases(*train)`` in one spawn."""
+    return (layout_cases(rank, n, device, say, *layout),
+            train_cases(rank, n, device, say, *train))
 
 
 def grad_checks(rank, n, device, say, adjoint: tuple, generator: tuple):
@@ -360,7 +432,7 @@ def data_cases(rank, n, device, say, cases: Sequence[dict]):
         launches = [None] * n
         dist.all_gather_object(launches, kernel_counts())
         res = {"losses": losses, "launches": launches,
-               "params_equal": params_equal_across_ranks(state, data, pools=True)}
+               "params_equal": params_equal_across_ranks(state, data, pools=data)}
         if case.get("fakes"):
             res["fakes"] = [None] * n
             dist.all_gather_object(res["fakes"], vis["fake_B"].float().cpu().numpy())

@@ -18,6 +18,13 @@ The forward's batch statistics stay per rank, as in the JAX step (its
 with batch norm is JAX's data-parallel step, not the one-device step on the
 global batch. Under gloo (ranks sharing a card, or the CPU) the collectives
 stage CUDA tensors through the host (``RankCtx``).
+
+In a 2-D mesh (``--data_mesh D --spatial_mesh S``, ``parallel.mesh.
+mesh_groups``) the data context is the rank's column, the D ranks that
+hold the same W shard of the D slices: its batch gathers (the pools, the
+metrics) and its index (the draws, the dataset slice) are the column's,
+while its means (the grads, the running averages, the losses) span every
+rank of the mesh, as the JAX step ``pmean``s over ("data", "spatial").
 """
 
 from __future__ import annotations
@@ -36,12 +43,18 @@ class DataCtx(RankCtx):
     group's ranks, in batch order). Build it on every rank at the same
     point; ``close`` likewise.
 
+    ``spatial``: the W shards beside each data rank in a 2-D mesh (the
+    group is then the rank's column); ``mean``, ``mean_grads_`` and
+    ``mean_buffers_`` then span all ``n * spatial`` ranks, the world
+    (``mesh``).
+
     ``grad_reduce_s``: the host seconds of each ``mean_grads_`` call, the
     card synchronized before and after (under gloo the staging copies
     synchronize it anyway)."""
 
-    def __init__(self, n: int = 1, group=None):
+    def __init__(self, n: int = 1, group=None, spatial: int = 1):
         super().__init__(n, group)
+        self.mesh = self if spatial == 1 else RankCtx(n * spatial)
         self.grad_reduce_s = []
 
     def _sync(self, params) -> None:
@@ -54,18 +67,17 @@ class DataCtx(RankCtx):
         params = list(params)
         self._sync(params)
         t0 = time.perf_counter()
-        super().mean_grads_(params)
+        RankCtx.mean_grads_(self.mesh, params)
         self._sync(params)
         self.grad_reduce_s.append(time.perf_counter() - t0)
 
-    @torch.no_grad()
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the mesh's ranks (the losses)."""
+        return RankCtx.mean(self.mesh, t)
+
     def mean_buffers_(self, net: nn.Module) -> None:
-        """``net``'s floating-point buffers (the batch norms' running
-        averages) replaced by their means over the ranks, in one
-        ``all_reduce``; integer buffers (the batches counted) are the same
-        on every rank and stay. A net without such buffers reduces
-        nothing."""
-        self._mean_flat_([b for b in net.buffers() if b.is_floating_point()])
+        """``RankCtx.mean_buffers_`` over the mesh's ranks."""
+        RankCtx.mean_buffers_(self.mesh, net)
 
     @torch.no_grad()
     def all_gather_batch(self, t: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Process groups for spatial sharding and data parallelism: one process
-per W shard or per data rank.
+per W shard, per data rank, or per (data, spatial) cell of a 2-D mesh.
 
 Counterpart of ``biasgan_tpu/parallel/mesh.py``. Where JAX runs the shards
 as one SPMD program over a device mesh, the port runs one process per rank
@@ -14,10 +14,17 @@ on ``torch.distributed``:
   fallback: the halo kernel runs under either, device-signalled where every
   rank has a card of its own, host-synchronised where ranks share one
   (``halo_route``);
+* the 2-D mesh (``mesh_groups``): world rank r is (d, s) = divmod(r, S),
+  the row-major order of JAX ``make_mesh(data, spatial)``; the spatial
+  group of data index d is its row (the W shards' halos, moments and
+  gathers), the data group of spatial index s its column (the batch
+  gathers of the pools and the metrics);
 * ``RankCtx``: what the spatial context (``parallel/spatial.py``) and the
-  data context (``parallel/data_parallel.py``) share: this rank, where the
-  group's collectives take a tensor, the sums and means over the ranks
-  without autograd, the mean of the grads, and the bitwise check;
+  data context (``parallel/data_parallel.py``) share: this rank of its
+  group (the world, or a row or column of the mesh), where the group's
+  collectives take a tensor, the sums and means over the ranks without
+  autograd, the mean of the grads and of the running averages, and the
+  bitwise check;
 * ``spawn`` starts the ranks (``torch.multiprocessing``, start method
   ``spawn``), each on a fresh ``file://`` rendezvous with an explicit group
   timeout, forwards rank 0's messages as they come, and returns rank 0's
@@ -51,7 +58,8 @@ def rank_device(rank: int, device: str) -> torch.device:
 
 
 def backend_for(n: int, device: str) -> str:
-    """NCCL when each of ``n`` ranks has a card of its own, else gloo."""
+    """NCCL when each of ``n`` ranks (the world's, a 2-D mesh's sub-groups
+    included) has a card of its own, else gloo."""
     if torch.device(device).type == "cuda" and torch.cuda.device_count() >= n:
         return "nccl"
     return "gloo"
@@ -79,13 +87,21 @@ HALO_ROUTES = {
 }
 
 
-def placement(n: int, device: str, halo_rdma: bool = False, kind: str = "spatial") -> str:
+def placement(n: int, device: str, halo_rdma: bool = False, kind: str = "spatial",
+              spatial: int = 1) -> str:
     """The one-line notice of where ``n`` ranks run and how they talk (with
     ``halo_rdma``, also the route of the halo kernel's exchanges); ``kind``
-    ('spatial' or 'data') starts the line."""
-    devices = ", ".join(f"{r}->{rank_device(r, device)}" for r in range(n))
+    ('spatial', 'data' or 'mesh') starts the line. A 'mesh' of ``n`` ranks
+    is data n / spatial x ``spatial``, each rank named with its (d, s)."""
     backend = backend_for(n, device)
-    line = f"{kind}: {n} rank(s) (rank->device {devices}), backend {backend}"
+    if kind == "mesh":
+        devices = ", ".join(f"{r}->{divmod(r, spatial)}->{rank_device(r, device)}"
+                            for r in range(n))
+        line = (f"mesh: data {n // spatial} x spatial {spatial} (rank->(d, s)->device "
+                f"{devices}), backend {backend}")
+    else:
+        devices = ", ".join(f"{r}->{rank_device(r, device)}" for r in range(n))
+        line = f"{kind}: {n} rank(s) (rank->device {devices}), backend {backend}"
     if backend == "gloo" and torch.device(device).type == "cuda":
         line += ("; ranks share a card, so collectives on CUDA tensors go through "
                  "host copies")
@@ -98,9 +114,26 @@ def _distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def mesh_groups(data: int, spatial: int) -> tuple:
+    """This rank's (data group, spatial group) in a ``data`` x ``spatial``
+    mesh of the world's ranks: world rank r is (d, s) = divmod(r,
+    ``spatial``), row-major as JAX ``make_mesh(data, spatial)``; the
+    spatial group is row d, the data group column s. Collective: every
+    rank creates every group, the rows and then the columns, as torch
+    requires."""
+    if dist.get_world_size() != data * spatial:
+        raise ValueError(f"a {data} x {spatial} mesh in a world of {dist.get_world_size()}")
+    d, s = divmod(dist.get_rank(), spatial)
+    rows = [dist.new_group(list(range(i * spatial, (i + 1) * spatial))) for i in range(data)]
+    cols = [dist.new_group(list(range(j, data * spatial, spatial))) for j in range(spatial)]
+    return cols[s], rows[d]
+
+
 class RankCtx:
     """One rank of ``size`` ranks of a process group (``group``; None: the
     world), each its own process. Build it on every rank at the same point.
+    ``rank`` is this process's rank in the group; ``root`` the world's
+    number of the group's rank 0.
 
     ``via_host``: the group's backend is gloo, which takes no CUDA tensors,
     so the collectives stage them through host copies (``_staged``)."""
@@ -114,6 +147,7 @@ class RankCtx:
             raise ValueError(f"{size} ranks in a group of {dist.get_world_size(group)}")
         self.size, self.group = size, group
         self.rank = dist.get_rank(group) if distributed else 0
+        self.root = 0 if group is None else dist.get_global_rank(group, 0)
         self.via_host = distributed and dist.get_backend(group) == "gloo"
 
     def _staged(self, t: torch.Tensor) -> torch.Tensor:
@@ -151,11 +185,21 @@ class RankCtx:
                 p.grad = torch.zeros_like(p)
         self._mean_flat_([p.grad for p in params])
 
+    @torch.no_grad()
+    def mean_buffers_(self, net: torch.nn.Module) -> None:
+        """``net``'s floating-point buffers (the batch norms' running
+        averages) replaced by their means over the ranks, in one
+        ``all_reduce``; integer buffers (the batches counted) are the same
+        on every rank and stay. A net without such buffers reduces
+        nothing."""
+        self._mean_flat_([b for b in net.buffers() if b.is_floating_point()])
+
     def same_on_every_rank(self, t: torch.Tensor) -> bool:
-        """Whether ``t`` is bitwise rank 0's on every rank (collective)."""
+        """Whether ``t`` is bitwise the group's rank 0's on every rank
+        (collective)."""
         mine = self._staged(t)
         ref = mine.clone()
-        dist.broadcast(ref, src=0, group=self.group)
+        dist.broadcast(ref, src=self.root, group=self.group)
         every = [None] * self.size
         dist.all_gather_object(every, torch.equal(mine, ref), group=self.group)
         return all(every)

@@ -55,8 +55,9 @@ from biasgan_tpu_torch.parallel.mesh import RankCtx
 
 class HaloCtx(RankCtx):
     """The spatial context of one rank of ``n_shards`` W shards (the
-    process group's ranks, in order of W). Build it on every rank at the
-    same point; ``close`` likewise. The losses' mean, the grads' mean and
+    process group's ranks, in order of W: the world, or a row of the 2-D
+    mesh). Build it on every rank of the group at the same point; ``close``
+    likewise. The losses' mean, the grads' mean and
     the bitwise check are ``RankCtx``'s.
 
     ``rdma``: exchange halos with the ``halo_exchange_w`` kernel (on a CUDA
@@ -119,13 +120,13 @@ class HaloCtx(RankCtx):
         return _GatherW.apply(y, self)
 
     def gather_w(self, y: torch.Tensor) -> Optional[torch.Tensor]:
-        """The shards of ``y`` concatenated along W on rank 0 (None on the
-        other ranks); no autograd."""
+        """The shards of ``y`` concatenated along W on the group's rank 0
+        (None on the other ranks); no autograd."""
         if self.n_shards == 1:
             return y
         staged = self._staged(y)
         parts = [torch.empty_like(staged) for _ in range(self.n_shards)] if self.rank == 0 else None
-        dist.gather(staged, parts, dst=0, group=self.group)
+        dist.gather(staged, parts, dst=self.root, group=self.group)
         return torch.cat(parts, dim=2).to(y.device) if self.rank == 0 else None
 
     def barrier(self) -> None:

@@ -58,26 +58,35 @@ says which.
 --spatial_mesh N (N > 1) trains spatially sharded (the JAX CLI's
 ``models/base.py:55-100``): N spawned ranks, one process per W shard,
 each building the same state from --seed and reading the same global
-batches; each rank runs the step on its W shard
-(``models.cyclegan.make_train_step(..., ctx=...)``), and the losses, the
-grads and so the updated parameters are the one-device step's. Sharding
-needs a W pad that does not reflect (--w_pad_mode wrap or zero);
---halo_rdma is ignored, with a notice (the kernel has no backward, and the
-JAX training context has no rdma); --fused_blocks takes the block conv's
-halo W mode.
+batches; each rank runs the step on its W shard (``make_train_step(...,
+ctx=...)`` of pix2pix or CycleGAN: batch norm with W-global moments, the
+dropout masks drawn whole-W), and the losses, the grads and so the updated
+parameters are the one-device step's. Sharding needs a W pad that does not
+reflect (--w_pad_mode wrap or zero; a U-Net pads zero unless told) and a
+crop whose W splits over N x 2^downs; pix2pix refuses wgangp with the
+pixel D, as the JAX step does; --halo_rdma is ignored, with a notice (the
+kernel has no backward, and the JAX training context has no rdma);
+--fused_blocks takes the block conv's halo W mode.
 
-Under either, rank 0 prints the loss lines and writes ``loss_log.txt`` and
-the checkpoints (the pools gathered on W where they are sharded), a rank
-that fails fails the run, and the parent prints each rank's kernel
-launches and ``<data|spatial>: parameters bitwise equal on every rank:
-True`` (the running averages included; False raises).
+--data_mesh D with --spatial_mesh S (both > 1) trains on the 2-D mesh of
+D x S ranks (JAX ``make_mesh(D, S)``, axes ("data", "spatial")): world
+rank r is (d, s) = divmod(r, S) (``parallel.mesh.mesh_groups``); each row
+of S ranks steps on data slice d of every global batch, sharded on W, as
+--spatial_mesh S does; the grads, the losses and the running averages are
+averaged over every rank, the batch statistics stay the row's, and
+CycleGAN's pools gather their fakes over the data column.
+
+Under any of them, rank 0 prints the loss lines and writes
+``loss_log.txt`` and the checkpoints (the pools gathered on W where they
+are sharded), a rank that fails fails the run, and the parent prints each
+rank's kernel launches, its peak memory (and, with data ranks, its host
+ms in the grads' all-reduce), and ``<data|spatial|mesh>: parameters
+bitwise equal on every rank: True`` (the running averages included; False
+raises).
 
 Not carried: --steps_per_call (a scan of steps per dispatch), --profile,
-the HTML pages, the 2-D mesh (--data_mesh with --spatial_mesh > 1: it
-comes with the sharded pix2pix step, and raises), and the held-out
-directories of the unaligned and single datasets (not ported). pix2pix
-trains on one device or data-parallel (its sharded step is not ported yet
-and raises), CycleGAN on one device, data-parallel or sharded.
+the HTML pages, and the held-out directories of the unaligned and single
+datasets (not ported).
 """
 
 from __future__ import annotations
@@ -111,8 +120,10 @@ from biasgan_tpu_torch.models.base import (
 from biasgan_tpu_torch.models.common import make_lr_schedule, step_generator
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
+from biasgan_tpu_torch.nn.factory import unet_downs
 from biasgan_tpu_torch.parallel import DataCtx, HaloCtx, placement, spawn
 from biasgan_tpu_torch.parallel.checks import kernel_counts
+from biasgan_tpu_torch.parallel.mesh import RankCtx, mesh_groups
 from biasgan_tpu_torch.registry import get_model
 from biasgan_tpu_torch.utils import checkpoint
 
@@ -209,8 +220,9 @@ def format_losses(epoch, iters, losses, t_comp, t_data) -> str:
 
 def sharded_w_mode(cfg) -> str:
     """The generator's W pad mode as --w_pad_mode resolves it (the resnets
-    reflect by default); raises where it reflects, which cannot shard."""
-    w_mode = cfg.w_pad_mode or "reflect"
+    reflect by default, the U-Nets pad zero); raises where it reflects,
+    which cannot shard."""
+    w_mode = cfg.w_pad_mode or ("zero" if unet_downs(cfg.netG) is not None else "reflect")
     if w_mode == "reflect":
         raise ValueError(
             f"--spatial_mesh {cfg.spatial_mesh} shards the width axis, which cannot be "
@@ -285,9 +297,10 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, dat
             for vb in itertools.islice(val_loader, limit))
 
     def save(tag, meta):
-        # a data-parallel run's state is the same on every rank: rank 0
-        # saves it alone; a sharded run gathers its pools from every rank
-        if data is None or writes:
+        # a data-parallel run's state is the same on every data rank: data
+        # rank 0 saves it alone; a sharded run (its row, on the 2-D mesh)
+        # gathers its pools from every rank of the row
+        if data is None or data.rank == 0:
             checkpoint.save_state(run_dir, tag, state, meta, ctx)
 
     log_name = os.path.join(run_dir, "loss_log.txt")
@@ -360,32 +373,46 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, dat
     return state
 
 
-def params_equal_across_ranks(state, ctx, pools: bool = False) -> bool:
-    """Whether every net's parameters and running averages (and with
-    ``pools``, the replay pools) on every rank equal rank 0's, bitwise
-    (collective)."""
+def params_equal_across_ranks(state, ctx, pools=None) -> bool:
+    """Whether every net's parameters and running averages on every rank
+    of ``ctx`` equal its rank 0's, bitwise, and with ``pools`` (a context)
+    the replay pools on every rank of ``pools`` (collective)."""
     parts = [t.detach().float().reshape(-1) for net in state.nets.values()
              for t in (*net.parameters(), *net.buffers()) if t.is_floating_point()]
-    if pools:
-        parts += [p.buffer.reshape(-1) for p in state.pools.values()]
-    return ctx.same_on_every_rank(torch.cat(parts))
+    same = ctx.same_on_every_rank(torch.cat(parts))
+    if pools is not None and state.pools:
+        bufs = torch.cat([p.buffer.reshape(-1) for p in state.pools.values()])
+        same = pools.same_on_every_rank(bufs) and same
+    return same
+
+
+def rank_contexts(cfg, n: int) -> tuple:
+    """(spatial context, data context) of this rank of an ``n``-rank run
+    (``mesh_of``): a HaloCtx over the W shards, a DataCtx over the data
+    ranks, or on the 2-D mesh both, over the rank's row and column; None
+    for an axis of one rank."""
+    data_n, spatial_n = mesh_of(cfg)
+    if data_n > 1 and spatial_n > 1:
+        data_group, spatial_group = mesh_groups(data_n, spatial_n)
+        return (HaloCtx(spatial_n, periodic=sharded_w_mode(cfg) == "wrap",
+                        group=spatial_group),
+                DataCtx(data_n, data_group, spatial=spatial_n))
+    if data_n > 1:
+        return None, DataCtx(n)
+    return HaloCtx(n, periodic=sharded_w_mode(cfg) == "wrap"), None
 
 
 def train_rank(rank, n, device, say, argv):
-    """One rank of a data-parallel (--data_mesh) or sharded (--spatial_mesh)
-    run (``parallel.spawn``): the command line's config, its slice or W
-    shard of every step. Returns each rank's kernel launches (with
-    ``conv3x3_fused_t``'s, the differentiable block conv's), whether the
-    state ended bitwise equal on every rank, rank 0's ms per step and, for
-    a data-parallel run, each rank's host ms per grads'
-    all-reduce and peak memory allocated (None on the CPU)."""
+    """One rank of a data-parallel (--data_mesh), sharded (--spatial_mesh)
+    or 2-D mesh run (``parallel.spawn``): the command line's config, its
+    slice or W shard of every step. Returns each rank's kernel launches
+    (with ``conv3x3_fused_t``'s, the differentiable block conv's), whether
+    the state ended bitwise equal on every rank (the pools on every data
+    rank), rank 0's ms per step and, per rank, its host ms per grads'
+    all-reduce (with data ranks) and its peak memory allocated (None on
+    the CPU)."""
     cfg = parse_config(argv, train=True)
-    data = ctx = None
-    if mesh_of(cfg)[0] > 1:
-        data = DataCtx(n)
-    else:
-        ctx = HaloCtx(n, periodic=sharded_w_mode(cfg) == "wrap")
-    group = data or ctx
+    ctx, data = rank_contexts(cfg, n)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     step_times = []
@@ -393,21 +420,22 @@ def train_rank(rank, n, device, say, argv):
     launches = [None] * n
     dist.all_gather_object(launches, kernel_counts())
     result = {"launches": launches, "step_ms": [s * 1e3 for s in step_times],
-              "params_equal": params_equal_across_ranks(state, group, pools=data is not None)}
-    if data is not None:
-        mine = {"grad_reduce_ms": [s * 1e3 for s in data.grad_reduce_s],
-                "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
-                                         if device.type == "cuda" else None)}
-        result["ranks"] = [None] * n
-        dist.all_gather_object(result["ranks"], mine)
-    group.close()
+              "params_equal": params_equal_across_ranks(state, RankCtx(n), pools=data)}
+    mine = {"grad_reduce_ms": None if data is None else [s * 1e3 for s in data.grad_reduce_s],
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                     if device.type == "cuda" else None)}
+    result["ranks"] = [None] * n
+    dist.all_gather_object(result["ranks"], mine)
+    for c in (ctx, data):
+        if c is not None:
+            c.close()
     return result
 
 
 def main(argv=None):
-    """Train on one device; with --data_mesh N > 1 or --spatial_mesh N > 1,
-    on N spawned ranks (module docstring). Returns the state, or for a run
-    on ranks rank 0's result (``train_rank``)."""
+    """Train on one device; with --data_mesh D > 1 or --spatial_mesh S > 1,
+    on D x S spawned ranks (module docstring). Returns the state, or for a
+    run on ranks rank 0's result (``train_rank``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     cfg = parse_config(argv, train=True)
     model = get_model(cfg.model)
@@ -415,31 +443,31 @@ def main(argv=None):
         raise NotImplementedError(f"training model {cfg.model!r} is not ported yet "
                                   "(the port trains pix2pix and cycle_gan)")
     data_n, spatial_n = mesh_of(cfg)
-    if spatial_n > 1 and cfg.model != "cycle_gan":
-        raise NotImplementedError(f"sharded training of model {cfg.model!r} is not ported "
-                                  "yet (--spatial_mesh > 1 trains cycle_gan)")
     if spatial_n > 1:
         sharded_w_mode(cfg)
+        if hasattr(model, "check_sharded"):
+            model.check_sharded(cfg)
     dataset = create_dataset(cfg, "train" if cfg.val_split > 0 else None)
     cfg.steps_per_epoch = len(dataset)
     print(format_config(cfg))
     save_config(cfg)
-    n, kind = (data_n, "data") if data_n > 1 else (spatial_n, "spatial")
+    n = data_n * spatial_n
     if n == 1:
         return train_loop(cfg, torch.device(cfg.device), dataset=dataset)
-    print(placement(n, cfg.device, kind=kind))
-    if kind == "spatial":
+    kind = "mesh" if data_n > 1 and spatial_n > 1 else "data" if data_n > 1 else "spatial"
+    print(placement(n, cfg.device, kind=kind, spatial=spatial_n))
+    if spatial_n > 1:
         for note in spatial_notices(cfg):
             print(note)
     result = spawn(train_rank, n, (argv,), device=cfg.device)
     print(f"{kind}: kernel launches per rank {json.dumps(result['launches'])}")
-    if kind == "data":
-        for r, got in enumerate(result["ranks"]):
-            ms, mem = got["grad_reduce_ms"], got["max_memory_allocated"]
-            print(f"data: rank {r}: the grads' all-reduce {len(ms)} calls, host ms mean "
-                  f"{sum(ms) / max(len(ms), 1):.3f}, max {max(ms, default=0.0):.3f}; "
-                  "max_memory_allocated "
-                  f"{'n/a (CPU)' if mem is None else f'{mem / 2**30:.2f} GiB'}")
+    for r, got in enumerate(result["ranks"]):
+        ms, mem = got["grad_reduce_ms"], got["max_memory_allocated"]
+        reduce = ("" if ms is None else
+                  f"the grads' all-reduce {len(ms)} calls, host ms mean "
+                  f"{sum(ms) / max(len(ms), 1):.3f}, max {max(ms, default=0.0):.3f}; ")
+        print(f"{kind}: rank {r}: {reduce}max_memory_allocated "
+              f"{'n/a (CPU)' if mem is None else f'{mem / 2**30:.2f} GiB'}")
     print(f"{kind}: parameters bitwise equal on every rank: {result['params_equal']}")
     if not result["params_equal"]:
         raise RuntimeError(f"the ranks' parameters differ after training: the {kind} "

@@ -176,7 +176,32 @@ checkout is missing, and at the first failure of any phase:
      launches exact; and the validation metric bundle
      on the card against the CPU for the same fields (rmse, bias and the
      log-spectral distance within 1e-4 relative, pdf_tv within one
-     count), with its time on the card. The phase prints its seconds.
+     count), with its time on the card. The phase prints its seconds;
+  11. the sharded pix2pix step and the 2-D mesh (ranks sharing one card
+     talk over gloo; a card per rank, NCCL): (a) the bench configuration
+     at 512x512 (each of two W shards 256 wide, the least width at which
+     unet_256's eight downs split) through ``biasgan_tpu_torch.train.main
+     --spatial_mesh 2 --w_pad_mode wrap``, batch 1, three bf16 steps
+     (finite losses, no kernel launched, parameters and running averages
+     bitwise equal on both ranks; rank 0's ms/step, each rank's peak
+     memory); (b) its f32 step 1 with dropout on, vanilla and wgangp, the
+     two card ranks held to the one-card step on the whole field from the
+     same weights and step generator (every rank of a row draws the
+     whole-W dropout mask), by the rules of 7 with phase 9's noise floors;
+     (c) the resnet route (resnet_9blocks, instance norm, --fused_blocks,
+     lsgan) at 256x256 over two shards: step 1 held to the same sharded
+     step without the flag, then two bf16 CLI steps with K2's forward (all
+     on wgmma) and backward 18 launches each per rank per step, in the halo
+     W mode; (d) the 2-D mesh, --data_mesh 2 --spatial_mesh 2 (four
+     ranks), on the bench configuration at 512x512, global batch 2, three
+     bf16 steps with --val_split 2 --val_freq 2 (both validation lines,
+     every rank bitwise equal, each rank's host ms in the grads'
+     all-reduce and peak memory), and its f32 step 1 with dropout on held
+     to the --data_mesh 2 step on the card (batch statistics per data rank
+     in both); (e) CycleGAN at its defaults with --fused_blocks --w_pad_mode
+     wrap on the 2-D mesh, 256x256, global batch 2, two bf16 steps, K2's
+     forward (all on wgmma) and backward 54 launches each per rank per
+     step, every rank bitwise equal. The phase prints its seconds.
 
 On a host with a card per rank the sharded phases run over NCCL, the halo
 kernel writing across NVLink peers and signalling on the device.
@@ -2920,6 +2945,236 @@ def data_parallel_phase(torch, work) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# sharded pix2pix and the 2-D mesh: --spatial_mesh 2, --data_mesh 2 --spatial_mesh 2
+# ---------------------------------------------------------------------------
+
+SP_RANKS = 2
+SP_CROP = 512  # the least W at which unet_256's eight downs split over two shards
+SP_FLAGS = ["--spatial_mesh", str(SP_RANKS), "--w_pad_mode", "wrap"]
+SP_STEPS = 3  # the bench configuration's CLI steps; ms/step over steps 2-3
+SP_ROUTE_STEPS = 2
+MESH_FLAGS = ["--data_mesh", "2", "--spatial_mesh", "2", "--w_pad_mode", "wrap"]
+MESH_BATCH, MESH_STEPS = 2, 3  # global batch 2: one sample a data row
+MESH_CG_STEPS = 2
+CG_MESH_STEP = {"conv3x3_fused": 54, "conv3x3_fused_t": 54, "conv3x3_fused_bwd": 54}
+
+
+def mesh_cli(torch, argv, steps, what) -> tuple:
+    """``train.main`` on ranks; every launch count set to 0 just before and
+    read just after (the ranks count their own). Returns (rank 0's result,
+    the log). Fails on a missing or non-finite loss line or ranks that
+    ended unequal."""
+    from biasgan_tpu_torch import train
+
+    log = io.StringIO()
+    zero_counts()
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(log):
+        result = train.main(argv)
+    text = log.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("(epoch:")]
+    check(len(lines) == steps and not any("nan" in ln or "inf" in ln for ln in lines),
+          f"{what}: loss lines {lines}, expected {steps} finite")
+    check(result["params_equal"], f"{what}: the ranks' state differs")
+    for ln in text.splitlines():
+        if re.match(r"(spatial|mesh):|--\w|validation|\(epoch", ln) and "launches" not in ln:
+            print(f"  {what}: {ln}")
+    return result, text
+
+
+def held_pair(got, ref, moved_got, moved_ref, what, dtype="float32"):
+    """``got`` held to ``ref`` by phase 7's rules, the noise floor the
+    larger of the two sides' own moves (phase 9)."""
+    floor_got = grad_distance(moved_got, got)[1]
+    floor_ref = grad_distance(moved_ref, ref)[1]
+    floor = {net: max(floor_got[net], floor_ref[net]) for net in floor_ref}
+    held = hold_first_step(what, dtype, got, ref, floor)
+    print(f"{what}: losses {got['losses']} vs {ref['losses']}; relative L2 per net "
+          f"{held['grad_rel_l2']} (noise floor {floor})")
+    return {"losses": got["losses"], "losses_ref": ref["losses"],
+            "grad_rel_l2": held["grad_rel_l2"], "noise_floor": floor}, held["fails"]
+
+
+def mesh_held(torch, work, argv, cases, n, fn=None):
+    """Step 1 of each case on ``n`` card ranks (``train_cases``, or
+    ``data_cases`` with ``fn=dp_rank``): {tag: {"losses", "G", "D"}} from
+    the saved gradients, and each rank's launches."""
+    from biasgan_tpu_torch.parallel import spawn
+
+    for c in cases:
+        c["grads"] = os.path.join(work, f"mesh_grads_{c['tag']}.pt")
+    t0 = time.perf_counter()
+    if fn is None:
+        res = spawn(sharded_train_rank, n, (argv, cases), device="cuda", timeout=600,
+                    group_timeout=600)
+    else:
+        res = spawn(fn, n, (cases,), device="cuda", timeout=600, group_timeout=600)
+    print(f"  {len(cases)} held steps on {n} ranks ({time.perf_counter() - t0:.1f} s)")
+    out = {}
+    for c, r in zip(cases, res):
+        check(r["params_equal"], f"{c['tag']}: the ranks' state differs after step 1")
+        out[c["tag"]] = {"losses": r["losses"][0], "launches": r["launches"],
+                         **torch.load(c["grads"], weights_only=True)}
+    return out
+
+
+def mesh_phase(torch, work) -> dict:
+    """The sharded pix2pix step and the 2-D mesh on the card (module
+    docstring, phase 11): (a) the bench configuration at 512^2 through
+    ``train.main --spatial_mesh 2``; (b) its f32 step 1 with dropout on
+    held to one card's; (c) the resnet route's K2 launches in the halo W
+    mode, its step 1 held to the plain sharded step; (d) the 2-D mesh at
+    512^2, its f32 step 1 held to --data_mesh 2's; (e) CycleGAN on the 2-D
+    mesh with K2's launches."""
+    from biasgan_tpu_torch.parallel import placement
+
+    t_phase = time.perf_counter()
+    name = card()
+    dev = torch.device("cuda")
+    out = {"card": name}
+    fails = []
+    shared = ("" if torch.cuda.device_count() >= 4 else
+              "; the ranks share this one card over gloo: a smoke reading, not a multi-card "
+              "speed")
+
+    # (a) the bench configuration at 512^2 over two W shards, bf16, batch 1
+    argv = p2p_argv(work, "sp_bench", "--crop_size", str(SP_CROP), "--compute_dtype",
+                    "bfloat16", "--synthetic_samples", str(SP_STEPS), "--device", "cuda",
+                    *SP_FLAGS)
+    result, _ = mesh_cli(torch, argv, SP_STEPS, "sharded pix2pix")
+    check(not any(v for c in result["launches"] for v in c.values()),
+          f"sharded pix2pix: kernel launches {result['launches']}")
+    ms, peak = result["step_ms"], [r["max_memory_allocated"] for r in result["ranks"]]
+    out["spatial"] = {"crop": SP_CROP, "step_ms": ms, "ms_per_step": statistics.mean(ms[1:]),
+                      "max_memory_allocated": peak}
+    print(f"sharded pix2pix bench configuration, {SP_CROP}x{SP_CROP} batch 1 bf16, dropout "
+          f"on, --spatial_mesh {SP_RANKS}: rank 0 ms/step {ms} (step 1 warms up; mean of the "
+          f"rest {out['spatial']['ms_per_step']:.1f}); max_memory_allocated per rank "
+          f"{[round(p / 2**30, 2) for p in peak]} GiB on {name}{shared}")
+
+    # (b) f32 step 1, dropout on, at 512^2: the two ranks against one card;
+    # (c) the resnet route's step 1 against the plain sharded step, bf16
+    f32 = ["--crop_size", str(SP_CROP), "--synthetic_samples", "1"]
+    route = P2P_PLAIN + ["--compute_dtype", "bfloat16", "--synthetic_samples", "1"]
+    cases = [dict(flags=f32 + ["--gan_mode", mode], steps=1, perturb=p,
+                  tag=f"sp_{mode}_{'moved' if p else 'ref'}")
+             for mode in ("vanilla", "wgangp") for p in (0.0, NOISE_INPUT["float32"])]
+    cases += [dict(flags=route, steps=1, tag="sp_route_plain"),
+              dict(flags=route + ["--fused_blocks"], steps=1, tag="sp_route_fused")]
+    held = mesh_held(torch, work, P2P_ARGS + SP_FLAGS + [
+        "--checkpoints_dir", os.path.join(work, "sp_held"), "--device", "cuda"], cases,
+        SP_RANKS)
+    out["held"] = {}
+    for mode in ("vanilla", "wgangp"):
+        argv = p2p_argv(work, f"sp_one_{mode}", *f32, "--gan_mode", mode, "--w_pad_mode",
+                        "wrap")
+        one = p2p_first_step(torch, dev, argv)
+        moved = p2p_first_step(torch, dev, argv, perturb=NOISE_INPUT["float32"])
+        out["held"][mode], f = held_pair(
+            held[f"sp_{mode}_ref"], one, held[f"sp_{mode}_moved"], moved,
+            f"sharded pix2pix {mode} f32 step 1, dropout on, 2 card ranks vs one card")
+        fails += f
+    want = {k: v for k, v in with_path_counts(P2P_ROUTE_STEP, "bfloat16").items() if v}
+    for r, counts in enumerate(held["sp_route_fused"]["launches"]):
+        counts = {k: v for k, v in counts.items() if v}
+        check(counts == want, f"sharded pix2pix --fused_blocks step 1: rank {r} launches "
+              f"{counts}, expected {want}")
+    argv = p2p_argv(work, "sp_route_one", *route, "--w_pad_mode", "wrap")
+    one = p2p_first_step(torch, dev, argv)
+    floor = grad_distance(p2p_first_step(torch, dev, argv, perturb=NOISE_INPUT["bfloat16"]),
+                          one)[1]
+    h = hold_first_step("sharded pix2pix --fused_blocks", "bfloat16", held["sp_route_fused"],
+                        held["sp_route_plain"], floor)
+    fails += h["fails"]
+    print(f"sharded pix2pix resnet_9blocks --fused_blocks bf16 step 1 held to the plain "
+          f"sharded step: relative L2 per net {h['grad_rel_l2']} (noise floor {floor})")
+    argv = p2p_argv(work, "sp_route", *P2P_ROUTE, "--compute_dtype", "bfloat16",
+                    "--synthetic_samples", str(SP_ROUTE_STEPS), "--device", "cuda", *SP_FLAGS)
+    result, _ = mesh_cli(torch, argv, SP_ROUTE_STEPS, "sharded pix2pix --fused_blocks")
+    want = {k: v * SP_ROUTE_STEPS for k, v in want.items()}
+    for r, counts in enumerate(result["launches"]):
+        counts = {k: v for k, v in counts.items() if v}
+        check(counts == want, f"sharded pix2pix --fused_blocks CLI: rank {r} launches "
+              f"{counts}, expected {want}")
+    out["route"] = {"launches_per_rank": result["launches"], "grad_rel_l2": h["grad_rel_l2"],
+                    "noise_floor": floor, "step_ms": result["step_ms"]}
+    print(f"sharded pix2pix --fused_blocks CLI, {SP_ROUTE_STEPS} bf16 steps: K2 per rank "
+          f"{[{k: c[k] for k in want} for c in result['launches']]}")
+
+    # (d) the 2-D mesh at 512^2, global batch 2, bf16, with validation
+    print(placement(4, "cuda", kind="mesh", spatial=2))
+    out["mesh"] = mesh_2d_bench(torch, work)
+    # its f32 step 1, dropout on, against --data_mesh 2 on the card
+    f32 = ["--crop_size", str(SP_CROP), "--batch_size", str(MESH_BATCH),
+           "--synthetic_samples", str(MESH_BATCH), "--w_pad_mode", "wrap"]
+    base = P2P_ARGS + f32 + ["--checkpoints_dir", os.path.join(work, "mesh_held"),
+                             "--device", "cuda"]
+    mesh = mesh_held(torch, work, base + MESH_FLAGS,
+                     [dict(flags=[], steps=1, perturb=p, tag=f"mesh_{'moved' if p else 'ref'}")
+                      for p in (0.0, NOISE_INPUT["float32"])], 4)
+    dp_argv = base + ["--data_mesh", "2", "--name", "dp"]
+    dp = mesh_held(torch, work, None,
+                   [{"argv": dp_argv, "batches": [dp_first_batch(dp_argv, p)],
+                     "tag": f"dp_{'moved' if p else 'ref'}"}
+                    for p in (0.0, NOISE_INPUT["float32"])], 2, fn=dp_rank)
+    out["mesh"]["held"], f = held_pair(
+        mesh["mesh_ref"], dp["dp_ref"], mesh["mesh_moved"], dp["dp_moved"],
+        "2-D mesh pix2pix f32 step 1, dropout on, 4 card ranks vs --data_mesh 2")
+    fails += f
+
+    # (e) CycleGAN at its defaults on the 2-D mesh, --fused_blocks, bf16
+    argv = train_argv("fused", "bfloat16", work, "mesh_cg", extra=MESH_FLAGS + [
+        "--batch_size", str(MESH_BATCH), "--synthetic_samples", str(MESH_BATCH * MESH_CG_STEPS)])
+    result, _ = mesh_cli(torch, argv, MESH_CG_STEPS, "2-D mesh CycleGAN --fused_blocks")
+    want = {k: v * MESH_CG_STEPS
+            for k, v in with_path_counts(CG_MESH_STEP, "bfloat16").items() if v}
+    for r, counts in enumerate(result["launches"]):
+        counts = {k: v for k, v in counts.items() if v}
+        check(counts == want, f"2-D mesh CycleGAN: rank {r} launches {counts}, expected {want}")
+    out["cyclegan"] = {"launches_per_rank": result["launches"], "step_ms": result["step_ms"]}
+    print(f"2-D mesh CycleGAN --fused_blocks, {MESH_CG_STEPS} bf16 steps of global batch "
+          f"{MESH_BATCH}: K2 per rank {[{k: c[k] for k in want} for c in result['launches']]}; "
+          f"rank 0 ms/step {result['step_ms']}")
+    check(not fails, "; ".join(fails))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sharded pix2pix and 2-D mesh phase: {out['seconds']:.1f} s")
+    return out
+
+
+def mesh_2d_bench(torch, work) -> dict:
+    """(d)'s CLI run: the bench configuration at 512^2 through ``train.main
+    --data_mesh 2 --spatial_mesh 2`` (a card per rank where the host has
+    four, else the ranks share them over gloo), global batch 2, bf16,
+    dropout on, --val_split 2 --val_freq 2: both validation lines, no
+    kernel, every rank bitwise equal; rank 0's ms/step, and each rank's
+    host ms in the grads' all-reduce and its peak memory."""
+    name = card()
+    argv = p2p_argv(work, "mesh_bench", "--crop_size", str(SP_CROP), "--batch_size",
+                    str(MESH_BATCH), "--compute_dtype", "bfloat16", "--synthetic_samples",
+                    str(MESH_BATCH * (MESH_STEPS + 1)), "--val_split", str(MESH_BATCH),
+                    "--val_freq", str(MESH_BATCH), "--device", "cuda", *MESH_FLAGS)
+    result, text = mesh_cli(torch, argv, MESH_STEPS, "2-D mesh pix2pix")
+    for want in ("validation (train batch):", "validation (held out):",
+                 "mesh: parameters bitwise equal on every rank: True"):
+        check(want in text, f"2-D mesh pix2pix: no line {want!r}")
+    check(not any(v for c in result["launches"] for v in c.values()),
+          f"2-D mesh pix2pix: kernel launches {result['launches']}")
+    ms = result["step_ms"]
+    reduce_ms = [[sum(r["grad_reduce_ms"][2 * i:2 * i + 2]) for i in range(MESH_STEPS)]
+                 for r in result["ranks"]]
+    peak = [r["max_memory_allocated"] for r in result["ranks"]]
+    backend = re.search(r"backend (\w+)", text).group(1)
+    print(f"2-D mesh pix2pix bench configuration, data 2 x spatial 2, {SP_CROP}x{SP_CROP} "
+          f"global batch {MESH_BATCH} bf16, dropout on, {backend}: rank 0 ms/step {ms} (step 1 "
+          f"warms up); the grads' all-reduce host ms per step per rank {reduce_ms}; "
+          f"max_memory_allocated per rank {[round(p / 2**30, 2) for p in peak]} GiB on {name}")
+    return {"backend": backend, "step_ms": ms, "ms_per_step": statistics.mean(ms[1:]),
+            "grad_all_reduce_ms_per_step": reduce_ms, "max_memory_allocated": peak,
+            "validation": [ln for ln in text.splitlines() if ln.startswith("validation")],
+            "card": name}
+
+
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
                   trained, spatial_times, halo, loopback, sharded, parent, norm_paths,
                   p2p, dp) -> list:
@@ -3174,13 +3429,14 @@ def main() -> int:
         sharded = sharded_train_phase(torch, work)
         p2p = pix2pix_phase(torch, work)
         dp = data_parallel_phase(torch, work)
+        mesh = mesh_phase(torch, work)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"training": {**trained, "pix2pix": p2p}, "sharded_training": sharded,
-                      "data_parallel": dp}))
+                      "data_parallel": dp, "mesh": mesh}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
                                                spatial_times, halo, loopback, sharded,

@@ -26,6 +26,8 @@ step-2 losses and the pool slots that step 2 fills. Step 1, and the pool
 slots it fills, are held to the bounds alone.
 """
 
+import contextlib
+import io
 import re
 
 import jax
@@ -228,9 +230,6 @@ def _loss_lines(out):
 def cli_runs(tmp_path_factory):
     """One device, and --spatial_mesh 2 (with --halo_rdma, which training
     ignores), the same command line otherwise: their stdout."""
-    import contextlib
-    import io
-
     ckpt = tmp_path_factory.mktemp("train_spatial")
     outs = {}
     for name, extra in (("one", []), ("sharded", ["--spatial_mesh", "2", "--halo_rdma"])):
@@ -280,8 +279,6 @@ def test_cli_sharded_resume_is_bit_exact(cli_runs, tmp_path):
     """Resume epoch 2 of the sharded run from its epoch-1 state (the pools
     re-sharded from the gathered checkpoint): the same state, tensor for
     tensor, as the uninterrupted sharded run."""
-    import contextlib
-    import io
     import shutil
 
     ckpt, _ = cli_runs
@@ -312,10 +309,22 @@ def test_cli_sharded_resume_is_bit_exact(cli_runs, tmp_path):
 
 
 def test_cli_spatial_mesh_refuses_reflect_and_pix2pix(tmp_path):
+    """The refusals that stand are the JAX package's: a reflecting W (a
+    resnet's default) and pix2pix's wgangp with the pixel D; pix2pix
+    itself now trains sharded (held to one device in
+    test_torch_port_spatial_pix2pix.py)."""
     with pytest.raises(ValueError, match="--w_pad_mode"):
         train.main(CLI + ["--checkpoints_dir", str(tmp_path), "--name", "r",
                           "--spatial_mesh", "2"])
-    with pytest.raises(NotImplementedError, match="'pix2pix' is not ported"):
-        train.main(["--model", "pix2pix", "--dataset_mode", "synthetic", "--spatial_mesh",
-                    "2", "--w_pad_mode", "wrap", "--device", "cpu",
-                    "--checkpoints_dir", str(tmp_path), "--name", "p"])
+    p2p = ["--model", "pix2pix", "--dataset_mode", "synthetic", "--netG", "unet_d4",
+           "--ngf", "8", "--ndf", "8", "--crop_size", "32", "--input_nc", "1",
+           "--output_nc", "1", "--batch_size", "2", "--synthetic_samples", "2",
+           "--n_epochs", "1", "--n_epochs_decay", "0", "--spatial_mesh", "2",
+           "--device", "cpu", "--checkpoints_dir", str(tmp_path)]
+    with pytest.raises(NotImplementedError, match="wgangp and --netD pixel"):
+        train.main(p2p + ["--gan_mode", "wgangp", "--netD", "pixel", "--name", "gp"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = train.main(p2p + ["--name", "p"])  # the U-Net pads W with zeros
+    assert result["params_equal"]
+    assert "spatial: parameters bitwise equal on every rank: True" in out.getvalue()

@@ -105,17 +105,59 @@ def test_batch_norm_matches_flax(dtype):
     assert torch.equal(bn.running_var, before)
 
 
+class _ShardCtx:
+    """One W shard's view of a two-shard spatial context, in one process:
+    ``mean_w`` of this shard's tensors adds the other shard's local means
+    (given) and halves, as the context's ``all_reduce`` of local means
+    does. Its inputs must be x and x^2, in the order BatchNorm passes
+    them."""
+
+    n_shards = 2
+
+    def __init__(self, other):
+        self.other = other
+
+    def mean_w(self, *xs, dims=(1, 2)):
+        theirs = (self.other, self.other.square())
+        return [(x.mean(dim=dims, keepdim=True) + o.mean(dim=dims, keepdim=True)) / 2
+                for x, o in zip(xs, theirs)]
+
+
 def test_batch_norm_frozen_stats_and_sharded_training():
     """``running_stats_frozen`` keeps the batch statistics but not the
-    update; a spatial context in training raises, naming the slice."""
+    update; under a spatial context training takes W-global moments, so
+    two W shards normalize as the whole field does and move the running
+    averages as it does."""
     bn = BatchNorm(3).train()
     x = torch.randn(2, 4, 4, 3, generator=torch.Generator().manual_seed(0))
     with running_stats_frozen(bn):
         y = bn(x)
     assert torch.equal(bn.running_mean, torch.zeros(3)) and int(bn.num_batches_tracked) == 0
     assert torch.equal(y, bn(x)) and int(bn.num_batches_tracked) == 1
-    with pytest.raises(NotImplementedError, match="sharded pix2pix"):
-        bn(x, ctx=object())
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 3, 8, 3, generator=g) * 2 + 0.5
+    whole = BatchNorm(3, generator=g).train()
+    shards = [BatchNorm(3).train() for _ in range(2)]
+    for s in shards:
+        s.load_state_dict(whole.state_dict())
+    halves = x.split(4, dim=2)
+    want = whole(x)
+    got = torch.cat([s(h, ctx=_ShardCtx(halves[1 - i]))
+                     for i, (s, h) in enumerate(zip(shards, halves))], dim=2)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    # the shards' own moments would normalize otherwise
+    local = BatchNorm(3).train()
+    local.load_state_dict(whole.state_dict())
+    assert float((local(halves[0]) - want[:, :, :4]).abs().max().detach()) > 1e-2
+    for s in shards:
+        for name in ("running_mean", "running_var"):
+            np.testing.assert_allclose(_np(getattr(s, name)), _np(getattr(whole, name)),
+                                       rtol=1e-6, atol=1e-6, err_msg=name)
+    # eval: the running averages normalize, no context needed
+    with torch.no_grad():
+        assert torch.equal(shards[0].eval()(halves[0], ctx=object()),
+                           shards[0](halves[0]))
 
 
 # every depth with every norm, every norm and every depth with both W

@@ -89,9 +89,19 @@ def test_plateau_takes_the_held_out_rmse(tmp_path, monkeypatch):
 
 
 def test_mesh_flags_that_raise(tmp_path):
+    """The 2-D mesh runs (test_torch_port_mesh_2d.py); what it refuses
+    before any spawn: a global batch that does not split over the data
+    ranks, and a W that does not split over the W shards' 2^downs."""
     base = P2P + ["--checkpoints_dir", str(tmp_path), "--name", "bad"]
-    with pytest.raises(NotImplementedError, match="sharded pix2pix step"):
+    mesh = ["--spatial_mesh", "2", "--w_pad_mode", "wrap"]
+    with pytest.raises(ValueError, match=r"--batch_size 2 .* --data_mesh 4"):
         train.main(CG + ["--checkpoints_dir", str(tmp_path), "--name", "bad", "--data_mesh",
-                         "2", "--spatial_mesh", "2", "--w_pad_mode", "wrap"])
+                         "4"] + mesh)
     with pytest.raises(ValueError, match=r"--batch_size 4 .* --data_mesh 3"):
         train.main(base + ["--data_mesh", "3"])
+    # unet_d4: 2 shards x 2^4 = 32 columns a unit; a 48-wide crop is 1.5 units
+    with pytest.raises(ValueError, match=r"--crop_size 48 .* --spatial_mesh 2 .* 2 x 2\^4 = 32"):
+        train.main(base + ["--data_mesh", "2", "--crop_size", "48"] + mesh)
+    with pytest.raises(ValueError, match=r"--crop_size 36 .* --spatial_mesh 4 .* 4 x 2\^2 = 16"):
+        train.main(CG + ["--checkpoints_dir", str(tmp_path), "--name", "bad", "--data_mesh",
+                         "2", "--spatial_mesh", "4", "--w_pad_mode", "wrap", "--crop_size", "36"])
