@@ -2,7 +2,7 @@
 
 Counterpart of ``biasgan_tpu/config.py`` (the reference family's three-tier
 argparse options), cut to the fields the ported paths read: inference
-(``TestConfig``) and training (``TrainConfig``). Field names and
+(``TestConfig``: ``infer`` and ``test``) and training (``TrainConfig``). Field names and
 defaults are the JAX package's, so the same command line drives
 ``infer.py`` / ``train.py`` and ``python -m biasgan_tpu_torch.infer`` /
 ``.train``. Its two signature behaviors are kept:
@@ -148,20 +148,42 @@ class TrainConfig(BaseConfig):
     val_freq: int = 0
     # hold out the last N samples of the dataset as the validation split:
     # the held-out bundles and the plateau LR metric are computed on them in
-    # eval mode; 0 = no split (climate and aligned data may bring a 'val'
+    # eval mode; 0 = no split (climate and image data may bring a 'val'
     # phase instead)
     val_split: int = 0
+    # HTML snapshot pages of the step's visuals every N samples (global),
+    # <run_dir>/web/index.html
+    display_freq: int = 400
+    # a torch.profiler trace of steps 10-20 of the first epoch into
+    # <run_dir>/profile
+    profile: bool = False
+    # every N optimization steps, raise FloatingPointError naming the
+    # offending loss key if any loss is NaN/Inf (and every 10th check sweep
+    # every net's parameters). 0 = off
+    check_finite: int = 0
+    # debugging runs: torch.autograd.set_detect_anomaly(True) for the run,
+    # which names the backward op that made the first NaN (the counterpart
+    # of jax_debug_nans); orders slower. Use --check_finite for guarding
+    debug_nans: bool = False
 
 
 @dataclass
 class TestConfig(BaseConfig):
     results_dir: str = "./results"
+    # the result images' H / W ratio: > 1 stretches H, < 1 stretches W
+    # (bicubic)
+    aspect_ratio: float = 1.0
     num_test: int = 50
+    # the test forward in eval mode (running averages, no dropout); the
+    # reference's default is a training-mode forward (batch statistics,
+    # test-time dropout) that moves no running average
+    eval: bool = False
     phase: str = "test"
     # test-time loader defaults (reference TestOptions hardcodes these)
     batch_size: int = 1
     load_size: int = 256  # reference parity: load_size = crop_size at test
     serial_batches: bool = True
+    no_flip: bool = True
 
 
 def mesh_of(cfg) -> tuple:

@@ -3,8 +3,9 @@
 Counterpart of ``biasgan_tpu/data/__init__.py`` (the reference's
 ``create_dataset(opt)`` -> iterable of dicts {'A','B','A_paths','B_paths'}),
 numpy-only: batches are NHWC float32 numpy arrays that the CLIs move to
-their device. The datasets registered so far are 'aligned', 'climate' and
-'synthetic'; the other image datasets arrive with later slices. The
+their device. The datasets are the JAX package's five: 'aligned',
+'unaligned', 'single' (image folders, read with PIL), 'climate' and
+'synthetic'. The
 held-out split (--val_split) is the JAX package's (``_Subset``), and a
 data-parallel rank's loader yields its slice of every global batch.
 """
@@ -15,7 +16,13 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
-from biasgan_tpu_torch.data import aligned, climate, synthetic  # noqa: F401 (registers them)
+from biasgan_tpu_torch.data import (  # noqa: F401 (registers them)
+    aligned,
+    climate,
+    single,
+    synthetic,
+    unaligned,
+)
 
 
 class DataLoader:

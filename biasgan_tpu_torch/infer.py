@@ -66,7 +66,7 @@ from biasgan_tpu_torch.data import create_dataset
 from biasgan_tpu_torch.data.transforms import standardize
 from biasgan_tpu_torch.kernels import launch_counts
 from biasgan_tpu_torch.kernels.halo_exchange import halo_counts
-from biasgan_tpu_torch.nn import compute_dtype_of, define_G
+from biasgan_tpu_torch.models.common import generator_of
 from biasgan_tpu_torch.nn.factory import unet_downs
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
@@ -129,32 +129,26 @@ def conv7_on(value: str) -> bool:
     return route_on("--conv7_pallas", value)
 
 
-def build_generator(cfg, device: torch.device) -> torch.nn.Module:
-    """G of the run, in eval mode on ``device``, with its checkpoint loaded."""
-    G = define_G(
-        cfg.netG,
-        input_nc=cfg.input_nc,
-        output_nc=cfg.output_nc,
-        ngf=cfg.ngf,
-        norm=cfg.norm,
-        use_dropout=cfg.dropout(),
-        init_type=cfg.init_type,
-        init_gain=cfg.init_gain,
-        w_mode=cfg.w_pad_mode or None,
-        compute_dtype=compute_dtype_of(cfg.compute_dtype),
-        out_activation=cfg.netG_activation,
-        fused_blocks=cfg.fused_blocks,
-        fused_updown=cfg.fused_updown,
-        conv7=conv7_on(cfg.conv7_pallas),
-        fused_norm=cfg.force_pallas_norm,
-        pallas_conv=route_on("--pallas_conv", cfg.pallas_conv),
-    )
-    name = get_model(cfg.model).generator_name(cfg)
+def load_generator(cfg, name: str, input_nc: int, output_nc: int, device: torch.device,
+                   say=print) -> torch.nn.Module:
+    """The run's G ``name`` (``<epoch>_net_<name>.pth``) on ``device``, on
+    every kernel route of the configuration (--fused_updown too), ending in
+    the model's output activation (``out_activation``: --model test ends
+    in tanh whatever --netG_activation says, as the JAX TestModel)."""
+    G = generator_of(cfg, input_nc, output_nc, get_model(cfg.model).out_activation(cfg),
+                     fused_updown=True)
     path = checkpoint.load_network(
         G, cfg.run_dir(), checkpoint.load_tag(cfg.epoch, cfg.load_iter), name
     )
-    print(f"loaded net {name} from {path}")
-    return G.to(device).eval()
+    say(f"loaded net {name} from {path}")
+    return G.to(device)
+
+
+def build_generator(cfg, device: torch.device) -> torch.nn.Module:
+    """G of the run (--direction picks a CycleGAN run's), in eval mode on
+    ``device``, with its checkpoint loaded (``load_generator``)."""
+    name = get_model(cfg.model).generator_name(cfg)
+    return load_generator(cfg, name, cfg.input_nc, cfg.output_nc, device).eval()
 
 
 def is_sharded(cfg) -> bool:

@@ -16,6 +16,7 @@ host-updated ``lr_scale``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -24,7 +25,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from biasgan_tpu_torch.config import route_on
 from biasgan_tpu_torch.data.transforms import in_step_augment, standardize
+from biasgan_tpu_torch.nn import compute_dtype_of, define_G
+from biasgan_tpu_torch.nn.layers import running_stats_frozen
 from biasgan_tpu_torch.parallel.spatial import shard_w
 
 
@@ -82,6 +86,61 @@ def adam_of(cfg, params) -> Adam:
     if mu_dtype != "float32":
         raise ValueError(f"--adam_mu_dtype {mu_dtype!r}: must be float32 or bfloat16")
     return Adam(params, beta1=cfg.beta1)
+
+
+def generator_of(cfg, input_nc: int, output_nc: int, out_activation: Optional[str] = None,
+                 fused_updown: bool = False,
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    """A generator of the configuration (--netG, --ngf, --norm, dropout,
+    init, --w_pad_mode, --compute_dtype) from ``input_nc`` to
+    ``output_nc`` channels, on the configuration's kernel routes
+    (--fused_blocks, --conv7_pallas, --force_pallas_norm, --pallas_conv,
+    and with ``fused_updown`` --fused_updown, an inference-only route),
+    ending in ``out_activation`` (default --netG_activation). Weights are
+    drawn from ``generator``."""
+    return define_G(
+        cfg.netG, input_nc, output_nc, ngf=cfg.ngf, norm=cfg.norm, use_dropout=cfg.dropout(),
+        init_type=cfg.init_type, init_gain=cfg.init_gain, w_mode=cfg.w_pad_mode or None,
+        compute_dtype=compute_dtype_of(cfg.compute_dtype),
+        out_activation=out_activation or cfg.netG_activation,
+        fused_blocks=cfg.fused_blocks, fused_updown=fused_updown and cfg.fused_updown,
+        conv7=route_on("--conv7_pallas", cfg.conv7_pallas), fused_norm=cfg.force_pallas_norm,
+        pallas_conv=route_on("--pallas_conv", cfg.pallas_conv), generator=generator,
+    )
+
+
+def eval_generator(seed: int, calls: int) -> torch.Generator:
+    """The CPU generator of the ``calls``-th test forward's draws (its
+    dropout masks' seed), from (--seed, the forward's count) and off the
+    training steps' stream (``step_generator``), as the JAX package folds
+    its own counter into a separate key (models/base.py:170-174)."""
+    seed = np.random.SeedSequence([int(seed), 0x7E57, int(calls)]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(seed[0]) >> 1)
+
+
+@contextlib.contextmanager
+def eval_forward(gens, state, cfg, train: bool, generator: Optional[torch.Generator], device):
+    """The block runs the generators ``gens`` as the reference's test()
+    does: with ``train`` in training mode (batch statistics, dropout) but
+    with their running averages left as they are (the JAX eval functions
+    apply G with ``mutable=["batch_stats"]`` and drop the update), else in
+    eval mode; their modes are restored after. Yields the device generator
+    of the dropout masks (seeded from ``generator``, default
+    ``step_generator(--seed, step)``), or None without dropout."""
+    modes = [g.training for g in gens]
+    drop = None
+    if train and cfg.dropout():
+        gen = generator if generator is not None else step_generator(cfg.seed, state.step)
+        drop = device_generator(gen, device)
+    try:
+        with contextlib.ExitStack() as frozen:
+            for g in gens:
+                g.train(train)
+                frozen.enter_context(running_stats_frozen(g))
+            yield drop
+    finally:
+        for g, m in zip(gens, modes):
+            g.train(m)
 
 
 def named_params(nets: Dict[str, nn.Module], names: Iterable[str]):

@@ -44,11 +44,12 @@ from typing import Dict, Optional
 import torch
 
 from biasgan_tpu_torch import losses
-from biasgan_tpu_torch.config import route_on
 from biasgan_tpu_torch.models.common import (
     GANTrainState,
     adam_of,
     device_generator,
+    eval_forward,
+    generator_of,
     make_lr_schedule,
     named_params,
     prepare_batch,
@@ -57,7 +58,7 @@ from biasgan_tpu_torch.models.common import (
     shard_batch,
     step_generator,
 )
-from biasgan_tpu_torch.nn import compute_dtype_of, define_D, define_G
+from biasgan_tpu_torch.nn import compute_dtype_of, define_D
 from biasgan_tpu_torch.utils.image_pool import create_pool, pool_query
 
 LOSS_NAMES = ("D_A", "G_A", "cycle_A", "idt_A", "D_B", "G_B", "cycle_B", "idt_B")
@@ -77,14 +78,7 @@ def build_nets(cfg, generator: Optional[torch.Generator] = None) -> Dict[str, to
     dtype = compute_dtype_of(cfg.compute_dtype)
 
     def g(cin, cout):
-        return define_G(
-            cfg.netG, cin, cout, ngf=cfg.ngf, norm=cfg.norm, use_dropout=cfg.dropout(),
-            init_type=cfg.init_type, init_gain=cfg.init_gain, w_mode=cfg.w_pad_mode or None,
-            compute_dtype=dtype, out_activation=cfg.netG_activation,
-            fused_blocks=cfg.fused_blocks, conv7=route_on("--conv7_pallas", cfg.conv7_pallas),
-            fused_norm=cfg.force_pallas_norm,
-            pallas_conv=route_on("--pallas_conv", cfg.pallas_conv), generator=generator,
-        )
+        return generator_of(cfg, cin, cout, generator=generator)
 
     def d(cin):
         return define_D(
@@ -297,7 +291,8 @@ def make_eval_fn(cfg):
     rec_B = G_A(fake_A). ``train=False`` normalizes with the running
     averages and drops no unit; ``train=True`` is the reference's test
     without --eval (batch statistics, dropout masks from ``generator``,
-    default ``step_generator(--seed, step)``; the running averages move).
+    default ``step_generator(--seed, step)``; the running averages stay as
+    they are: JAX drops the update, :406-412).
     Under a spatial context ``ctx`` the batch is the global one and the
     visuals are this rank's W shards."""
 
@@ -309,22 +304,12 @@ def make_eval_fn(cfg):
             batch = shard_batch(batch, ctx)
         real_A, real_B = resolve_direction(batch, cfg.direction)
         gens = [state.nets["G_A"], state.nets["G_B"]]
-        modes = [g.training for g in gens]
-        drop = None
-        if train and cfg.dropout():
-            gen = generator if generator is not None else step_generator(cfg.seed, state.step)
-            drop = device_generator(gen, real_A.device)
-        try:
-            for g in gens:
-                g.train(train)
+        with eval_forward(gens, state, cfg, train, generator, real_A.device) as drop:
             G_A, G_B = (lambda x, G=g: G(x, ctx=ctx, generator=drop) for g in gens)
             fake_B = G_A(real_A)
             rec_A = G_B(fake_B)
             fake_A = G_B(real_B)
             rec_B = G_A(fake_A)
-        finally:
-            for g, m in zip(gens, modes):
-                g.train(m)
         return {"real_A": real_A, "fake_B": fake_B, "rec_A": rec_A,
                 "real_B": real_B, "fake_A": fake_A, "rec_B": rec_B}
 

@@ -57,11 +57,13 @@ from typing import Dict, Optional
 import torch
 
 from biasgan_tpu_torch import losses
-from biasgan_tpu_torch.config import TrainConfig, route_on
+from biasgan_tpu_torch.config import TrainConfig
 from biasgan_tpu_torch.models.common import (
     GANTrainState,
     adam_of,
     device_generator,
+    eval_forward,
+    generator_of,
     make_lr_schedule,
     named_params,
     prepare_batch,
@@ -70,7 +72,7 @@ from biasgan_tpu_torch.models.common import (
     shard_batch,
     step_generator,
 )
-from biasgan_tpu_torch.nn import compute_dtype_of, define_D, define_G
+from biasgan_tpu_torch.nn import compute_dtype_of, define_D
 from biasgan_tpu_torch.nn.layers import running_stats_frozen
 
 LOSS_NAMES = ("G_GAN", "G_L1", "D_real", "D_fake")
@@ -97,20 +99,12 @@ def build_nets(cfg, generator: Optional[torch.Generator] = None,
     """G (A -> B) and, with ``train``, the conditional D (judges cat(A, B)),
     with the configuration's kernel routes. Weights are drawn from
     ``generator`` in the order G, D."""
-    dtype = compute_dtype_of(cfg.compute_dtype)
-    nets = {"G": define_G(
-        cfg.netG, cfg.input_nc, cfg.output_nc, ngf=cfg.ngf, norm=cfg.norm,
-        use_dropout=cfg.dropout(), init_type=cfg.init_type, init_gain=cfg.init_gain,
-        w_mode=cfg.w_pad_mode or None, compute_dtype=dtype,
-        out_activation=cfg.netG_activation, fused_blocks=cfg.fused_blocks,
-        conv7=route_on("--conv7_pallas", cfg.conv7_pallas), fused_norm=cfg.force_pallas_norm,
-        pallas_conv=route_on("--pallas_conv", cfg.pallas_conv), generator=generator,
-    )}
+    nets = {"G": generator_of(cfg, cfg.input_nc, cfg.output_nc, generator=generator)}
     if train:
         nets["D"] = define_D(
             cfg.netD, cfg.input_nc + cfg.output_nc, ndf=cfg.ndf, n_layers_D=cfg.n_layers_D,
             norm=cfg.norm, init_type=cfg.init_type, init_gain=cfg.init_gain,
-            w_mode=cfg.w_pad_mode or "zero", compute_dtype=dtype,
+            w_mode=cfg.w_pad_mode or "zero", compute_dtype=compute_dtype_of(cfg.compute_dtype),
             fused_norm=cfg.force_pallas_norm, generator=generator,
         )
     return nets
@@ -259,10 +253,11 @@ def make_eval_fn(cfg):
     generator=None, train=False, ctx=None) -> visuals``. ``train=True`` is
     the reference's test without --eval: batch statistics and dropout
     (masks from ``generator``, default ``step_generator(--seed, step)``),
-    and G's running averages move; otherwise the running averages
-    normalize. Under a spatial context ``ctx`` the batch is the global one
-    and the visuals are this rank's W shards (JAX models/base.py:220-245
-    runs the eval forward on the sharded batch)."""
+    and G's running averages stay as they are (JAX applies G with
+    ``mutable=["batch_stats"]`` and drops the update, :300-309); otherwise
+    the running averages normalize. Under a spatial context ``ctx`` the
+    batch is the global one and the visuals are this rank's W shards (JAX
+    models/base.py:220-245 runs the eval forward on the sharded batch)."""
 
     @torch.no_grad()
     def eval_fn(state: GANTrainState, batch, generator: Optional[torch.Generator] = None,
@@ -272,17 +267,8 @@ def make_eval_fn(cfg):
             batch = shard_batch(batch, ctx)
         real_A, real_B = resolve_direction(batch, cfg.direction)
         G = state.nets["G"]
-        was_training = G.training
-        G.train(train)
-        try:
-            drop = None
-            if train and cfg.dropout():
-                gen = generator if generator is not None else step_generator(cfg.seed,
-                                                                             state.step)
-                drop = device_generator(gen, real_A.device)
+        with eval_forward([G], state, cfg, train, generator, real_A.device) as drop:
             fake_B = G(real_A, ctx=ctx, generator=drop)
-        finally:
-            G.train(was_training)
         return {"real_A": real_A, "fake_B": fake_B, "real_B": real_B}
 
     return eval_fn

@@ -28,7 +28,7 @@ from the state at ``--epoch`` (with ``--epoch_count`` the next epoch).
 
 Validation (the repo-root train.py's, :32-57, :166-245): --val_split N holds the
 last N samples out ("The number of validation images = N"), else a 'val'
-phase directory of climate or aligned data serves. Every --val_freq
+phase directory of climate or image data serves. Every --val_freq
 samples (global) the loop prints ``validation (train batch): rmse: ...
 bias: ... pdf_tv: ... log_spectral_distance: ...`` of the step's visuals,
 then ``validation (held out): ...``, the mean over at most 4 held-out
@@ -84,19 +84,35 @@ ms in the grads' all-reduce), and ``<data|spatial|mesh>: parameters
 bitwise equal on every rank: True`` (the running averages included; False
 raises).
 
-Not carried: --steps_per_call (a scan of steps per dispatch), --profile,
-the HTML pages, and the held-out directories of the unaligned and single
-datasets (not ported).
+Observability (the repo-root train.py's, :62-68, :139-164, :204-207):
+``utils.visualizer.Visualizer`` writes the loss lines and, every
+--display_freq samples (global), the HTML snapshot page of the step's
+visuals (``<run_dir>/web/index.html``, rank 0; the whole W gathered under
+a spatial context), its rows kept across a resume. --check_finite N
+raises FloatingPointError naming the non-finite losses every N steps of
+the run, and every 10 N steps also sweeps every net's parameters and
+running averages. --debug_nans runs the loop in autograd's anomaly mode
+(``torch.autograd.set_detect_anomaly``, the counterpart of
+``jax_debug_nans``): a backward op that returns NaN raises, naming the
+forward op that made it. --profile writes a ``torch.profiler`` Chrome
+trace of the run's steps 10-20 to ``<run_dir>/profile/trace.json`` (a
+rank's to ``trace_rank<r>.json``) and prints its path.
+
+Not carried: --steps_per_call (a scan of steps per dispatch) and the JAX
+visualizer's TensorBoard writer (it engages only where tensorboardX
+imports; the GPU host has no such package).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -125,7 +141,8 @@ from biasgan_tpu_torch.parallel import DataCtx, HaloCtx, placement, spawn
 from biasgan_tpu_torch.parallel.checks import kernel_counts
 from biasgan_tpu_torch.parallel.mesh import RankCtx, mesh_groups
 from biasgan_tpu_torch.registry import get_model
-from biasgan_tpu_torch.utils import checkpoint
+from biasgan_tpu_torch.utils import checkpoint, diagnostics
+from biasgan_tpu_torch.utils.visualizer import Visualizer
 
 
 def routing_notices(cfg, state) -> list:
@@ -212,12 +229,6 @@ def batch_to(data, device):
     }
 
 
-def format_losses(epoch, iters, losses, t_comp, t_data) -> str:
-    """The reference's loss line."""
-    msg = f"(epoch: {epoch}, iters: {iters}, time: {t_comp:.3f}, data: {t_data:.3f}) "
-    return msg + " ".join(f"{k}: {v:.3f}" for k, v in losses.items())
-
-
 def sharded_w_mode(cfg) -> str:
     """The generator's W pad mode as --w_pad_mode resolves it (the resnets
     reflect by default, the U-Nets pad zero); raises where it reflects,
@@ -236,12 +247,13 @@ def sharded_w_mode(cfg) -> str:
 
 def build_val_loader(cfg, rank: int = 0, ranks: int = 1):
     """The held-out loader (the repo-root train.py's ``_build_val_loader``):
-    --val_split N's last N samples, else a 'val' phase directory of climate
-    or aligned data; None where neither exists. ``rank`` of ``ranks``: a
+    --val_split N's last N samples, else a 'val' phase directory of
+    climate or image data (climate and unaligned: valA/ and valB/, aligned:
+    val/, single: --dataroot itself); None where neither exists. ``rank`` of ``ranks``: a
     data-parallel rank's slices."""
     if cfg.val_split > 0:
         return create_dataset(cfg, "val", rank, ranks)
-    if cfg.dataset_mode in ("climate", "aligned"):
+    if cfg.dataset_mode in ("climate", "aligned", "unaligned", "single"):
         try:
             return create_dataset(dataclasses.replace(cfg, phase="val"), None, rank, ranks)
         except FileNotFoundError:
@@ -251,6 +263,78 @@ def build_val_loader(cfg, rank: int = 0, ranks: int = 1):
 
 def format_metrics(metrics) -> str:
     return " ".join(f"{k}: {v:.4f}" for k, v in metrics.items())
+
+
+def display(visualizer, visuals, epoch: int, ctx=None) -> None:
+    """The step's visuals on the HTML snapshot page (rank 0 writes): the
+    whole W gathered under a spatial context (collective), the first
+    sample of the global batch under data ranks (rank 0's first)."""
+    shown = {k: v for k, v in visuals.items() if not k.startswith("_")}
+    if ctx is not None:
+        shown = {k: ctx.gather_w(v.detach()) for k, v in shown.items()}
+    if visualizer is not None:
+        visualizer.display_current_results(shown, epoch)
+
+
+def check_finite(state, losses, where: str, params: bool = False) -> None:
+    """--check_finite: raise FloatingPointError naming the non-finite
+    losses, and with ``params`` the nets holding a non-finite parameter or
+    running average (the JAX model's ``check_finite``)."""
+    diagnostics.check_losses_finite({k: float(v) for k, v in losses.items()}, where)
+    if params:
+        for name, net in state.nets.items():
+            diagnostics.assert_finite({f"net{name}.params": net}, where)
+
+
+@contextlib.contextmanager
+def debug_anomaly(cfg, say=print):
+    """--debug_nans: autograd's anomaly mode for the run
+    (``torch.autograd.set_detect_anomaly(True)``), PyTorch's counterpart of
+    ``jax_debug_nans``: a backward op that returns NaN raises, naming the
+    forward op that made it. Orders slower; the mode is restored after."""
+    if not cfg.debug_nans:
+        yield
+        return
+    say("--debug_nans: torch.autograd.set_detect_anomaly(True) for the run (a NaN from a "
+        "backward op raises, naming its forward op; much slower)")
+    with torch.autograd.set_detect_anomaly(True):
+        yield
+
+
+class StepProfiler:
+    """--profile: a ``torch.profiler`` trace of this run's steps 10-20
+    (the JAX CLI's window: after the first steps' warm-up), written as
+    a Chrome trace to ``<run_dir>/profile/trace.json`` (a rank's to
+    ``trace_rank<r>.json``); the path is printed."""
+
+    START, STOP = 10, 20
+
+    def __init__(self, cfg, device: torch.device, say=print, rank: Optional[int] = None):
+        self.on = cfg.profile
+        self.device, self.say = device, say
+        name = "trace.json" if rank is None else f"trace_rank{rank}.json"
+        self.path = os.path.join(cfg.run_dir(), "profile", name)
+        self.prof = None
+
+    def before_step(self, steps_run: int) -> None:
+        if self.on and steps_run == self.START and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+
+    def after_step(self, steps_run: int) -> None:
+        if self.prof is not None and steps_run >= self.STOP:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.prof.__exit__(None, None, None)
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            self.prof.export_chrome_trace(self.path)
+            self.prof, self.on = None, False
+            self.say(f"profile trace written to {self.path}")
 
 
 def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, data=None,
@@ -303,73 +387,82 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, dat
         if data is None or data.rank == 0:
             checkpoint.save_state(run_dir, tag, state, meta, ctx)
 
-    log_name = os.path.join(run_dir, "loss_log.txt")
-    if writes:
-        with open(log_name, "a") as f:
-            f.write(f"================ Training Loss ({time.strftime('%c')}) ================\n")
+    visualizer = Visualizer(cfg, say) if writes else None
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    profiler = StepProfiler(cfg, device, say, None if ctx is None and data is None else
+                            dist.get_rank())
+    steps_run = 0  # this run's steps (the --check_finite and --profile counts)
 
-    total_iters = host_step * cfg.batch_size
-    n_total = cfg.n_epochs + cfg.n_epochs_decay
-    for epoch in range(cfg.epoch_count, n_total + 1):
-        epoch_start = time.time()
-        dataset.epoch = epoch - 1  # the shuffle order of this epoch
-        last_batch = None
-        t_data_mark = time.time()
-        for data_batch in dataset:
-            t_data = time.time() - t_data_mark
-            iter_start = time.time()
-            total_iters += cfg.batch_size
-            last_batch = batch_to(data_batch, device)
-            losses, visuals = step_fn(state, last_batch, step_generator(cfg.seed, host_step))
-            host_step += 1
-            if step_times is not None:
-                sync()
-                step_times.append(time.time() - iter_start)
-            if cfg.val_freq and total_iters % cfg.val_freq < cfg.batch_size:
-                metrics = validation_metrics_of(visuals, cfg, ctx, data)
-                if metrics:
-                    say(f"validation (train batch): {format_metrics(metrics)}")
-                if val_loader is not None:
-                    metrics = held_out(4)
-                    if metrics:
-                        say(f"validation (held out): {format_metrics(metrics)}")
-            del visuals
-            if total_iters % cfg.print_freq < cfg.batch_size:
-                values = {k: float(v) for k, v in losses.items()}  # syncs the device
-                sync()
-                t_comp = (time.time() - iter_start) / cfg.batch_size
-                msg = format_losses(epoch, total_iters, values, t_comp, t_data)
-                say(msg)
-                if writes:
-                    with open(log_name, "a") as f:
-                        f.write(msg + "\n")
-            if total_iters % cfg.save_latest_freq < cfg.batch_size:
-                say(f"saving latest (epoch {epoch}, total_iters {total_iters})")
-                save(f"iter_{total_iters}" if cfg.save_by_iter else "latest",
-                     {"host_step": host_step, "epoch": epoch})
+    with debug_anomaly(cfg, say):
+        total_iters = host_step * cfg.batch_size
+        n_total = cfg.n_epochs + cfg.n_epochs_decay
+        for epoch in range(cfg.epoch_count, n_total + 1):
+            epoch_start = time.time()
+            dataset.epoch = epoch - 1  # the shuffle order of this epoch
+            last_batch = None
             t_data_mark = time.time()
-        if epoch % cfg.save_epoch_freq == 0:
-            say(f"saving model at end of epoch {epoch}, iters {total_iters}")
-            meta = {"host_step": host_step, "epoch": epoch}
-            save("latest", meta)
-            save(f"epoch_{epoch}", meta)
-        if cfg.lr_policy == "plateau":
-            # the tracked metric: the held-out RMSE (eval mode) over every
-            # held-out batch, else an eval forward on the last training batch
-            if val_loader is not None:
-                metric = held_out().get("rmse")
-            elif last_batch is not None:
-                metric = evaluate_metrics_on(state, eval_fn, last_batch, cfg, ctx, data).get("rmse")
-            else:
-                metric = None
-            if metric is None:
-                say("warning: plateau policy found no rmse metric; lr will not decay "
-                    "this epoch")
-            plateau_update(state, plateau, metric)
-        lr = lr_fn(state.step, state.lr_scale)
-        say(f"End of epoch {epoch} / {n_total} \t Time: {time.time() - epoch_start:.1f}s"
-            f" \t lr: {lr:.3e}")
+            for data_batch in dataset:
+                t_data = time.time() - t_data_mark
+                iter_start = time.time()
+                total_iters += cfg.batch_size
+                last_batch = batch_to(data_batch, device)
+                steps_run += 1
+                profiler.before_step(steps_run)
+                losses, visuals = step_fn(state, last_batch, step_generator(cfg.seed, host_step))
+                host_step += 1
+                if step_times is not None:
+                    sync()
+                    step_times.append(time.time() - iter_start)
+                if cfg.check_finite and steps_run % cfg.check_finite == 0:
+                    # raises FloatingPointError naming the loss (or net) at fault
+                    check_finite(state, losses, f"epoch {epoch}, iters {total_iters}",
+                                 params=steps_run % (10 * cfg.check_finite) == 0)
+                profiler.after_step(steps_run)
+                if cfg.val_freq and total_iters % cfg.val_freq < cfg.batch_size:
+                    metrics = validation_metrics_of(visuals, cfg, ctx, data)
+                    if metrics:
+                        say(f"validation (train batch): {format_metrics(metrics)}")
+                    if val_loader is not None:
+                        metrics = held_out(4)
+                        if metrics:
+                            say(f"validation (held out): {format_metrics(metrics)}")
+                if total_iters % cfg.print_freq < cfg.batch_size:
+                    values = {k: float(v) for k, v in losses.items()}  # syncs the device
+                    sync()
+                    t_comp = (time.time() - iter_start) / cfg.batch_size
+                    if visualizer is not None:
+                        visualizer.print_current_losses(epoch, total_iters, values, t_comp,
+                                                        t_data)
+                if total_iters % cfg.display_freq < cfg.batch_size:
+                    display(visualizer, visuals, epoch, ctx)
+                del visuals
+                if total_iters % cfg.save_latest_freq < cfg.batch_size:
+                    say(f"saving latest (epoch {epoch}, total_iters {total_iters})")
+                    save(f"iter_{total_iters}" if cfg.save_by_iter else "latest",
+                         {"host_step": host_step, "epoch": epoch})
+                t_data_mark = time.time()
+            if epoch % cfg.save_epoch_freq == 0:
+                say(f"saving model at end of epoch {epoch}, iters {total_iters}")
+                meta = {"host_step": host_step, "epoch": epoch}
+                save("latest", meta)
+                save(f"epoch_{epoch}", meta)
+            if cfg.lr_policy == "plateau":
+                # the tracked metric: the held-out RMSE (eval mode) over every
+                # held-out batch, else an eval forward on the last training batch
+                if val_loader is not None:
+                    metric = held_out().get("rmse")
+                elif last_batch is not None:
+                    metric = evaluate_metrics_on(state, eval_fn, last_batch, cfg, ctx,
+                                                 data).get("rmse")
+                else:
+                    metric = None
+                if metric is None:
+                    say("warning: plateau policy found no rmse metric; lr will not decay "
+                        "this epoch")
+                plateau_update(state, plateau, metric)
+            lr = lr_fn(state.step, state.lr_scale)
+            say(f"End of epoch {epoch} / {n_total} \t Time: {time.time() - epoch_start:.1f}s"
+                f" \t lr: {lr:.3e}")
     return state
 
 
@@ -440,8 +533,8 @@ def main(argv=None):
     cfg = parse_config(argv, train=True)
     model = get_model(cfg.model)
     if not hasattr(model, "make_train_step"):
-        raise NotImplementedError(f"training model {cfg.model!r} is not ported yet "
-                                  "(the port trains pix2pix and cycle_gan)")
+        raise NotImplementedError(f"model {cfg.model!r} does not train (the port trains "
+                                  "pix2pix, cycle_gan and template)")
     data_n, spatial_n = mesh_of(cfg)
     if spatial_n > 1:
         sharded_w_mode(cfg)

@@ -201,7 +201,31 @@ checkout is missing, and at the first failure of any phase:
      in both); (e) CycleGAN at its defaults with --fused_blocks --w_pad_mode
      wrap on the 2-D mesh, 256x256, global batch 2, two bf16 steps, K2's
      forward (all on wgmma) and backward 54 launches each per rank per
-     step, every rank bitwise equal. The phase prints its seconds.
+     step, every rank bitwise equal. The phase prints its seconds;
+  12. the test driver and the image datasets, on one card: (a) CycleGAN
+     at its defaults (resnet_9blocks, instance norm, no --dataset_mode, so
+     'unaligned') on 256² PNG folders written from a seed (four trainA,
+     three trainB), --fused_blocks, bf16, two steps with a page a step
+     (--display_freq 1) and --check_finite 1: finite losses, K2's forward
+     (all on wgmma) and backward 54 launches each a step; (b) its G_A
+     through ``biasgan_tpu_torch.test --model test --model_suffix _A
+     --dataset_mode single`` over four testA images at full width, f32 and
+     bf16, on five routes: plain; the reference's training-mode forward on
+     --fused_blocks --fused_updown --conv7_pallas 1 --force_pallas_norm
+     (K1 18, K3 2, K7 5 an image: the fused down and up kernels have no
+     training-mode path); the same with --eval (K1 18, K3 2, K4 2, K5 2);
+     --force_pallas_norm (K7 23); --pallas_conv 1 (K6 18); launches per
+     image exact, ms per image printed, the page and two PNGs per image
+     written; each f32 route within the globe rule of 6 of plain f32, each
+     bf16 route within NOISE_FACTOR times plain bf16's own distance from
+     plain f32 (plain bf16 alone breaks the globe rule at these images);
+     (c) the bench configuration's U-Net (unet_256, batch norm, dropout,
+     bf16) from a one-step checkpoint over one aligned image under two
+     names: without --eval the two forwards differ (fresh dropout masks)
+     and G's running averages stay bitwise as saved; with --eval two runs
+     are bitwise equal. Without Pillow, (a) trains on synthetic data and
+     (b)-(c) run the test driver's loop with no page (a line says so). The
+     phase prints its seconds.
 
 On a host with a card per rank the sharded phases run over NCCL, the halo
 kernel writing across NVLink peers and signalling on the device.
@@ -3175,6 +3199,252 @@ def mesh_2d_bench(torch, work) -> dict:
             "card": name}
 
 
+# ---------------------------------------------------------------------------
+# the test driver and the image datasets
+# ---------------------------------------------------------------------------
+
+TD_SIZE = 256
+TD_IMAGES = {"trainA": 4, "testA": 4, "trainB": 3}
+TD_TRAIN_STEPS = 2
+TD_TRAIN = ["--model", "cycle_gan", "--seed", "0", "--netG", "resnet_9blocks", "--ngf", "64",
+            "--ndf", "64",
+            "--load_size", str(TD_SIZE), "--crop_size", str(TD_SIZE),
+            "--max_dataset_size", str(TD_TRAIN_STEPS), "--n_epochs", "1", "--n_epochs_decay", "0",
+            "--print_freq", "1", "--display_freq", "1", "--check_finite", "1",
+            "--save_epoch_freq", "1", "--save_latest_freq", "1000000", "--fused_blocks",
+            "--compute_dtype", "bfloat16", "--device", "cuda"]
+# the instance norms of one resnet_9blocks forward at 256x256 outside the
+# blocks: the stem's and up1's (64 channels), down0's and up0's (128 at
+# 128x128), down1's (256 at 64x64); --force_pallas_norm alone adds the
+# blocks' 18 at 64x64x256
+_TD_NORMS = [((1, 256, 256, 64), 2), ((1, 128, 128, 128), 2), ((1, 64, 64, 256), 1)]
+# test driver route -> (flags, launches per image, the instance norms' calls)
+TD_ROUTES = {
+    "plain": ([], {}, ()),
+    # the reference's default, a training-mode forward: the fused down / up
+    # kernels have no training-mode path, so the five outer norms take K7
+    "all": (["--fused_blocks", "--fused_updown", "--conv7_pallas", "1", "--force_pallas_norm"],
+            {"conv3x3_fused": 18, "conv7x7": 2, "instance_norm_act": 5}, _TD_NORMS),
+    # --eval: every norm rides in a conv kernel (K4 and K5 take the outer ones)
+    "all_eval": (["--fused_blocks", "--fused_updown", "--conv7_pallas", "1",
+                  "--force_pallas_norm", "--eval"],
+                 {"conv3x3_fused": 18, "conv7x7": 2, "conv3x3s2_fused": 2,
+                  "convt3x3s2_fused": 2}, ()),
+    "norm": (["--force_pallas_norm"], {"instance_norm_act": 23},
+             _TD_NORMS[:2] + [((1, 64, 64, 256), 19)]),
+    "valid": (["--pallas_conv", "1"], {"conv3x3_valid": 18}, ()),
+}
+TD_UNET = ["--model", "pix2pix", "--netG", "unet_256", "--norm", "batch", "--ngf", "64",
+           "--input_nc", "3", "--output_nc", "3", "--load_size", str(TD_SIZE),
+           "--crop_size", str(TD_SIZE), "--compute_dtype", "bfloat16", "--device", "cuda"]
+
+
+def write_images(root: str) -> None:
+    """TD_IMAGES' directories of smooth random RGB PNGs (TD_SIZE square),
+    and test/ with one aligned A|B image twice (two names)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+
+    def image(w):
+        low = rng.random((8, w // TD_SIZE * 8, 3))
+        up = np.kron(low, np.ones((TD_SIZE // 8, TD_SIZE // 8, 1)))
+        return Image.fromarray((up * 255).astype(np.uint8))
+
+    for d, n in TD_IMAGES.items():
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        for i in range(n):
+            image(TD_SIZE).save(os.path.join(root, d, f"{d}_{i}.png"))
+    os.makedirs(os.path.join(root, "test"), exist_ok=True)
+    ab = image(2 * TD_SIZE)
+    for i in range(2):
+        ab.save(os.path.join(root, "test", f"ab_{i}.png"))
+
+
+def drive_test(torch, argv, pages: bool):
+    """``biasgan_tpu_torch.test`` on ``argv`` (its parse, config dump and
+    checkpoint check, then its loop), every launch count set to 0 just
+    before and read just after. Returns (launches, the loop's result, each
+    sample's visuals on the host)."""
+    from biasgan_tpu_torch import test as driver
+
+    visuals = []
+    zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg = driver.prepare(argv)
+        res = driver.run(cfg, torch.device("cuda"), pages=pages, on_sample=lambda i, v, p:
+                         visuals.append({k: t.float().cpu() for k, t in v.items()}))
+    torch.cuda.synchronize()
+    return read_counts(), res, visuals
+
+
+def test_driver_phase(torch, work) -> dict:
+    """The test driver and the image datasets on the card (module
+    docstring, phase 12): CycleGAN trained at its defaults on PNG
+    directories; its G_A through ``biasgan_tpu_torch.test --model test``
+    on the kernel and plain routes; the bench configuration's U-Net with
+    and without --eval."""
+    import importlib.util
+
+    import numpy as np
+
+    from biasgan_tpu_torch import train
+
+    t_phase = time.perf_counter()
+    name = card()
+    pil = importlib.util.find_spec("PIL") is not None
+    root = os.path.join(work, "images")
+    ck = os.path.join(work, "test_driver")
+    out = {"card": name, "pil": pil}
+    if pil:
+        write_images(root)
+        data = ["--dataroot", root]
+    else:
+        print("  pages: not written (no Pillow on this host); the image datasets give way to "
+              "--dataset_mode synthetic")
+        data = ["--dataset_mode", "synthetic", "--synthetic_samples", str(TD_TRAIN_STEPS)]
+
+    # (a) CycleGAN at its defaults (resnet_9blocks, instance norm, unaligned
+    # data), --fused_blocks, bf16, two steps
+    log = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = train.main(TD_TRAIN + data + ["--checkpoints_dir", ck, "--name", "cg"])
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    per_step = with_path_counts(TRAIN_ROUTES["fused"][1], "bfloat16")
+    want = {k: per_step.get(k, 0) * TD_TRAIN_STEPS for k in counts}
+    check(counts == want, f"CycleGAN on unaligned: launches {counts}, expected {want}")
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("(epoch:")]
+    check(len(lines) == TD_TRAIN_STEPS and not any("nan" in ln or "inf" in ln for ln in lines),
+          f"CycleGAN on unaligned: loss lines {lines}")
+    check(("dataset_mode: unaligned" in log.getvalue()) == pil, "CycleGAN: not on unaligned")
+    if pil:
+        imgs = os.listdir(os.path.join(ck, "cg", "web", "images"))
+        check(len(imgs) == 6 and os.path.exists(os.path.join(ck, "cg", "web", "index.html")),
+              f"CycleGAN --display_freq 1: pages {imgs}")
+    out["train"] = {"launches": {k: v for k, v in counts.items() if v}, "loss_lines": lines}
+    print(f"CycleGAN at its defaults on {'unaligned PNGs' if pil else 'synthetic data'}, "
+          f"--fused_blocks bf16, {TD_TRAIN_STEPS} steps in {out['train_s']:.1f} s: "
+          f"{lines[-1]}; launches {out['train']['launches']}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) its G_A through the test driver, --model test --model_suffix _A
+    single = (["--dataset_mode", "single", "--dataroot", os.path.join(root, "testA")] if pil
+              else ["--dataset_mode", "synthetic", "--synthetic_samples", "4"])
+    base = ["--model", "test", "--model_suffix", "_A", "--netG", "resnet_9blocks",
+            "--ngf", "64", "--norm", "instance", "--no_dropout", "--load_size", str(TD_SIZE),
+            "--crop_size", str(TD_SIZE), "--compute_dtype", "bfloat16",
+            "--checkpoints_dir", ck, "--name", "cg", "--device", "cuda"] + single
+    n_img = TD_IMAGES["testA"]
+    served = {}
+    for dtype in ("float32", "bfloat16"):
+        for route, (flags, per_image, norms) in TD_ROUTES.items():
+            res_dir = os.path.join(work, f"results_td_{route}_{dtype}")
+            argv = base + flags + ["--compute_dtype", dtype, "--results_dir", res_dir]
+            counts, res, vis = drive_test(torch, argv, pil)
+            check(len(vis) == n_img, f"test driver {route} {dtype}: {len(vis)} samples")
+            want = with_path_counts(per_image, dtype, norms)
+            want = {k: want.get(k, 0) * n_img for k in counts}
+            check(counts == want, f"test driver {route} {dtype}: launches {counts}, expected "
+                  f"{want}")
+            for v in vis:
+                check(v["fake"].shape == (1, TD_SIZE, TD_SIZE, 3)
+                      and bool(torch.isfinite(v["fake"]).all()),
+                      f"test driver {route} {dtype}: fake")
+            if pil:
+                web = res["web_dir"]
+                pngs = sorted(os.listdir(os.path.join(web, "images")))
+                check(len(pngs) == 2 * n_img and os.path.exists(os.path.join(web, "index.html")),
+                      f"test driver {route} {dtype}: page images {pngs}")
+            served[route, dtype] = ([v["fake"].numpy() for v in vis], res["ms"],
+                                    {k: v for k, v in counts.items() if v})
+
+    def against(fakes, ref):
+        """(the worst margin to the globe rule |dy| <= 0.02 |y| + 0.1 std,
+        the largest max |dy| / std, the largest mean |dy| / std) over the
+        images, std each reference image's."""
+        std = [float(r.std()) for r in ref]
+        diffs = [np.abs(f - r) for f, r in zip(fakes, ref)]
+        return (max(float((d - (0.02 * np.abs(r) + 0.1 * s)).max())
+                    for d, r, s in zip(diffs, ref, std)),
+                max(float(d.max()) / s for d, s in zip(diffs, std)),
+                max(float(d.mean()) / s for d, s in zip(diffs, std)))
+
+    # f32: each kernel route within the globe rule of plain (phase 6's).
+    # bf16: plain's own rounding already breaks that rule at these images
+    # (the first chip run of this phase: plain bf16 against plain f32,
+    # margin 0.0324, mean |dy| 0.0181 std), so each bf16 route is held to
+    # plain f32 by the noise-floor rule of phase 7: its max and mean |dy|
+    # at most NOISE_FACTOR times plain bf16's own
+    fails = []
+    ref32 = served["plain", "float32"][0]
+    floor = against(served["plain", "bfloat16"][0], ref32)
+    out["bf16_floor"] = {"max_dy_std": floor[1], "mean_dy_std": floor[2]}
+    for (route, dtype), (fakes, ms, launches) in served.items():
+        line = {"ms_per_image": ms, "launches": launches}
+        if dtype == "float32" and route != "plain":
+            line["worst_margin"], _, line["mean_dy_std"] = against(fakes, ref32)
+            if line["worst_margin"] > 0 or line["mean_dy_std"] > 0.01:
+                fails.append(f"{route} f32 vs plain: margin {line['worst_margin']:.4g}, mean "
+                             f"|dy| {line['mean_dy_std']:.4g} std")
+            held = (f"vs plain f32: worst margin {line['worst_margin']:.4g}, mean |dy| "
+                    f"{line['mean_dy_std']:.4g} std")
+        elif dtype == "bfloat16":
+            _, line["max_dy_std"], line["mean_dy_std"] = against(fakes, ref32)
+            held = (f"vs plain f32: max |dy| {line['max_dy_std']:.4g}, mean |dy| "
+                    f"{line['mean_dy_std']:.4g} std")
+            if route != "plain":
+                held += f" (limit {NOISE_FACTOR:g} x plain bf16's)"
+                if (line["max_dy_std"] > NOISE_FACTOR * floor[1]
+                        or line["mean_dy_std"] > NOISE_FACTOR * floor[2]):
+                    fails.append(f"{route} bf16: {held}: {floor[1]:.4g}, {floor[2]:.4g}")
+        else:
+            held = "the reference"
+        out[f"test_{route}_{dtype}"] = line
+        print(f"test driver --model test _A resnet_9blocks {TD_SIZE}x{TD_SIZE} {dtype} {route}: "
+              f"ms/image {[round(m, 3) for m in ms]} (image 0 warms up; median of the rest "
+              f"{statistics.median(ms[1:]):.3f}), launches {launches}, {held} on {name}")
+    check(not fails, "test driver fakes disagree: " + "; ".join(fails))
+
+    # (c) the bench configuration's U-Net from a one-step checkpoint
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(P2P_ARGS + ["--compute_dtype", "bfloat16", "--synthetic_samples", "1",
+                               "--save_epoch_freq", "1", "--checkpoints_dir", ck,
+                               "--name", "p2p", "--device", "cuda"])
+    saved = torch.load(os.path.join(ck, "p2p", "latest_net_G.pth"), weights_only=True)
+    aligned = (["--dataset_mode", "aligned", "--dataroot", root] if pil else
+               ["--dataset_mode", "synthetic", "--synthetic_samples", "2", "--seed", "0"])
+    unet = TD_UNET + aligned + ["--checkpoints_dir", ck, "--name", "p2p", "--results_dir",
+                                os.path.join(work, "results_td_unet")]
+    counts, res, vis = drive_test(torch, unet, pil)
+    check(not any(counts.values()), f"test driver U-Net: launches {counts}, expected none")
+    G = res["state"].nets["G"]
+    same = all(torch.equal(t.cpu(), saved[k]) for k, t in G.state_dict().items())
+    check(same, "test driver U-Net without --eval: G's running averages moved")
+    moved = float((vis[0]["fake_B"] - vis[1]["fake_B"]).abs().max())
+    if pil:  # one image twice: only the dropout masks differ
+        check(torch.equal(vis[0]["real_A"], vis[1]["real_A"]) and moved > 0,
+              f"test driver U-Net without --eval: two forwards of one image differ by {moved}")
+    evals = [drive_test(torch, unet + ["--eval"], pil)[2] for _ in range(2)]
+    check(all(torch.equal(a["fake_B"], b["fake_B"]) for a, b in zip(*evals)),
+          "test driver U-Net --eval: two runs differ")
+    out["unet"] = {"ms_per_image_train_mode": res["ms"], "train_mode_dropout_max_dy": moved,
+                   "running_averages_unchanged": same}
+    print(f"test driver pix2pix unet_256 (batch norm, dropout) bf16: without --eval the two "
+          f"forwards of one image differ by max |dy| {moved:.4g}, G's running averages "
+          f"bitwise unchanged: {same}; with --eval two runs bitwise equal; ms/image "
+          f"{[round(m, 3) for m in res['ms']]} on {name}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 12 (test driver and image datasets): {out['phase_s']:.1f} s")
+    return out
+
+
+
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
                   trained, spatial_times, halo, loopback, sharded, parent, norm_paths,
                   p2p, dp) -> list:
@@ -3430,13 +3700,14 @@ def main() -> int:
         p2p = pix2pix_phase(torch, work)
         dp = data_parallel_phase(torch, work)
         mesh = mesh_phase(torch, work)
+        tested = test_driver_phase(torch, work)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"training": {**trained, "pix2pix": p2p}, "sharded_training": sharded,
-                      "data_parallel": dp, "mesh": mesh}))
+                      "data_parallel": dp, "mesh": mesh, "test_driver": tested}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
                                                spatial_times, halo, loopback, sharded,
