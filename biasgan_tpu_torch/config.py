@@ -64,6 +64,10 @@ class BaseConfig:
     preprocess: str = "resize_and_crop"
     no_flip: bool = False
     serial_batches: bool = False
+    # reader threads of the loader: a producer thread over a pool of this
+    # many workers keeps 2 batches ahead of the step (the batches are those
+    # of 0, which reads in the consumer's thread; the test time default)
+    num_threads: int = 4
     # checkpoint selection
     epoch: str = "latest"
     load_iter: int = 0
@@ -126,7 +130,8 @@ class TrainConfig(BaseConfig):
     # optimization
     lr: float = 2e-4
     beta1: float = 0.5
-    # Adam first-moment dtype: only 'float32' is ported
+    # Adam first-moment storage dtype: 'float32' | 'bfloat16' (the second
+    # moment stays f32; optax scale_by_adam(mu_dtype=...)'s arithmetic)
     adam_mu_dtype: str = "float32"
     gan_mode: str = "lsgan"
     pool_size: int = 50
@@ -143,6 +148,11 @@ class TrainConfig(BaseConfig):
     # data-parallel ranks, one process each (1 = single device); each steps
     # on its slice of every global batch of --batch_size
     data_mesh: int = 1
+    # K optimization steps per call: K batches stacked (K, B, ...) and
+    # copied to the device once, the step run K times with no host read
+    # between; the cadences count in K-step chunks and each epoch's ragged
+    # tail of fewer than K batches is dropped. 1 = a step per call
+    steps_per_call: int = 1
     # the validation metric bundle (rmse, bias, pdf_tv, log-spectral
     # distance) every --val_freq samples; 0 = off
     val_freq: int = 0
@@ -184,6 +194,7 @@ class TestConfig(BaseConfig):
     load_size: int = 256  # reference parity: load_size = crop_size at test
     serial_batches: bool = True
     no_flip: bool = True
+    num_threads: int = 0
 
 
 def mesh_of(cfg) -> tuple:

@@ -3,7 +3,8 @@
 Counterpart of ``biasgan_tpu/data/__init__.py`` (the reference's
 ``create_dataset(opt)`` -> iterable of dicts {'A','B','A_paths','B_paths'}),
 numpy-only: batches are NHWC float32 numpy arrays that the CLIs move to
-their device. The datasets are the JAX package's five: 'aligned',
+their device, read in the consumer's thread or, with --num_threads N, by a
+pool of N threads ahead of it. The datasets are the JAX package's five: 'aligned',
 'unaligned', 'single' (image folders, read with PIL), 'climate' and
 'synthetic'. The
 held-out split (--val_split) is the JAX package's (``_Subset``), and a
@@ -12,6 +13,9 @@ data-parallel rank's loader yields its slice of every global batch.
 
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -28,9 +32,15 @@ from biasgan_tpu_torch.data import (  # noqa: F401 (registers them)
 class DataLoader:
     """Shuffling, fixed-shape batching loader (reference
     CustomDatasetDataLoader semantics: shuffle unless --serial_batches,
-    cap at --max_dataset_size). Samples are read in the consumer's thread:
-    the reference's test options pin its worker count to 0, and the
-    threaded reader of training (--num_threads) is not ported yet.
+    cap at --max_dataset_size). With --num_threads 0 (the test-time
+    default) samples are read in the consumer's thread; with N > 0 a
+    producer thread maps the sample reads over a pool of N worker threads
+    and keeps ``prefetch_batches`` collated batches ahead of the consumer
+    (JAX ``data/__init__.py:70-110``), so host reads overlap the device's
+    step. Each sample draws from (seed, epoch, index), so the batches are
+    bitwise those of 0. A worker's exception is raised in the consumer; a
+    consumer that stops early (``break``, or the iterator dropped) sets the
+    stop event, and the producer exits at its next batch and is joined.
 
     ``rank`` of ``ranks`` (data parallelism): each global batch of
     --batch_size samples, in the one-device loader's order, is cut into
@@ -54,6 +64,8 @@ class DataLoader:
         self.epoch = 0
         # fixed batch shapes: drop ragged tail when batching for training
         self.drop_last = cfg.batch_size > 1
+        self.num_threads = max(int(getattr(cfg, "num_threads", 0)), 0)
+        self.prefetch_batches = 2
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -69,11 +81,61 @@ class DataLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
         local = self.batch_size // self.ranks
-        for b in range(len(self)):
+        nb = len(self)
+
+        def batch_indices(b: int) -> List[int]:
             idx = order[b * self.batch_size : (b + 1) * self.batch_size]
-            idx = idx[self.rank * local : (self.rank + 1) * local]
-            yield _collate([self.dataset[int(i)] for i in idx])
+            return [int(i) for i in idx[self.rank * local : (self.rank + 1) * local]]
+
+        if self.num_threads == 0 or nb <= 1:
+            for b in range(nb):
+                yield _collate([self.dataset[i] for i in batch_indices(b)])
+        else:
+            yield from self._threaded(nb, batch_indices)
         self.epoch += 1
+
+    def _threaded(self, nb: int, batch_indices) -> Iterator[Dict[str, Any]]:
+        """The ``nb`` batches read by a producer thread over a pool of
+        --num_threads workers, ``prefetch_batches`` ahead."""
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_batches)
+        done = object()
+        stop = threading.Event()  # set when the consumer stops iterating
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(self.num_threads) as pool:
+                    for b in range(nb):
+                        if stop.is_set():
+                            return
+                        samples = list(pool.map(self.dataset.__getitem__, batch_indices(b)))
+                        if not put(_collate(samples)):
+                            return
+                put(done)
+            except BaseException as e:  # the consumer raises it
+                put(e)
+
+        producer = threading.Thread(target=produce, name="loader-producer", daemon=True)
+        producer.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            producer.join()
 
 
 def _collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:

@@ -18,6 +18,7 @@ Paired mode ('climate'): <dataroot>/<phase>A/*.{h5,nc} (e.g. model/sim) and
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from glob import glob
 from typing import Dict, List, Optional, Tuple
@@ -64,6 +65,10 @@ class _Side:
         self._index: List[Tuple[int, int]] = []  # (file_idx, time_idx)
         self._handles: Dict[int, object] = {}
         self._dsets: Dict[Tuple[int, str], object] = {}
+        # the threaded loader (--num_threads) reads samples concurrently:
+        # the lock serializes the caches' check-then-open (h5py's reads hold
+        # h5py's own global lock, scipy's slice an mmap); JAX climate.py:79-142
+        self._handles_lock = threading.Lock()
 
         for fi, path in enumerate(self.files):
             f = ncio.open_field_file(path)
@@ -78,9 +83,10 @@ class _Side:
         return len(self._index)
 
     def _file(self, fi: int):
-        if fi not in self._handles:
-            self._handles[fi] = ncio.open_field_file(self.files[fi])
-        return self._handles[fi]
+        with self._handles_lock:
+            if fi not in self._handles:
+                self._handles[fi] = ncio.open_field_file(self.files[fi])
+            return self._handles[fi]
 
     def _dataset(self, fi: int, v: str):
         """Per-(file, variable) read accessor, cached.
@@ -92,7 +98,8 @@ class _Side:
         off the page cache is microseconds. Chunked/compressed datasets (and
         netCDF-3, which scipy already mmaps) keep their handle."""
         key = (fi, v)
-        ds = self._dsets.get(key)
+        with self._handles_lock:
+            ds = self._dsets.get(key)
         if ds is not None:
             return ds
         f = self._file(fi)
@@ -111,19 +118,22 @@ class _Side:
                     self.files[fi], dtype=ds.dtype, mode="r",
                     offset=off, shape=ds.shape,
                 )
-        self._dsets[key] = ds
+        with self._handles_lock:
+            # a racing reader may have cached it first: keep one accessor
+            ds = self._dsets.setdefault(key, ds)
         return ds
 
     def close(self) -> None:
-        # drop dataset accessors FIRST: scipy's mmap'd netCDF-3 files
-        # refuse to unmap while variable refs are alive (RuntimeWarning)
-        self._dsets.clear()
-        for h in self._handles.values():
-            h.close()
-        self._handles.clear()
+        with self._handles_lock:
+            # drop dataset accessors FIRST: scipy's mmap'd netCDF-3 files
+            # refuse to unmap while variable refs are alive (RuntimeWarning)
+            self._dsets.clear()
+            for h in self._handles.values():
+                h.close()
+            self._handles.clear()
 
     def __del__(self):  # handle cleanup at garbage collection
-        if hasattr(self, "_dsets"):  # __init__ may have raised first
+        if hasattr(self, "_handles_lock"):  # __init__ may have raised first
             self.close()
 
     def grid_shape(self) -> Tuple[int, int]:

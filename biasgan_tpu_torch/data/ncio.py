@@ -13,6 +13,7 @@ refuses an HDF5 file with an error that names the missing package.
 
 from __future__ import annotations
 
+import threading
 import warnings
 from typing import List
 
@@ -47,7 +48,10 @@ class _NC3Dataset:
 
 
 class _NC3File:
-    """scipy.io.netcdf_file with h5py-File-shaped access."""
+    """scipy.io.netcdf_file with h5py-File-shaped access. The threaded
+    loader's workers share one: the variable lookups and ``close`` hold
+    its lock; the reads slice scipy's mmap, which concurrent readers may
+    do."""
 
     def __init__(self, path: str, mmap: bool = True):
         from scipy.io import netcdf_file
@@ -56,9 +60,11 @@ class _NC3File:
         # close an mmap'd file while variable refs are alive and emits a
         # RuntimeWarning from __del__ instead
         self._f = netcdf_file(path, "r", mmap=mmap)
+        self._lock = threading.Lock()
 
     def __getitem__(self, name: str) -> _NC3Dataset:
-        return _NC3Dataset(self._f.variables[name])
+        with self._lock:
+            return _NC3Dataset(self._f.variables[name])
 
     def field_names(self) -> List[str]:
         return sorted(
@@ -71,7 +77,7 @@ class _NC3File:
         # Our accessors COPY out of the mmap on every read (__getitem__
         # above), so a deferred unmap when variable refs are still alive is
         # harmless — silence scipy's RuntimeWarning about exactly that.
-        with warnings.catch_warnings():
+        with self._lock, warnings.catch_warnings():
             warnings.filterwarnings(
                 "ignore", message="Cannot close a netcdf_file",
                 category=RuntimeWarning,

@@ -1,5 +1,6 @@
 """What the train steps share: the train state, Adam with optax's
-semantics, the LR policies, and the in-step batch preparation.
+semantics, the LR policies, the in-step batch preparation, and the K-step
+call (``make_scan_step``).
 
 Counterpart of ``biasgan_tpu/models/common.py``. The JAX package keeps the
 whole state in one pytree and differentiates a pure step; the port keeps
@@ -7,8 +8,9 @@ whole state in one pytree and differentiates a pure step; the port keeps
 updates them in place, one step at a time.
 
 Adam is ``optax.scale_by_adam`` (b2 0.999, eps 1e-8, outside the square
-root, bias-corrected moments) with the learning rate applied by hand,
-``p - lr * m_hat / (sqrt(v_hat) + eps)``, one state per optimizer
+root, bias-corrected moments; the first moment in f32 or, under
+--adam_mu_dtype bfloat16, stored in bf16) with the learning rate applied
+by hand, ``p - lr * m_hat / (sqrt(v_hat) + eps)``, one state per optimizer
 (CycleGAN shares one over G_A + G_B). The LR policies are evaluated from
 the step counter in f32, as the JAX step does in-graph; 'plateau' rides a
 host-updated ``lr_scale``.
@@ -33,9 +35,17 @@ from biasgan_tpu_torch.parallel.spatial import shard_w
 
 
 class Adam:
-    """optax ``scale_by_adam(b1, b2, eps)`` over named parameters, with the
-    update ``p -= lr * direction``. The moments are f32 tensors beside the
-    parameters; ``count`` is the number of updates taken."""
+    """optax ``scale_by_adam(b1, b2, eps, mu_dtype)`` over named
+    parameters, with the update ``p -= lr * direction``. The moments are
+    tensors beside the parameters, the second in f32, the first in
+    ``mu_dtype`` (f32 or bf16); ``count`` is the number of updates taken.
+
+    The arithmetic is optax's (``tree_update_moment``,
+    ``tree_bias_correction``, ``tree_cast``): the decay multiplies the
+    stored first moment in its dtype (a Python scalar takes the array's
+    dtype in JAX), the new moment ``(1 - b1) g + that`` is f32, the bias
+    corrections ``1 - b**count`` are f32, the direction uses the f32 moment,
+    and only the stored moment is cast to ``mu_dtype``."""
 
     def __init__(
         self,
@@ -43,11 +53,15 @@ class Adam:
         beta1: float = 0.5,
         beta2: float = 0.999,
         eps: float = 1e-8,
+        mu_dtype: torch.dtype = torch.float32,
     ):
         self.params: List[Tuple[str, nn.Parameter]] = list(params)
         self.b1, self.b2, self.eps = beta1, beta2, eps
+        self.mu_dtype = mu_dtype
+        # b1 in the stored moment's dtype, as JAX rounds the Python scalar
+        self.b1_mu = float(torch.tensor(beta1, dtype=mu_dtype))
         self.count = 0
-        self.mu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params}
+        self.mu = {n: torch.zeros_like(p, dtype=mu_dtype) for n, p in self.params}
         self.nu = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in self.params}
 
     @torch.no_grad()
@@ -55,15 +69,18 @@ class Adam:
         """One update from each parameter's ``.grad`` (a missing grad is a
         zero grad, as in a JAX grad tree)."""
         self.count += 1
-        c1 = 1.0 - self.b1**self.count
-        c2 = 1.0 - self.b2**self.count
+        count = np.float32(self.count)
+        c1 = float(np.float32(1.0) - np.float32(self.b1) ** count)
+        c2 = float(np.float32(1.0) - np.float32(self.b2) ** count)
         for name, p in self.params:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             g = g.float()
             mu, nu = self.mu[name], self.nu[name]
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            # optax: (1 - b1) g + b1 mu, the product in the stored dtype
+            m = g * (1.0 - self.b1) + (mu * self.b1_mu).float()
+            mu.copy_(m)
             nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
-            direction = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            direction = (m / c1) / (torch.sqrt(nu / c2) + self.eps)
             p.sub_(lr * direction.to(p.dtype))
 
     def state_dict(self) -> Dict:
@@ -76,16 +93,16 @@ class Adam:
             self.nu[name].copy_(sd["nu"][name])
 
 
+MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def adam_of(cfg, params) -> Adam:
-    """Adam from a TrainConfig (beta1; --adam_mu_dtype float32 only)."""
+    """Adam from a TrainConfig (beta1; --adam_mu_dtype float32 | bfloat16,
+    the first moment's storage dtype)."""
     mu_dtype = getattr(cfg, "adam_mu_dtype", "float32")
-    if mu_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--adam_mu_dtype bfloat16 (a bf16 first moment) is not ported yet"
-        )
-    if mu_dtype != "float32":
-        raise ValueError(f"--adam_mu_dtype {mu_dtype!r}: must be float32 or bfloat16")
-    return Adam(params, beta1=cfg.beta1)
+    if mu_dtype not in MU_DTYPES:
+        raise ValueError(f"--adam_mu_dtype {mu_dtype!r}: must be one of {sorted(MU_DTYPES)}")
+    return Adam(params, beta1=cfg.beta1, mu_dtype=MU_DTYPES[mu_dtype])
 
 
 def generator_of(cfg, input_nc: int, output_nc: int, out_activation: Optional[str] = None,
@@ -239,6 +256,37 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     from (--seed, step) alone, so a resumed run draws what an uninterrupted
     one does."""
     return torch.Generator().manual_seed(int(seed) * 1_000_003 + int(step))
+
+
+def make_scan_step(train_step, k: int, seed: int):
+    """``train_step`` run ``k`` times a call (--steps_per_call; JAX
+    ``make_scan_step``, :167-198): ``scan_step(state, stacked, step) ->
+    (losses_k, visuals_last)``, updating ``state`` in place. ``stacked``
+    holds the (k, B, ...) stacks of the k batches, on the device already;
+    step i takes its batch ``stacked[...][i]`` (a view) and the draws of
+    ``step_generator(seed, step + i)``, its own global index, so a K-step
+    call is K single steps of the training loop, dropout masks, pool
+    decisions and augmentation included (where JAX folds the index into
+    the call's key). No host read falls between the steps: the losses are
+    device tensors of shape (k,), stacked after the last step, and the
+    visuals are the last step's."""
+
+    def scan_step(state, stacked, step: int):
+        losses = []
+        for i in range(k):
+            batch = {name: v[i] for name, v in stacked.items()}
+            ls, visuals = train_step(state, batch, step_generator(seed, step + i))
+            losses.append(ls)
+        return {name: torch.stack([ls[name] for ls in losses]) for name in losses[0]}, visuals
+
+    return scan_step
+
+
+def stack_batches(batches):
+    """k loader batches stacked into one with leading (k, ...) axes (numpy;
+    the paths stay behind)."""
+    keys = [k for k in batches[0] if not k.endswith("_paths")]
+    return {k: np.stack([b[k] for b in batches]) for k in keys}
 
 
 def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:

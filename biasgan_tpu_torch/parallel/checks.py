@@ -263,10 +263,12 @@ def train_cases(rank, n, device, say, argv: Sequence[str], cases: Sequence[dict]
     moved by that relative noise (a noise floor). With ``"grads"``, rank 0
     saves step 1's mean G and D gradients there (``torch.save``; CycleGAN's
     from the step, pix2pix's from Adam's first moment, (1 - b1) g after one
-    step)."""
+    step). Under --steps_per_call K (in the flags) the steps run as calls
+    of ``make_scan_step``, K batches stacked a call (a ragged tail of
+    ``steps`` is not run); each step's losses are read after its call."""
     from biasgan_tpu_torch.config import parse_config
     from biasgan_tpu_torch.data import create_dataset
-    from biasgan_tpu_torch.models.common import step_generator
+    from biasgan_tpu_torch.models.common import make_scan_step, step_generator
     from biasgan_tpu_torch.registry import get_model
     from biasgan_tpu_torch.train import batch_to, params_equal_across_ranks, rank_contexts
 
@@ -299,6 +301,15 @@ def train_cases(rank, n, device, say, argv: Sequence[str], cases: Sequence[dict]
         step = model.make_train_step(cfg, ctx=ctx, data=data, **debug)
         _zero_counts()
         losses, grads = [], None
+        spc = max(cfg.steps_per_call, 1)
+        if spc > 1:  # K-step calls on the stacked batches, as the training loop makes them
+            call = make_scan_step(step, spc, cfg.seed)
+            for c in range(len(run) // spc):
+                group = run[c * spc:(c + 1) * spc]
+                ls, vis = call(state, {k: torch.stack([b[k] for b in group]) for k in group[0]},
+                               c * spc)
+                losses += [{k: float(v[i]) for k, v in ls.items()} for i in range(spc)]
+            run = []
         for i, batch in enumerate(run):
             kw = {}
             if case.get("gp_alpha") is not None:
@@ -315,7 +326,7 @@ def train_cases(rank, n, device, say, argv: Sequence[str], cases: Sequence[dict]
             torch.cuda.synchronize(device)
         launches = [None] * n
         dist.all_gather_object(launches, kernel_counts())
-        res = {"losses": losses, "launches": launches,
+        res = {"losses": losses, "launches": launches, "step": state.step,
                "params_equal": params_equal_across_ranks(state, RankCtx(n), pools=data)}
         if nets is not None or case.get("state"):  # the state after, where it is small
             res["pools"] = {k: _gathered(ctx, p.buffer) for k, p in state.pools.items()}

@@ -98,9 +98,24 @@ forward op that made it. --profile writes a ``torch.profiler`` Chrome
 trace of the run's steps 10-20 to ``<run_dir>/profile/trace.json`` (a
 rank's to ``trace_rank<r>.json``) and prints its path.
 
-Not carried: --steps_per_call (a scan of steps per dispatch) and the JAX
-visualizer's TensorBoard writer (it engages only where tensorboardX
-imports; the GPU host has no such package).
+--steps_per_call K (the JAX CLI's scan of K steps per dispatch,
+``models.common.make_scan_step``): the loop groups the loader's batches K
+at a time (an epoch's ragged tail of fewer than K is dropped), copies each
+(K, B, ...) stack to the device once, and runs the step K times with no
+host read between; step i draws from ``step_generator(--seed, its global
+step)``, so a K-step run is the run of K single steps. ``total_iters``
+advances by --batch_size x K, the cadences fire on K-step chunks (``<
+batch_size * K``), the loss line and --check_finite read the call's last
+step, and --check_finite and --profile count calls, as the JAX CLI counts
+dispatches. Under --data_mesh each rank stacks its own slices; under
+--spatial_mesh every rank stacks the global batches and each step shards
+its own. The checkpoint's ``host_step`` counts steps.
+
+--num_threads N reads the batches on a producer thread over N workers,
+two batches ahead (``data.DataLoader``); the batches are those of 0.
+
+Not carried: the JAX visualizer's TensorBoard writer (it engages only
+where tensorboardX imports; the GPU host has no such package).
 """
 
 from __future__ import annotations
@@ -133,7 +148,7 @@ from biasgan_tpu_torch.models.base import (
     plateau_update,
     validation_metrics_of,
 )
-from biasgan_tpu_torch.models.common import make_lr_schedule, step_generator
+from biasgan_tpu_torch.models.common import make_lr_schedule, make_scan_step, stack_batches
 from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
 from biasgan_tpu_torch.nn.factory import unet_downs
@@ -302,8 +317,9 @@ def debug_anomaly(cfg, say=print):
 
 
 class StepProfiler:
-    """--profile: a ``torch.profiler`` trace of this run's steps 10-20
-    (the JAX CLI's window: after the first steps' warm-up), written as
+    """--profile: a ``torch.profiler`` trace of this run's calls 10-20
+    (steps 10-20 at --steps_per_call 1; the JAX CLI's window, which counts
+    dispatches: after the first calls' warm-up), written as
     a Chrome trace to ``<run_dir>/profile/trace.json`` (a rank's to
     ``trace_rank<r>.json``); the path is printed."""
 
@@ -316,8 +332,8 @@ class StepProfiler:
         self.path = os.path.join(cfg.run_dir(), "profile", name)
         self.prof = None
 
-    def before_step(self, steps_run: int) -> None:
-        if self.on and steps_run == self.START and self.prof is None:
+    def before_call(self, calls: int) -> None:
+        if self.on and calls == self.START and self.prof is None:
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU]
@@ -326,8 +342,8 @@ class StepProfiler:
             self.prof = profile(activities=acts)
             self.prof.__enter__()
 
-    def after_step(self, steps_run: int) -> None:
-        if self.prof is not None and steps_run >= self.STOP:
+    def after_call(self, calls: int) -> None:
+        if self.prof is not None and calls >= self.STOP:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.prof.__exit__(None, None, None)
@@ -337,17 +353,34 @@ class StepProfiler:
             self.say(f"profile trace written to {self.path}")
 
 
+def batch_stream(dataset, k: int):
+    """The loader's batches as (k, B, ...) stacks (numpy; a batch of
+    ``k`` = 1 is a view, no copy), k at a time; an epoch's ragged tail of
+    fewer than k batches is dropped, as the JAX CLI drops it (its
+    ``batch_stream``, train.py:110-130)."""
+    group = []
+    for b in dataset:
+        if k == 1:
+            yield {name: v[None] for name, v in b.items() if not name.endswith("_paths")}
+            continue
+        group.append(b)
+        if len(group) == k:
+            yield stack_batches(group)
+            group = []
+
+
 def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, data=None,
                step_times=None):
     """The reference's epoch loop on ``device`` (module docstring) over
-    ``dataset`` (made from ``cfg`` unless given): state, resume, the steps,
-    the validation metrics, the loss lines, the saves, the plateau policy.
-    Under a spatial context ``ctx`` or a data context ``data`` this is one
-    rank of a sharded or data-parallel run: every rank steps, only rank
-    0's ``say`` prints, and only rank 0 writes. ``step_times``: a list that
-    takes each step's seconds, the batch's copy to the device included,
-    the device synchronized after the step (before any validation).
-    Returns the state."""
+    ``dataset`` (made from ``cfg`` unless given): state, resume, the calls
+    of --steps_per_call steps, the validation metrics, the loss lines, the
+    saves, the plateau policy. Under a spatial context ``ctx`` or a data
+    context ``data`` this is one rank of a sharded or data-parallel run:
+    every rank steps, only rank 0's ``say`` prints, and only rank 0 writes.
+    ``step_times``: a list that takes each call's seconds (one step's at
+    --steps_per_call 1), the stack's copy to the device included, the
+    device synchronized after the call (before any validation). Returns the
+    state."""
     model = get_model(cfg.model)
     rank, ranks = (0, 1) if data is None else (data.rank, data.size)
     writes = all(c is None or c.rank == 0 for c in (ctx, data))
@@ -370,7 +403,9 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, dat
     if ctx is None:
         for note in routing_notices(cfg, state):
             say(note)
-    step_fn = model.make_train_step(cfg, ctx=ctx, data=data)
+    spc = max(cfg.steps_per_call, 1)
+    call = make_scan_step(model.make_train_step(cfg, ctx=ctx, data=data), spc, cfg.seed)
+    chunk = cfg.batch_size * spc  # the samples (global) of one call
     eval_fn = model.make_eval_fn(cfg)
     lr_fn = make_lr_schedule(cfg)
     plateau = Plateau()
@@ -391,7 +426,9 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, dat
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     profiler = StepProfiler(cfg, device, say, None if ctx is None and data is None else
                             dist.get_rank())
-    steps_run = 0  # this run's steps (the --check_finite and --profile counts)
+    # this run's calls (the --check_finite and --profile counts: the JAX
+    # CLI counts dispatches)
+    calls = 0
 
     with debug_anomaly(cfg, say):
         total_iters = host_step * cfg.batch_size
@@ -401,24 +438,28 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, dat
             dataset.epoch = epoch - 1  # the shuffle order of this epoch
             last_batch = None
             t_data_mark = time.time()
-            for data_batch in dataset:
+            for stack in batch_stream(dataset, spc):
                 t_data = time.time() - t_data_mark
                 iter_start = time.time()
-                total_iters += cfg.batch_size
-                last_batch = batch_to(data_batch, device)
-                steps_run += 1
-                profiler.before_step(steps_run)
-                losses, visuals = step_fn(state, last_batch, step_generator(cfg.seed, host_step))
-                host_step += 1
+                total_iters += chunk
+                stack = batch_to(stack, device)  # one copy of the call's k batches
+                calls += 1
+                profiler.before_call(calls)
+                losses_k, visuals = call(state, stack, host_step)
+                host_step += spc
+                # the loss line, --check_finite, the metrics and the plateau
+                # read the call's last step (JAX get_current_losses, test())
+                losses = {k: v[-1] for k, v in losses_k.items()}
+                last_batch = {k: v[-1] for k, v in stack.items()}
                 if step_times is not None:
                     sync()
                     step_times.append(time.time() - iter_start)
-                if cfg.check_finite and steps_run % cfg.check_finite == 0:
+                if cfg.check_finite and calls % cfg.check_finite == 0:
                     # raises FloatingPointError naming the loss (or net) at fault
                     check_finite(state, losses, f"epoch {epoch}, iters {total_iters}",
-                                 params=steps_run % (10 * cfg.check_finite) == 0)
-                profiler.after_step(steps_run)
-                if cfg.val_freq and total_iters % cfg.val_freq < cfg.batch_size:
+                                 params=calls % (10 * cfg.check_finite) == 0)
+                profiler.after_call(calls)
+                if cfg.val_freq and total_iters % cfg.val_freq < chunk:
                     metrics = validation_metrics_of(visuals, cfg, ctx, data)
                     if metrics:
                         say(f"validation (train batch): {format_metrics(metrics)}")
@@ -426,17 +467,17 @@ def train_loop(cfg, device: torch.device, say=print, ctx=None, dataset=None, dat
                         metrics = held_out(4)
                         if metrics:
                             say(f"validation (held out): {format_metrics(metrics)}")
-                if total_iters % cfg.print_freq < cfg.batch_size:
+                if total_iters % cfg.print_freq < chunk:
                     values = {k: float(v) for k, v in losses.items()}  # syncs the device
                     sync()
-                    t_comp = (time.time() - iter_start) / cfg.batch_size
+                    t_comp = (time.time() - iter_start) / chunk
                     if visualizer is not None:
                         visualizer.print_current_losses(epoch, total_iters, values, t_comp,
                                                         t_data)
-                if total_iters % cfg.display_freq < cfg.batch_size:
+                if total_iters % cfg.display_freq < chunk:
                     display(visualizer, visuals, epoch, ctx)
-                del visuals
-                if total_iters % cfg.save_latest_freq < cfg.batch_size:
+                del visuals, stack
+                if total_iters % cfg.save_latest_freq < chunk:
                     say(f"saving latest (epoch {epoch}, total_iters {total_iters})")
                     save(f"iter_{total_iters}" if cfg.save_by_iter else "latest",
                          {"host_step": host_step, "epoch": epoch})
@@ -503,7 +544,7 @@ def train_rank(rank, n, device, say, argv):
     the state ended bitwise equal on every rank (the pools on every data
     rank), rank 0's ms per step and, per rank, its host ms per grads'
     all-reduce (with data ranks) and its peak memory allocated (None on
-    the CPU)."""
+    the CPU). Under --steps_per_call K the ms are per call of K steps."""
     cfg = parse_config(argv, train=True)
     ctx, data = rank_contexts(cfg, n)
     if device.type == "cuda":
@@ -525,10 +566,11 @@ def train_rank(rank, n, device, say, argv):
     return result
 
 
-def main(argv=None):
+def main(argv=None, step_times=None):
     """Train on one device; with --data_mesh D > 1 or --spatial_mesh S > 1,
     on D x S spawned ranks (module docstring). Returns the state, or for a
-    run on ranks rank 0's result (``train_rank``)."""
+    run on ranks rank 0's result (``train_rank``). ``step_times``: on one
+    device, a list that takes each call's seconds (``train_loop``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     cfg = parse_config(argv, train=True)
     model = get_model(cfg.model)
@@ -546,7 +588,8 @@ def main(argv=None):
     save_config(cfg)
     n = data_n * spatial_n
     if n == 1:
-        return train_loop(cfg, torch.device(cfg.device), dataset=dataset)
+        return train_loop(cfg, torch.device(cfg.device), dataset=dataset,
+                          step_times=step_times)
     kind = "mesh" if data_n > 1 and spatial_n > 1 else "data" if data_n > 1 else "spatial"
     print(placement(n, cfg.device, kind=kind, spatial=spatial_n))
     if spatial_n > 1:

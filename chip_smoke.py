@@ -226,6 +226,32 @@ checkout is missing, and at the first failure of any phase:
      are bitwise equal. Without Pillow, (a) trains on synthetic data and
      (b)-(c) run the test driver's loop with no page (a line says so). The
      phase prints its seconds.
+  13. K steps a call, the bf16 Adam moment, the threaded loader: (a) the
+     slice's path, the bench configuration (pix2pix unet_256, batch norm,
+     vanilla + L1, dropout on, 256x256, bf16) at batch 128 with
+     --steps_per_call 4: three calls of ``models.common.make_scan_step`` on
+     a stack on the card (ms/step, samples/s, max_memory_allocated beside
+     phase 9's one step a call), the synchronizing calls of one more call
+     counted by ``torch.cuda.set_sync_debug_mode('warn')`` and where they
+     are made; ``train.main --steps_per_call 4`` for three calls (the loss
+     lines at iters 512, 1024, 1536, no kernel launched); one K=2 call at
+     batch 2 held to two single steps by the rules of 7 (each step's
+     losses; the first moments after it, mu / (1 - b1), for gradients); (b)
+     CycleGAN on the all-kernel route of 7 with --steps_per_call 2: one
+     call held to two single steps by the rules of 7, its launches exactly
+     twice phase 7's per step, every bf16 K2 and K3 forward on wgmma, then
+     the CLI's three calls with launches exact; (c) --adam_mu_dtype
+     bfloat16 on the bench configuration at batch 128, three steps: every
+     first moment bf16, the parameters within 2 x 3 lr of the f32
+     moment's run from the same state and draws (the bound of
+     tests/unit/test_adam_mu_bf16.py), its losses within 2e-2; (d)
+     --num_threads 4 against 0 on phase 5's store (whole 721x1440 fields,
+     batch 1, three epochs): batches bitwise equal, ms per batch both
+     ways; (e) CycleGAN --fused_blocks bf16 with --steps_per_call 2 under
+     --data_mesh 2 and on the 2-D mesh (--data_mesh 2 --spatial_mesh 2),
+     global batch 2, two calls each: every rank bitwise equal, K2's forward
+     (all on wgmma) and backward 54 launches each per rank per step. The
+     phase prints its seconds.
 
 On a host with a card per rank the sharded phases run over NCCL, the halo
 kernel writing across NVLink peers and signalling on the device.
@@ -3445,9 +3471,353 @@ def test_driver_phase(torch, work) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# K steps a call, the bf16 Adam moment, the threaded loader, K-step calls on
+# the meshes
+# ---------------------------------------------------------------------------
+
+SPC_K, SPC_CALLS = 4, 3  # bench.py's BENCH_SCAN = 4 steps a call; three calls
+SPC_HELD_BATCH = 2  # the held K=2 pix2pix call's batch
+MU_STEPS = 3
+LOADER_EPOCHS = 3
+LOADER_THREADS = 4
+
+
+def spc_stack(torch, k, batch_size, seed=1):
+    """k seeded batches of the bench configuration's fields (256x256, 3
+    channels), stacked (k, B, ...) on the card."""
+    a = torch.randn((k, batch_size, 256, 256, 3), generator=torch.Generator().manual_seed(seed))
+    return {"A": a.cuda(), "B": torch.tanh(a).cuda()}
+
+
+def moved_stack(torch, stack, perturb):
+    """``stack`` with its first batch's A and B moved by ``perturb``
+    relative noise (the noise floor)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {k: v.clone() for k, v in stack.items()}
+    for k in ("A", "B"):
+        x = out[k][0]
+        x.mul_(1 + perturb * torch.randn(x.shape, generator=g, device="cuda"))
+    return out
+
+
+def held_call(torch, cfg, stack, k, singles: bool) -> dict:
+    """From the seeded state, the stack's k steps as one K-step call
+    (``make_scan_step``) or as k single steps with the same step
+    generators. Returns each step's losses ({name@step: float}) and, as
+    phase 7 holds them, the last step's gradients: CycleGAN's from its
+    step (``debug_grads``), pix2pix's from Adam's first moments after the
+    steps, mu / (1 - b1), a mix of the steps' gradients."""
+    from biasgan_tpu_torch.models.common import make_scan_step, step_generator
+    from biasgan_tpu_torch.registry import get_model
+
+    entry = get_model(cfg.model)
+    state = entry.create_state(cfg, torch.device("cuda"))
+    kw = {"debug_grads": True} if cfg.model == "cycle_gan" else {}
+    step = entry.make_train_step(cfg, **kw)
+    if singles:
+        out = [step(state, {n: v[i] for n, v in stack.items()}, step_generator(cfg.seed, i))
+               for i in range(k)]
+        losses = [{n: float(v) for n, v in ls.items()} for ls, _ in out]
+        vis = out[-1][1]
+    else:
+        ls, vis = make_scan_step(step, k, cfg.seed)(state, stack, 0)
+        losses = [{n: float(v[i]) for n, v in ls.items()} for i in range(k)]
+    torch.cuda.synchronize()
+    res = {"losses": {f"{n}@{i + 1}": v for i, ls in enumerate(losses) for n, v in ls.items()}}
+    if cfg.model == "cycle_gan":
+        res.update(G=vis["_g_grads"], D=vis["_d_grads"])
+    else:
+        res.update({net: {n: (t.float() / (1 - o.b1)).cpu() for n, t in o.mu.items()}
+                    for net, o in state.opts.items()})
+    del state, vis
+    return res
+
+
+def spc_held(torch, what, cfg, stack, k):
+    """The K-step call held to k single steps by phase 7's rules, the
+    noise floor the single steps' own move on inputs moved by a bf16 ulp.
+    Returns (the result, with the call's launches, every count set to 0
+    just before it; the fails)."""
+    zero_counts()
+    got = held_call(torch, cfg, stack, k, singles=False)
+    counts = read_counts()
+    ref = held_call(torch, cfg, stack, k, singles=True)
+    floor = grad_distance(held_call(torch, cfg, moved_stack(torch, stack,
+                                                            NOISE_INPUT["bfloat16"]), k,
+                                    singles=True), ref)[1]
+    held = hold_first_step(what, "bfloat16", got, ref, floor)
+    print(f"{what}: one call of {k} steps vs {k} single steps: losses {got['losses']} vs "
+          f"{ref['losses']}; relative L2 per net {held['grad_rel_l2']} (noise floor {floor})")
+    return {"grad_rel_l2": held["grad_rel_l2"], "noise_floor": floor,
+            "worst_grad_err": held["worst_grad_err"], "launches": counts}, held["fails"]
+
+
+def sync_sites(torch, fn) -> dict:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')``: the
+    synchronizing calls made inside it, counted by the innermost frame of
+    this checkout that made each (a warning raised outside ``fn``'s frame,
+    by the mode's switch, is not counted)."""
+    import traceback
+    import warnings
+
+    sites = {}
+    code = fn.__code__
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if not f.filename.endswith("warnings.py")]
+        inside = any(f.filename == code.co_filename and f.name == code.co_name
+                     for f in frames)
+        if "synchroniz" not in str(message) or not inside:
+            return
+        mine = [f for f in frames if f.filename.startswith(HERE)] or frames
+        where = f"{os.path.relpath(mine[-1].filename, HERE)}:{mine[-1].lineno}"
+        sites[where] = sites.get(where, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def steps_per_call_phase(torch, work, bench_k1) -> dict:
+    """K steps a call and the rest of the slice (module docstring, phase
+    13): (a) the bench configuration at batch 128, --steps_per_call 4; (b)
+    CycleGAN on the all-kernel route, --steps_per_call 2; (c) the bf16 Adam
+    moment; (d) the threaded loader on the NetCDF store; (e) K-step calls
+    under --data_mesh 2 and on the 2-D mesh. ``bench_k1``: phase 9's
+    reading at one step a call."""
+    import numpy as np
+
+    from biasgan_tpu_torch import train
+    from biasgan_tpu_torch.config import parse_config
+    from biasgan_tpu_torch.data import create_dataset
+    from biasgan_tpu_torch.models.common import make_scan_step, step_generator
+    from biasgan_tpu_torch.models.pix2pix import create_state, make_train_step
+
+    t_phase = time.perf_counter()
+    name = card()
+    dev = torch.device("cuda")
+    out = {"card": name}
+    fails = []
+
+    # (a) the slice's path: one K=4 call of the bench configuration at
+    # batch 128 on a stack on the card, timed, then one call under the sync
+    # debug mode
+    cfg = parse_config(p2p_argv(work, "spc_bench", "--batch_size", str(BENCH_BATCH),
+                                "--compute_dtype", "bfloat16", "--no-in_graph_aug",
+                                "--steps_per_call", str(SPC_K), "--device", "cuda"), train=True)
+    cfg.steps_per_epoch = 1000
+    stack = spc_stack(torch, SPC_K, BENCH_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_state(cfg, dev)
+    call = make_scan_step(make_train_step(cfg), SPC_K, cfg.seed)
+    ms = []
+    for c in range(SPC_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, _ = call(state, stack, c * SPC_K)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(v.shape == (SPC_K,) and bool(torch.isfinite(v).all())
+                  for v in losses.values()), f"pix2pix K={SPC_K} call {c + 1}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    sites = sync_sites(torch, lambda: call(state, stack, SPC_CALLS * SPC_K))
+    del state, call, losses
+    per_step = [m / SPC_K for m in ms]
+    k1 = bench_k1["step_ms"]
+    out["bench"] = {"batch": BENCH_BATCH, "steps_per_call": SPC_K, "call_ms": ms,
+                    "ms_per_step": per_step,
+                    "samples_per_s": BENCH_BATCH * 1e3 / statistics.mean(per_step[1:]),
+                    "max_memory_allocated": peak, "syncs_per_call": sum(sites.values()),
+                    "sync_sites": sites, "k1_step_ms": k1,
+                    "k1_samples_per_s": bench_k1["samples_per_s"],
+                    "k1_max_memory_allocated": bench_k1["max_memory_allocated"]}
+    print(f"pix2pix bench configuration, batch {BENCH_BATCH}, 256x256 bf16, dropout on, "
+          f"--steps_per_call {SPC_K}: ms/call {[round(m, 3) for m in ms]} (call 1 warms up), "
+          f"ms/step {[round(m, 3) for m in per_step]}, {out['bench']['samples_per_s']:.1f} "
+          f"samples/s over calls 2-{SPC_CALLS}, max_memory_allocated {peak / 2**30:.2f} GiB; "
+          f"beside phase 9's one step a call: ms/step {[round(m, 3) for m in k1]}, "
+          f"{bench_k1['samples_per_s']:.1f} samples/s, "
+          f"{bench_k1['max_memory_allocated'] / 2**30:.2f} GiB; synchronizing calls in one "
+          f"K={SPC_K} call (set_sync_debug_mode 'warn'): {sum(sites.values())} {sites} on {name}")
+    torch.cuda.empty_cache()
+
+    # ... and through the CLI: three calls of 4 steps, the loader's threads
+    # feeding them
+    times = []
+    log = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(log):
+        train.main(p2p_argv(work, "spc_cli", "--batch_size", str(BENCH_BATCH),
+                            "--compute_dtype", "bfloat16", "--steps_per_call", str(SPC_K),
+                            "--synthetic_samples", str(BENCH_BATCH * SPC_K * SPC_CALLS),
+                            "--device", "cuda"), step_times=times)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("(epoch:")]
+    iters = [int(re.search(r"iters: (\d+)", ln).group(1)) for ln in lines]
+    check(iters == [BENCH_BATCH * SPC_K * (c + 1) for c in range(SPC_CALLS)]
+          and not any("nan" in ln or "inf" in ln for ln in lines),
+          f"pix2pix --steps_per_call {SPC_K} CLI: loss lines {lines}")
+    check(not any(counts.values()), f"pix2pix --steps_per_call CLI: launches {counts}")
+    out["cli"] = {"call_s": times, "loss_lines": lines}
+    print(f"  cli --steps_per_call {SPC_K}: {lines[-1]}; s/call {[round(t, 3) for t in times]} "
+          f"(the batches from the synthetic loader, {cfg.num_threads} reader threads)")
+    torch.cuda.empty_cache()
+
+    # one K=2 call held to two single steps (bf16, dropout on)
+    cfg = parse_config(p2p_argv(work, "spc_held", "--batch_size", str(SPC_HELD_BATCH),
+                                "--compute_dtype", "bfloat16", "--steps_per_call", "2",
+                                "--device", "cuda"), train=True)
+    cfg.steps_per_epoch = 1000
+    out["held_pix2pix"], f = spc_held(torch, "pix2pix bench configuration K=2 bf16", cfg,
+                                      spc_stack(torch, 2, SPC_HELD_BATCH, seed=2), 2)
+    fails += f
+    check(not any(out["held_pix2pix"]["launches"].values()),
+          f"pix2pix K=2 call: launches {out['held_pix2pix']['launches']}")
+
+    # (b) CycleGAN on the all-kernel route, K=2: one call held to two single
+    # steps with exact launches, then the CLI's three calls
+    argv = train_argv("all", "bfloat16", work, "spc_cg", extra=["--steps_per_call", "2"])
+    cfg = parse_config(argv, train=True)
+    cfg.steps_per_epoch = TRAIN_SAMPLES
+    batches = [train.batch_to(d, dev) for d in create_dataset(cfg)][:2]
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    per_step = with_path_counts(TRAIN_ROUTES["all"][1], "bfloat16", NORM_CALLS["all"])
+    held, f = spc_held(torch, "CycleGAN all-kernel route K=2 bf16", cfg, stack, 2)
+    fails += f
+    counts = held.pop("launches")
+    want = {k: 2 * per_step.get(k, 0) for k in counts}
+    check(counts == want, f"CycleGAN all K=2 call: launches {counts}, expected {want}")
+    out["held_cyclegan"] = {**held, "launches_per_call": {k: v for k, v in counts.items() if v}}
+    log = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(log):
+        train.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: TRAIN_SAMPLES * per_step.get(k, 0) for k in counts}
+    check(counts == want, f"CycleGAN all --steps_per_call 2 CLI: launches {counts}, "
+          f"expected {want}")
+    lines = [ln for ln in log.getvalue().splitlines() if ln.startswith("(epoch:")]
+    check(len(lines) == TRAIN_SAMPLES // 2, f"CycleGAN --steps_per_call 2 CLI: {lines}")
+    out["cyclegan_cli"] = {"launches": {k: v for k, v in counts.items() if v},
+                           "loss_lines": lines}
+    print(f"CycleGAN --fused_blocks --conv7_pallas 1 --force_pallas_norm bf16 "
+          f"--steps_per_call 2: launches per call {out['held_cyclegan']['launches_per_call']}"
+          f" (2 x phase 7's step); the CLI's {len(lines)} calls: {out['cyclegan_cli']['launches']}")
+    del batches, stack
+    torch.cuda.empty_cache()
+
+    # (c) the bf16 first moment on the bench configuration: three steps
+    # against the f32 moment's, from the same state, batches and draws
+    stack = spc_stack(torch, MU_STEPS, BENCH_BATCH, seed=3)
+    runs = {}
+    for mu in ("float32", "bfloat16"):
+        cfg = parse_config(p2p_argv(work, "mu", "--batch_size", str(BENCH_BATCH),
+                                    "--compute_dtype", "bfloat16", "--no-in_graph_aug",
+                                    "--adam_mu_dtype", mu, "--device", "cuda"), train=True)
+        cfg.steps_per_epoch = 1000
+        state = create_state(cfg, dev)
+        step = make_train_step(cfg)
+        ms = []
+        for i in range(MU_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses, _ = step(state, {k: v[i] for k, v in stack.items()},
+                             step_generator(cfg.seed, i))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[mu] = {"ms": ms, "losses": {k: float(v) for k, v in losses.items()},
+                    "dtypes": {str(t.dtype) for o in state.opts.values() for t in o.mu.values()},
+                    "params": [p.detach().float().cpu() for net in state.nets.values()
+                               for p in net.parameters()]}
+        del state, step
+        torch.cuda.empty_cache()
+    bound = 2 * MU_STEPS * cfg.lr  # tests/unit/test_adam_mu_bf16.py's bound
+    worst = max(float((a - b).abs().max()) for a, b in zip(runs["bfloat16"]["params"],
+                                                          runs["float32"]["params"]))
+    check(runs["bfloat16"]["dtypes"] == {"torch.bfloat16"},
+          f"--adam_mu_dtype bfloat16: first moments in {runs['bfloat16']['dtypes']}")
+    loss_ok = all(abs(runs["bfloat16"]["losses"][k] - v) <= 2e-2 * (1 + abs(v))
+                  for k, v in runs["float32"]["losses"].items())
+    if worst > bound or not loss_ok:
+        fails.append(f"--adam_mu_dtype bfloat16: parameters {worst:.4g} from the f32 moment's "
+                     f"(bound {bound:.4g}), losses {runs['bfloat16']['losses']} vs "
+                     f"{runs['float32']['losses']}")
+    out["adam_mu_bf16"] = {"max_param_diff": worst, "bound": bound,
+                           **{f"{k}_ms": v["ms"] for k, v in runs.items()},
+                           **{f"{k}_losses": v["losses"] for k, v in runs.items()}}
+    print(f"--adam_mu_dtype bfloat16, bench configuration batch {BENCH_BATCH}, {MU_STEPS} "
+          f"steps: every first moment bf16; parameters within {worst:.4g} of the f32 moment's "
+          f"run (bound {bound:.4g}); step-{MU_STEPS} losses {runs['bfloat16']['losses']} vs "
+          f"{runs['float32']['losses']}; ms/step f32 moment "
+          f"{[round(m, 3) for m in runs['float32']['ms']]}, bf16 "
+          f"{[round(m, 3) for m in runs['bfloat16']['ms']]} on {name}")
+    del runs, stack
+    torch.cuda.empty_cache()
+
+    # (d) the threaded loader on phase 5's store: whole 721x1440 fields
+    argv = ["--model", "pix2pix", "--dataset_mode", "climate", "--phase", "test",
+            "--dataroot", os.path.join(work, "data"), "--full_field", "--batch_size", "1",
+            "--input_nc", str(N_VARS), "--output_nc", str(N_VARS), "--device", "cuda"]
+    read = {}
+    for threads in (0, LOADER_THREADS):
+        loader = create_dataset(parse_config(argv + ["--num_threads", str(threads)],
+                                             train=True))
+        t0 = time.perf_counter()
+        batches = [b for _ in range(LOADER_EPOCHS) for b in loader]
+        read[threads] = (batches, (time.perf_counter() - t0) * 1e3 / len(batches))
+    same = len(read[0][0]) == len(read[LOADER_THREADS][0]) == LOADER_EPOCHS * N_TIMES and all(
+        a.keys() == b.keys() and all(
+            a[k] == b[k] if k.endswith("_paths") else np.array_equal(a[k], b[k]) for k in a)
+        for a, b in zip(read[0][0], read[LOADER_THREADS][0]))
+    check(same, "--num_threads 4: the batches differ from --num_threads 0's")
+    out["loader"] = {"ms_per_batch": {str(t): v[1] for t, v in read.items()},
+                     "batches": len(read[0][0])}
+    print(f"loader on the NetCDF-3 store ({GLOBE_H}x{GLOBE_W}x{N_VARS} fields, A and B, "
+          f"batch 1, {LOADER_EPOCHS} epochs): --num_threads 0 {read[0][1]:.3f} ms/batch, "
+          f"--num_threads {LOADER_THREADS} {read[LOADER_THREADS][1]:.3f} ms/batch, batches "
+          f"bitwise equal (a consumer that does nothing else; {os.cpu_count()} host cores)")
+    del read
+
+    # (e) K-step calls on the meshes: CycleGAN --fused_blocks, global batch 2
+    want = {k: v * 4 for k, v in with_path_counts(CG_MESH_STEP, "bfloat16").items() if v}
+    out["meshes"] = {}
+    for what, flags in (("data", ["--data_mesh", "2"]), ("mesh", MESH_FLAGS)):
+        argv = train_argv("fused", "bfloat16", work, f"spc_{what}", extra=flags + [
+            "--batch_size", str(MESH_BATCH), "--synthetic_samples", str(MESH_BATCH * 4),
+            "--steps_per_call", "2"])
+        result, _ = mesh_cli(torch, argv, 2, f"CycleGAN {' '.join(flags)} --steps_per_call 2")
+        for r, counts in enumerate(result["launches"]):
+            counts = {k: v for k, v in counts.items() if v}
+            check(counts == want, f"{what} --steps_per_call 2: rank {r} launches {counts}, "
+                  f"expected {want}")
+        out["meshes"][what] = {"call_ms": result["step_ms"],
+                               "launches_per_rank": result["launches"]}
+        print(f"CycleGAN --fused_blocks bf16 {' '.join(flags)} --steps_per_call 2, two calls "
+              f"of global batch {MESH_BATCH}: every rank bitwise equal; K2 per rank "
+              f"{[{k: c[k] for k in want} for c in result['launches']]}; rank 0 ms/call "
+              f"{[round(m, 1) for m in result['step_ms']]}")
+    check(not fails, "; ".join(fails))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13 (K steps a call, bf16 Adam moment, threaded loader): "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, launches,
                   trained, spatial_times, halo, loopback, sharded, parent, norm_paths,
-                  p2p, dp) -> list:
+                  p2p, dp, spc) -> list:
     """The kernels line: each kernel's launches on its main path, error,
     times and bound; the differentiable forms' backward times beside
     cuDNN's through autograd, and their launches on the bf16 training
@@ -3460,7 +3830,9 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
     the block conv's differentiable form and its backward kernel on the
     pix2pix --fused_blocks route (``pix2pix_phase``); each kernel's
     launches per data rank on the CycleGAN --data_mesh 2 routes that run it
-    (``data_parallel_phase``); with a parent tree,
+    (``data_parallel_phase``); each kernel's launches in the CycleGAN
+    --steps_per_call 2 CLI run on the all-kernel route
+    (``steps_per_call_phase``); with a parent tree,
     the best times there and here (compare_parent).
     Backward bounds are ``bwd_work``'s."""
     per = {"field": "field: each globe call's best time times its calls per field",
@@ -3657,6 +4029,17 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
                     **{f"{attr}_per_rank": [c[f"{k['name']}.{attr}"] for c in run["launches"]]
                        for attr in ("wgmma_launches", "cluster_launches", "persistent_launches")
                        if f"{k['name']}.{attr}" in run["launches"][0]}}
+    cli = spc["cyclegan_cli"]["launches"]
+    for k in kernels:
+        names = [n for n in (k["name"], "conv3x3_fused_t" if k["name"] == "conv3x3_fused"
+                             else None) if n in cli]
+        if names:
+            k["steps_per_call"] = {
+                "route": "--model cycle_gan " + " ".join(TRAIN_ROUTES["all"][0])
+                         + " --steps_per_call 2",
+                "launches": {n: cli[n] for n in names},
+                "per": (f"the bf16 CLI run, 256x256 batch 1: {TRAIN_SAMPLES // 2} calls of 2 "
+                        "steps")}
     return kernels
 
 
@@ -3701,17 +4084,19 @@ def main() -> int:
         dp = data_parallel_phase(torch, work)
         mesh = mesh_phase(torch, work)
         tested = test_driver_phase(torch, work)
+        spc = steps_per_call_phase(torch, work, p2p["bench"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"training": {**trained, "pix2pix": p2p}, "sharded_training": sharded,
-                      "data_parallel": dp, "mesh": mesh, "test_driver": tested}))
+                      "data_parallel": dp, "mesh": mesh, "test_driver": tested,
+                      "steps_per_call": spc}))
     print(json.dumps({"kernels": kernel_report(times, errs, grad_times, grad_errs, bwd_errs,
                                                norm_bwd_errs, launches, trained,
                                                spatial_times, halo, loopback, sharded,
-                                               parent, norm_paths, p2p, dp)}))
+                                               parent, norm_paths, p2p, dp, spc)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

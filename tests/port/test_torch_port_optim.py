@@ -35,10 +35,16 @@ def test_lr_schedules_match_jax(policy, epoch_count):
 
 
 def test_unknown_policy_and_bf16_moments_refuse():
+    """An unknown LR policy and an unknown first-moment dtype refuse; the
+    bf16 first moment (--adam_mu_dtype bfloat16) is ported, and its moments
+    are stored in bf16 (test_torch_port_adam_bf16.py holds it to optax)."""
     with pytest.raises(ValueError, match="lr_policy"):
         make_lr_schedule(_cfg("exp"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        adam_of(SimpleNamespace(adam_mu_dtype="bfloat16", beta1=0.5), [])
+    with pytest.raises(ValueError, match="--adam_mu_dtype 'float16'"):
+        adam_of(SimpleNamespace(adam_mu_dtype="float16", beta1=0.5), [])
+    p = torch.nn.Parameter(torch.zeros(3))
+    opt = adam_of(SimpleNamespace(adam_mu_dtype="bfloat16", beta1=0.5), [("p", p)])
+    assert opt.mu["p"].dtype == torch.bfloat16 and opt.nu["p"].dtype == torch.float32
 
 
 def test_adam_matches_optax():
