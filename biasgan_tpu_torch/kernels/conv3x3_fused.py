@@ -27,12 +27,17 @@ launch, ``conv3x3_fused.wgmma_launches`` those of the bf16 kernel.
 :950): a ``torch.autograd.Function`` whose forward is the same call (the
 kernel on the card) and whose backward is ``conv3x3_fused_bwd``, the
 counterpart of ``_fused_diff_bwd`` (:972-1085, XLA ops in the reference).
-For a CUDA tensor that is a second hand-written kernel
+For a CUDA tensor that is a second hand-written source
 (csrc/conv3x3_fused_bwd.cu: the moments' pullback, the conv's input and
 weight gradients with the pad's adjoint folded in, and the prologue's
-chain, in four launches, counted in ``conv3x3_fused_bwd.launches``); for
-a CPU tensor its plain version ``conv3x3_fused_bwd_plain``, the JAX
-backward line by line in torch ops (cuDNN's dgrad and wgrad for the conv).
+chain, in four launches, counted in ``conv3x3_fused_bwd.launches``; in
+bf16 the input gradient runs on the forward's TMA / wgmma tile loop with
+the weight channel-transposed into its slabs (the layout of
+``conv_tma.pack_block_weight(weight.transpose(0, 1))``, written by the
+first launch), and the weight gradient is a wgmma GEMM over the pixels,
+counted in ``conv3x3_fused_bwd.wgmma_launches``); for a CPU
+tensor its plain version ``conv3x3_fused_bwd_plain``, the JAX backward
+line by line in torch ops (cuDNN's dgrad and wgrad for the conv).
 Where autograd records, ``conv3x3_fused`` goes through it.
 
 ``w_mode='halo'`` is the spatially sharded path's form (the Pallas
@@ -55,6 +60,7 @@ argument (the tiling is the kernel's own), and the weight is OIHW.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -352,7 +358,24 @@ def conv3x3_fused_bwd_plain(
     return dx, dW.to(weight.dtype), dbias, da, db
 
 
-_BWD_ARGTYPES = [PTR] * 14 + [INT] * 10
+_BWD_ARGTYPES = [PTR] * 14 + [INT] * 12
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_workspace(n, h, w, c, cout, dtype, h_code, w_code, prologue, blocks, bn) -> int:
+    """Bytes of the backward's workspace for one shape (a ctypes query of
+    the kernel library, once per shape)."""
+    nbytes = num_tiles("conv3x3_fused_bwd", "conv3x3_fused_bwd_workspace", n, h, w, c, cout,
+                       dtype, h_code, w_code, prologue, blocks, bn)
+    if nbytes < 0:
+        raise ValueError("conv3x3_fused_bwd kernel: workspace past 2**31 bytes")
+    return nbytes
+
+
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if t is None or (t.dtype == torch.float32 and t.is_contiguous()):
+        return t
+    return t.float().contiguous()
 
 
 def _launch_bwd(x, weight, bias, a, b, y, dy, ds, dq, act_pre, h_mode, w_mode):
@@ -362,38 +385,57 @@ def _launch_bwd(x, weight, bias, a, b, y, dy, ds, dq, act_pre, h_mode, w_mode):
     cout = weight.shape[0]
     dtype = check_kernel_input("conv3x3_fused_bwd", x, n * h * w * cout)
     # autograd hands over strided cotangents; the kernel takes NHWC
-    dy, y, weight = dy.contiguous(), y.contiguous(), weight.contiguous()
+    dy, y = dy.contiguous(), y.contiguous()
     for name, t in (("y", y), ("dy", dy)):
         if t.dtype != x.dtype:
             raise TypeError(f"conv3x3_fused_bwd kernel: {name} is {t.dtype}, x {x.dtype}")
     if weight.dtype not in DTYPE_CODE:
         raise TypeError(f"conv3x3_fused_bwd kernel takes a float32 or bfloat16 weight, "
                         f"got {weight.dtype}")
-    f32 = [None if t is None else t.float().contiguous() for t in (a, b, ds, dq)]
     dev = x.device
+    wgmma = x.dtype == torch.bfloat16
+    ab_dtypes = None if a is None else (a.dtype, b.dtype)
+    a, b, ds, dq = (_f32(t) for t in (a, b, ds, dq))
+    bn = blocks = 0
+    if wgmma:
+        # both products load by TMA: 16-byte rows and addresses
+        if c % 8 or cout % 8:
+            raise ValueError(f"conv3x3_fused_bwd bf16 kernel needs C and Cout multiples of 8 "
+                             f"(TMA), got C {c}, Cout {cout}")
+        for name, t in (("x", x), ("y", y), ("dy", dy)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"conv3x3_fused_bwd bf16 kernel needs a 16-byte aligned "
+                                 f"{name} (TMA loads)")
+        blocks = sm_count(dev)
+        bn = conv_tma.tile_geometry(n, h, x.shape[2], c, blocks)  # the dgrad's tile: dU's
+        if a is not None and (a.data_ptr() % 16 or b.data_ptr() % 16):
+            a, b = a.clone(), b.clone()  # the dgrad's tensor map checks them
+    weight = weight.contiguous()  # OIHW; in bf16 prep packs it for the dgrad
     dx = torch.empty_like(x)
     dw = torch.empty_like(weight)
-    dbias = None if bias is None else torch.empty(cout, dtype=torch.float32, device=dev)
+    # dbias, da and db: f32 views of one allocation
+    small = torch.empty(cout * (bias is not None) + 2 * n * c * (a is not None),
+                        dtype=torch.float32, device=dev)
+    dbias = None if bias is None else small[:cout]
     da = db = None
     if a is not None:
-        da, db = (torch.empty((n, c), dtype=torch.float32, device=dev) for _ in range(2))
-    nbytes = num_tiles("conv3x3_fused_bwd", "conv3x3_fused_bwd_workspace", n, h, w, c,
-                       cout, dtype, W_CODE[w_mode], int(a is not None))
-    if nbytes < 0:
-        raise ValueError("conv3x3_fused_bwd kernel: workspace past 2**31 bytes")
-    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        da, db = small[-2 * n * c:].view(2, n, c).unbind(0)
+    work = torch.empty(_bwd_workspace(n, h, w, c, cout, dtype, PAD_CODE[h_mode],
+                                      W_CODE[w_mode], int(a is not None), blocks, bn),
+                       dtype=torch.uint8, device=dev)
     launch(
         "conv3x3_fused_bwd", "conv3x3_fused_bwd_launch", _BWD_ARGTYPES, dev,
-        ptr(x), ptr(weight), *(ptr(t) for t in f32[:2]), ptr(y), ptr(dy),
-        *(ptr(t) for t in f32[2:]), ptr(dx), ptr(dw), ptr(dbias), ptr(da), ptr(db), ptr(work),
+        ptr(x), ptr(weight), ptr(a), ptr(b), ptr(y), ptr(dy), ptr(ds), ptr(dq), ptr(dx), ptr(dw),
+        ptr(dbias), ptr(da), ptr(db), ptr(work),
         n, h, w, c, cout, dtype, DTYPE_CODE[weight.dtype], PAD_CODE[h_mode], W_CODE[w_mode],
-        ACT_CODE[act_pre],
+        ACT_CODE[act_pre], bn, blocks,
     )
     conv3x3_fused_bwd.launches += 1
+    conv3x3_fused_bwd.wgmma_launches += wgmma
     if dbias is not None:
         dbias = dbias.to(bias.dtype)
-    if a is not None:
-        da, db = da.to(a.dtype), db.to(b.dtype)
+    if da is not None:
+        da, db = da.to(ab_dtypes[0]), db.to(ab_dtypes[1])
     return dx, dw, dbias, da, db
 
 
@@ -420,8 +462,11 @@ def conv3x3_fused_bwd(
     columns too.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (csrc/conv3x3_fused_bwd.cu, four launches, counted once in
-    ``conv3x3_fused_bwd.launches``) or raises."""
+    kernels (csrc/conv3x3_fused_bwd.cu, four launches, counted once in
+    ``conv3x3_fused_bwd.launches``, a bf16 call also in
+    ``.wgmma_launches``: its products on the TMA / wgmma kernels) or
+    raises. bf16 takes C and Cout multiples of 8 and a 16-byte aligned x,
+    y and dy (the TMA loads), else raises."""
     args = (x, weight, bias, a, b, y, dy, ds, dq, act_pre, h_mode, w_mode)
     _check_bwd_args(*args)
     if check_device("conv3x3_fused_bwd", x, [weight, bias, a, b, y, dy, ds, dq]):
@@ -430,6 +475,7 @@ def conv3x3_fused_bwd(
 
 
 conv3x3_fused_bwd.launches = 0
+conv3x3_fused_bwd.wgmma_launches = 0
 
 
 class _FusedT(torch.autograd.Function):

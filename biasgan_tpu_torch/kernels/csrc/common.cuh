@@ -1,8 +1,7 @@
 // Device helpers shared by the port's kernels: element conversion, 16-byte
-// vector moves, cp.async staging, the tensor-core primitives (ldmatrix,
-// mma.sync m16n8k16 bf16), weight staging, the fixed-order moment
-// reduction, the spin waits' watchdog, and Hopper's asynchronous machinery
-// (port::sm90: TMA tensor maps and loads, mbarrier rings, wgmma
+// vector moves, cp.async staging, ldmatrix, weight staging, the fixed-order
+// moment reduction, the spin waits' watchdog, and Hopper's asynchronous
+// machinery (port::sm90: TMA tensor maps and loads, mbarrier rings, wgmma
 // descriptors, fences and named barriers). Header-only; each kernel source
 // includes it and build.py hashes it with the source.
 
@@ -252,30 +251,13 @@ struct HaloChunk {
   }
 };
 
-// Tensor-core primitives (sm_80+): four 8x8 b16 matrices from shared memory
-// (each lane gives one row address), optionally transposed, and the
-// m16n8k16 bf16 MMA with f32 accumulation.
+// Four 8x8 b16 matrices from shared memory into registers (each lane gives
+// one row address): the A fragments the wgmma kernels take from registers.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Sum the per-thread moment partials of one column group across row groups
@@ -605,6 +587,41 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// wgmma descriptor of an MN-major operand in the 128-byte swizzle (K rows
+// of 64 bf16 along M or N, 128 bytes each, as a TMA box of 64 channels by
+// pixels lands): eight-row groups along K 1024 bytes apart (SBO), 64-wide
+// blocks along M or N `lbo` bytes apart (LBO), the tile 1024-aligned. A
+// step of 16 along K adds 2048 bytes to the start.
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* tile, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |     // LBO
+         (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
+         (static_cast<uint64_t>(1) << 62);             // SWIZZLE_128B
+}
+
+// D (64 x 128, f32) += A (64 x 16) B (16 x 128), bf16 in, both from shared
+// memory through their descriptors: K-major (TA / TB 0, sw128_desc) or
+// MN-major (1, sw128_mn_desc); d[j] as in wgmma_m64n128k16_rs.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
 
 // D (64 x 256, f32) += A (64 x 16) B (16 x 256), bf16 in, A from registers
 // as in wgmma_m64n128k16_rs (read once for all 256 columns); d[j] at row

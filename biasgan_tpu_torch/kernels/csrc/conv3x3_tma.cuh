@@ -1,5 +1,5 @@
 // conv3x3_tma.cuh: the bf16 tile loop of the 3x3 stride-1 convs on Hopper
-// (TMA, mbarriers, wgmma, a persistent grid), shared by two kernels:
+// (TMA, mbarriers, wgmma, a persistent grid), shared by three kernels:
 //   * K1, conv3x3_fused.cu: SAME, the pad built in the kernel (zero,
 //     reflect, wrap on H; those or the halo mode's carried columns on W),
 //     an optional affine + activation prologue on the input, bias, one
@@ -7,13 +7,20 @@
 //   * K6, conv3x3_valid.cu: VALID on an input that carries its own pad, or
 //     with a zero pad of 2 on each side (the full conv of the input
 //     gradient, the taps read in reverse), then bias + residual + none /
-//     ReLU / LReLU(0.2) in f32 and one cast.
-// Both are the kernel below: an input box per (tile, channel block) whose
+//     ReLU / LReLU(0.2) in f32 and one cast;
+//   * K2's input gradient, conv3x3_fused_bwd.cu: the full conv of the
+//     output's cotangent with the flipped, channel-transposed weight, the
+//     forward pad's adjoint (a wrap pad's is the circular conv: K1's side
+//     loads; a zero pad's TMA's zero fill; a reflect pad's the zero pad
+//     plus its folds, FOLD below), and the prologue's chain in the
+//     epilogue (OUT DGRAD + act).
+// All three are the kernel below: an input box per (tile, channel block) whose
 // origin is the output tile's origin plus (y_off, x_off) (-1 for a pad of
 // 1 built in the kernel, 0 for a carried pad, -2 for the input gradient's
 // pad of 2; TMA's zero fill gives every zero pad), and an epilogue policy
 // chosen by a template parameter (OUT: BIAS_MOMENTS for K1, the activation
-// for K6).
+// for K6 and for K2's input gradient without a prologue, DGRAD + the
+// prologue's activation for K2's with one).
 //
 // Design (times: PERF.md; chip_smoke.py, profile_block_conv). The conv is
 // a GEMM of M = output pixels, N = Cout, K = 9C, cut into k16 steps of
@@ -97,15 +104,36 @@
 //     activation and cast once, in place. K6 takes no prologue and no
 //     moments: its helper warps only store (and load the residual). The
 //     helpers take a tile's epilogue after the next tile's first box, which
-//     the consumers need first.
+//     the consumers need first. K2's input gradient (DGRAD): helper 0 loads
+//     the tile's x as K6's residual; the consumers round dU once to bf16,
+//     recompute pre = a x + b from it, write dx = bf16(act'(pre) dU a) in
+//     place and sum dpre x and dpre over the tile's real pixels in f32: per
+//     thread, over the 8 lanes of a warp that share columns (shuffles),
+//     then over the 8 warps through a 4 KB buffer, 64 columns at a time,
+//     into the tile's slot of dpart (2, N, n_sp, Cout), in a fixed order.
+//   * A reflect pad's folds (FOLD, K2's input gradient): the adjoint of a
+//     reflected pad is the zero-padded full conv onto the padded output
+//     (rows -1 .. n), then pad row -1 added onto row 1 and row n onto n-2
+//     (columns alike; a corner through both). On a reflected axis the tile
+//     grid covers the padded output from an origin o in -1 .. -5 (rows;
+//     columns -1 .. -17) chosen per shape so that one tile holds rows -1
+//     and 1 and one tile rows n-2 and n (tile_grid); the epilogue adds the
+//     pad row's f32 sums onto the target row's through shared memory, rows
+//     before columns, and only then rounds: dU is rounded once, after the
+//     folds, and the tap loop carries no fold code. Rows past the output
+//     are never stored (TMA clips them).
 //   * Shared memory: NH 2: 3 x 32 KB weights + 64 KB staging + 2 x 23.0 KB
 //     boxes + 2 x 7.75 KB side buffers + barriers + 1 KB alignment =
 //     227,960 of 232,448 bytes; NH 1: 6 x 16 + 32 + the rest = 195,240.
+// * Shared memory: K2's input gradient adds a 4 KB buffer for the warps'
+//   sums and the folds (232,056 bytes at NH 2).
 // TMA needs 16-byte strides and addresses: C % 8 == 0, Cout % 8 == 0, x, y
 // and the residual 16-byte aligned (the wrappers pad C and Cout, and raise
 // for a misaligned x); a and b come as (N, C rounded up to 64), zero past C.
 
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -138,6 +166,9 @@ constexpr int NO_PROLOGUE = -1;  // the kernel's ACT without a prologue
 // the kernel's OUT: K1's epilogue (bias, one cast, moments where asked), or
 // an activation (ACT_NONE, ACT_RELU, ACT_LRELU): K6's bias + residual + act
 constexpr int BIAS_MOMENTS = -1;
+// K2's input gradient with the prologue's chain: DGRAD + its activation
+constexpr int DGRAD = 8;
+constexpr int RED_BYTES = 8 * 2 * 64 * 4;  // DGRAD: [da|db][8 warps][64 columns] f32
 constexpr int N_MAPS = 7;  // x, its side row, column and corner; w; y; the residual
 
 template <int NH>
@@ -152,7 +183,12 @@ struct Geom {
   static constexpr int SMEM = 1024 + W_STAGES * W_BYTES + OUT_BYTES +
                               IN_STAGES * (BOX_STRIDE + SIDE_BYTES) + BARRIERS * 8;
 };
-static_assert(Geom<2>::SMEM <= 232448 && Geom<1>::SMEM <= 232448, "shared memory");
+// K2's input gradient (DGRAD, FOLD) also takes RED_BYTES for its sums; K1's
+// and K6's layout stays without them (their L1 keeps the 4 KB)
+template <int OUT, bool FOLD>
+__host__ __device__ constexpr int red_bytes() { return OUT >= DGRAD || FOLD ? RED_BYTES : 0; }
+static_assert(Geom<2>::SMEM + RED_BYTES <= 232448 && Geom<1>::SMEM + RED_BYTES <= 232448,
+              "shared memory");
 
 struct ConvArgs {
   const float* bias;  // (Cout) or null
@@ -167,17 +203,31 @@ struct ConvArgs {
   int n_kc, cs;                    // channel blocks; a and b per image
   int h_mode, w_mode;  // PAD_REFLECT / PAD_WRAP: a pad of 1 that holds data
   int flip;            // tap t reads weight slab 8 - t
-  int res;             // the residual map holds a residual (K6)
+  int res;             // the residual map holds a residual (K6) or x (DGRAD)
 };
+
+// K2's input gradient's arguments (FOLD kernels): ConvArgs and what its
+// folds and its epilogue take. A separate type, so that K1's and K6's
+// parameters stay as they were: six more fields in ConvArgs alone made
+// ptxas allocate K1's NH 2 loop otherwise, 8% slower (an H100 probe).
+struct DgradArgs : ConvArgs {
+  int fold_h, fold_w;  // the forward reflected H (W): add the folds
+  int oy, ox;          // the tile grid's origin (tile_grid)
+  void* y;             // the output, for the tiles TMA cannot store
+  float* dpart;        // DGRAD: (2, N, n_sp, Cout) sums of dpre x and dpre
+};
+template <bool FOLD>
+using ArgsOf = typename std::conditional<FOLD, DgradArgs, ConvArgs>::type;
 
 struct Tile {
   int n, y0, x0, co0;
 };
 
 // Tile t: its cout block first, so that the cout blocks of one pixel tile
-// run together and read the same boxes while L2 still holds them.
-template <class G>
-__device__ __forceinline__ Tile tile_of(int t, const ConvArgs& a) {
+// run together and read the same boxes while L2 still holds them. FOLD: the
+// grid starts at (oy, ox) (tile_grid); K1 and K6 start at 0.
+template <class G, bool FOLD = false, class A>
+__device__ __forceinline__ Tile tile_of(int t, const A& a) {
   Tile r;
   r.co0 = (t % a.n_cb) * G::BN;
   const int p = t / a.n_cb;
@@ -185,7 +235,26 @@ __device__ __forceinline__ Tile tile_of(int t, const ConvArgs& a) {
   r.n = p / a.n_sp;
   r.y0 = (sp / a.tiles_x) * TILE_H;
   r.x0 = (sp % a.tiles_x) * TILE_W;
+  if constexpr (FOLD) {
+    r.y0 += a.oy;
+    r.x0 += a.ox;
+  }
   return r;
+}
+
+// The tile grid along an axis of n outputs in tiles of `tile`: its origin
+// (0; on a folded axis the one in -1 .. -(tile - 2) nearest -1 whose grid
+// puts rows n-2 and n in one tile, as -1 and 1 are in the first; 5
+// consecutive origins always hold one) and its tiles.
+__host__ __device__ __forceinline__ void tile_grid(int n, int tile, bool fold, int* origin,
+                                                   int* tiles) {
+  int o = 0;
+  if (fold) {
+    o = -1;
+    while (o > 2 - tile && (n - o) % tile < 2) --o;
+  }
+  *origin = o;
+  *tiles = (n + (fold ? 1 : 0) - o + tile - 1) / tile;
 }
 
 __device__ __forceinline__ bool h_data(const ConvArgs& a) {
@@ -369,6 +438,157 @@ __device__ __forceinline__ void stage_out(const float (&acc)[NH][64],
   }
 }
 
+// FOLD: a reflected axis's pad rows (columns) added onto rows 1 and n-2
+// (columns), in f32, where the tile holds them: rows first, then columns
+// (so a corner reaches (1, 1) through both); 32 channels at a time through
+// `red` (the source line's pixels by 32 f32, 2.3 KB), between named
+// barriers of the consumer threads. Every consumer thread takes the same
+// branches (they depend on the tile only).
+template <int NH>
+__device__ __forceinline__ void fold_tile(float (&acc)[NH][64], float* red, const DgradArgs& a,
+                                          const Tile& tl, int wg, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  int py[2], px[2];  // the tile pixels of the thread's two fragment rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 64 * wg + 16 * warp + lane / 4 + 8 * h;
+    py[h] = m < TILE_H * TILE_W ? m / TILE_W : -TILE_W;
+    px[h] = m < TILE_H * TILE_W ? m % TILE_W : -TILE_W;
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {  // rows -1 -> 1, n -> n-2, columns -1 -> 1, n -> n-2
+    const bool rows = f < 2;
+    if (!(rows ? a.fold_h : a.fold_w)) continue;
+    const int src = rows ? (f == 0 ? -1 - tl.y0 : a.H - tl.y0)
+                         : (f == 2 ? -1 - tl.x0 : a.W - tl.x0);
+    if (src < 0 || src >= (rows ? TILE_H : TILE_W)) continue;
+    const int dst = f % 2 == 0 ? src + 2 : src - 2;
+#pragma unroll
+    for (int q = 0; q < 4 * NH; ++q) {  // columns 32 q .. 32 q + 31
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {  // the sources write, the targets add
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int on = rows ? py[h] : px[h], along = rows ? px[h] : py[h];
+          if (on != (pass ? dst : src) || along < 0) continue;
+#pragma unroll
+          for (int gg = 0; gg < 4; ++gg)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& v = acc[q / 4][4 * (4 * (q % 4) + gg) + 2 * h + e];
+              float* r = red + along * 32 + 8 * gg + 2 * (lane % 4) + e;
+              if (pass) v += *r;
+              else *r = v;
+            }
+        }
+        named_barrier(1, CONSUMERS);
+      }
+    }
+  }
+}
+
+// DGRAD's epilogue (K2's input gradient with the prologue act(a x + b)):
+// the staging tile holds the tile's x (loaded as K6's residual); per value,
+// dU rounded once to bf16, pre = a x + b (a multiply and an add, as the
+// plain version), dpre = act'(pre) dU, dx = bf16(dpre a) in place; and the
+// tile's sums of dpre x and dpre per column over its real pixels, in f32 in
+// a fixed order: this thread's two rows, the 8 lanes that share its columns
+// (xor shuffles: every lane ends with the same sum), then the 8 consumer
+// warps in order through `red`, 64 columns at a time, into the tile's slot
+// of dpart. The accumulators hold the sums after the pass.
+template <int NH, int ACTD>
+__device__ __forceinline__ void stage_dgrad(float (&acc)[NH][64], unsigned char* out,
+                                            float* red, const DgradArgs& a, const Tile& tl,
+                                            int wg, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  bool real[2];  // the row's pixel lies in the output (a folded axis's pad rows do not)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 64 * wg + 16 * warp + lane / 4 + 8 * h;
+    const int y = tl.y0 + m / TILE_W, x = tl.x0 + m % TILE_W;
+    real[h] = m < TILE_H * TILE_W && y >= 0 && y < a.H && x >= 0 && x < a.W;
+  }
+  const float* pa = a.pa + (size_t)tl.n * a.Cout;  // (N, Cout): over the output's channels
+  const float* pb = a.pb + (size_t)tl.n * a.Cout;
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+#pragma unroll
+    for (int g = 0; g < 16; ++g) {
+      const int col = 128 * hh + 8 * g + 2 * (lane % 4);
+      const int co = tl.co0 + col;
+      float av[2], bv[2], sa[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        av[e] = co + e < a.Cout ? __ldg(pa + co + e) : 0.f;
+        bv[e] = co + e < a.Cout ? __ldg(pb + co + e) : 0.f;
+      }
+      unsigned char* box = out + (col / 64) * (BM * 128) + (col % 8) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 64 * wg + 16 * warp + lane / 4 + 8 * h;
+        __nv_bfloat162* p =
+            reinterpret_cast<__nv_bfloat162*>(box + sw128_offset(row, (col % 64) / 8));
+        const float2 xv = __bfloat1622float2(*p);
+        float dx[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float du = __bfloat162float(__float2bfloat16_rn(acc[hh][4 * g + 2 * h + e]));
+          const float x = e ? xv.y : xv.x;
+          const float pre = __fadd_rn(__fmul_rn(x, av[e]), bv[e]);
+          float dpre = du;
+          if (ACTD == ACT_RELU) dpre = __fmul_rn(du, pre > 0.f ? 1.f : 0.f);
+          if (ACTD == ACT_LRELU) dpre = __fmul_rn(du, pre > 0.f ? 1.f : 0.2f);
+          dx[e] = __fmul_rn(dpre, av[e]);
+          if (real[h]) {
+            sa[e] = __fadd_rn(sa[e], __fmul_rn(dpre, x));
+            sb[e] = __fadd_rn(sb[e], dpre);
+          }
+        }
+        *p = __floats2bfloat162_rn(dx[0], dx[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[hh][4 * g + e] = sa[e];
+        acc[hh][4 * g + 2 + e] = sb[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      float v = acc[hh][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[hh][j] = v;
+    }
+  const int slot = 4 * wg + warp, ct = 128 * wg + tid;
+  const int sp = (tl.y0 - a.oy) / TILE_H * a.tiles_x + (tl.x0 - a.ox) / TILE_W;
+#pragma unroll
+  for (int q = 0; q < NH * 2; ++q) {  // columns 64 q .. 64 q + 63
+    if (lane < 4) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int g = 8 * (q % 2) + r, cl = 8 * r + 2 * lane + e;
+          red[slot * 64 + cl] = acc[q / 2][4 * g + e];
+          red[(8 + slot) * 64 + cl] = acc[q / 2][4 * g + 2 + e];
+        }
+    }
+    named_barrier(1, CONSUMERS);
+    if (ct < 128) {
+      const int which = ct / 64, cl = ct % 64, co = tl.co0 + 64 * q + cl;
+      float sum = 0.f;
+      for (int w = 0; w < 8; ++w) sum += red[(8 * which + w) * 64 + cl];
+      if (co < a.Cout)
+        a.dpart[((size_t)(which * a.N + tl.n) * a.n_sp + sp) * a.Cout + co] = sum;
+    }
+    named_barrier(1, CONSUMERS);
+  }
+}
+
 // The moments of the stored value, read back from the staging tile by
 // helper thread h (0 .. 95) of the producer warpgroup, which owns the
 // column pairs h and h + 96 of the tile: each tile's sums over its real
@@ -438,6 +658,22 @@ struct Moments {
   }
 };
 
+// FOLD: the staging tile of tile tl into y by helper thread h, 16 bytes (8
+// couts of a pixel) at a time, the pixels and couts inside y only.
+template <class G>
+__device__ __forceinline__ void store_plain(const unsigned char* out, const DgradArgs& a,
+                                            const Tile& tl, int h) {
+  constexpr int CHUNKS = G::BN / 8;
+  for (int q = h; q < TILE_H * TILE_W * CHUNKS; q += HELPERS) {
+    const int m = q / CHUNKS, c = q % CHUNKS;
+    const int y = tl.y0 + m / TILE_W, x = tl.x0 + m % TILE_W, co = tl.co0 + 8 * c;
+    if (y < 0 || y >= a.H || x < 0 || x >= a.W || co >= a.Cout) continue;
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.y) +
+                              (((size_t)tl.n * a.H + y) * a.W + x) * a.Cout + co) =
+        *reinterpret_cast<const uint4*>(out + (c / 8) * (BM * 128) + sw128_offset(m, c % 8));
+  }
+}
+
 // The 64-cout boxes of y that tile tl stores (and, in K6, whose residual
 // it loads): those that start below Cout.
 template <class G>
@@ -445,7 +681,7 @@ __device__ __forceinline__ int out_boxes(const Tile& tl, const ConvArgs& a) {
   return min(G::BN / 64, (a.Cout - tl.co0 + 63) / 64);
 }
 
-template <int NH, int ACT, int OUT>
+template <int NH, int ACT, int OUT, bool FOLD = false>
 __global__ void __launch_bounds__(THREADS, 1)
     conv_tma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap rowmap,
@@ -454,7 +690,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                     const __grid_constant__ CUtensorMap wmap,
                     const __grid_constant__ CUtensorMap ymap,
                     const __grid_constant__ CUtensorMap rmap,
-                    const ConvArgs a) {
+                    const ArgsOf<FOLD> a) {
+  static_assert(OUT < DGRAD || FOLD, "DGRAD's epilogue takes DgradArgs");
   using G = Geom<NH>;
   constexpr int WS = G::W_STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -464,7 +701,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* out = wst0 + WS * G::W_BYTES;
   unsigned char* box0 = out + G::OUT_BYTES;
   unsigned char* side0 = box0 + IN_STAGES * BOX_STRIDE;
-  uint64_t* in_full = reinterpret_cast<uint64_t*>(side0 + IN_STAGES * SIDE_BYTES);
+  float* red = reinterpret_cast<float*>(side0 + IN_STAGES * SIDE_BYTES);  // DGRAD, FOLD
+  constexpr int RB = red_bytes<OUT, FOLD>();
+  uint64_t* in_full = reinterpret_cast<uint64_t*>(side0 + IN_STAGES * SIDE_BYTES + RB);
   uint64_t* in_ready = in_full + IN_STAGES;  // the helpers' prologue is done
   uint64_t* in_empty = in_ready + IN_STAGES;
   uint64_t* w_full = in_empty + IN_STAGES;
@@ -513,7 +752,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // when no helper reads the tile: K6 takes no moments, and helper 0's
     // own store has read the tile before.
     auto load_res = [&](int t) {
-      const Tile tl = tile_of<G>(t, a);
+      const Tile tl = tile_of<G, FOLD>(t, a);
       const int nb = out_boxes<G>(tl, a);
       mbar_arrive_expect_tx(res_full, nb * OUT_BOX_BYTES);
       for (int j = 0; j < nb; ++j)
@@ -522,8 +761,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
     if (res && h == 0) load_res(blockIdx.x);
     auto epilogue = [&](int t) {
-      const Tile tl = tile_of<G>(t, a);
+      const Tile tl = tile_of<G, FOLD>(t, a);
       mbar_wait(out_full, phase);
+      if constexpr (FOLD) {
+        // a tile whose grid starts on a pad row (column) of a folded axis:
+        // TMA stores take no negative coordinate, so every helper stores it
+        if (tl.y0 < 0 || tl.x0 < 0) {
+          store_plain<G>(out, a, tl, h);
+          fence_proxy_async();  // the reads, before TMA rewrites the tile
+          named_barrier(2, HELPERS);
+          if (h == 0 && res && t + (int)gridDim.x < a.total) load_res(t + gridDim.x);
+          mbar_arrive(out_empty);
+          phase ^= 1;
+          return;
+        }
+      }
       if (h == 0) {
         for (int j = 0; j < out_boxes<G>(tl, a); ++j)
           tma_store_4d(&ymap, out + j * (BM * 128), tl.co0 + 64 * j, tl.x0, tl.y0, tl.n);
@@ -539,7 +791,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
     int prev = -1;  // the tile whose epilogue is next
     for (int t = blockIdx.x; t < a.total; t += gridDim.x) {
-      const Tile tl = tile_of<G>(t, a);
+      const Tile tl = tile_of<G, FOLD>(t, a);
       for (int cb = 0; cb < a.n_kc; ++cb) {
         if (ACT != NO_PROLOGUE) {
           mbar_wait(&in_full[si], pi);
@@ -567,7 +819,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // channel block cb of tile t: the box, its side rows and columns and
     // corners (TMA counts a zero-filled byte as landed)
     auto issue_box = [&](int t, int cb) {
-      const Tile tl = tile_of<G>(t, a);
+      const Tile tl = tile_of<G, FOLD>(t, a);
       const Edges e(tl, a);
       mbar_wait(&in_empty[si], pi ^ 1);
       mbar_arrive_expect_tx(&in_full[si], e.bytes());
@@ -593,7 +845,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
     issue_box(blockIdx.x, 0);
     for (int t = blockIdx.x; t < a.total; t += gridDim.x) {
-      const Tile tl = tile_of<G>(t, a);
+      const Tile tl = tile_of<G, FOLD>(t, a);
       for (int cb = 0; cb < a.n_kc; ++cb) {
         for (int tap = 0; tap < 9; ++tap) {
           if (tap == NEXT_BOX_TAP) {
@@ -628,7 +880,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   m = m < TILE_H * TILE_W ? m : 0;
   const int ty = m / TILE_W, tx = m % TILE_W;
   for (int t = blockIdx.x; t < a.total; t += gridDim.x) {
-    const Tile tl = tile_of<G>(t, a);
+    const Tile tl = tile_of<G, FOLD>(t, a);
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
@@ -698,7 +950,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     // tile's k16 steps run
     mbar_wait(out_empty, out_phase ^ 1);
     if (res) mbar_wait(res_full, out_phase);
-    stage_out<NH, OUT>(acc, out, a, tl, wg, tid);
+    if constexpr (FOLD) fold_tile<NH>(acc, red, a, tl, wg, tid);
+    if constexpr (OUT >= DGRAD)
+      stage_dgrad<NH, OUT - DGRAD>(acc, out, red, a, tl, wg, tid);
+    else
+      stage_out<NH, OUT>(acc, out, a, tl, wg, tid);
     fence_proxy_async();  // the writes, before the TMA store reads them
     mbar_arrive(out_full);
     out_phase ^= 1;
@@ -727,15 +983,16 @@ struct ConvShape {
   int N, H, W, Hin, Win, C, Cout;
   int y_off, x_off, h_mode, w_mode, flip;
   int blocks;  // the persistent grid's blocks at most (the card's SMs)
+  int fold_h = 0, fold_w = 0;  // K2's input gradient: the forward reflected H / W
+  float* dpart = nullptr;      // DGRAD: the tiles' sums of dpre x and dpre
 };
 
 // The tensor maps (x; its side row, column and corner; w; y; the residual)
 // and the arguments of a launch, and its grid.
-template <int NH>
-cudaError_t prepare(const ConvShape& s, CUtensorMap (&maps)[N_MAPS], ConvArgs* out,
-                    int* grid) {
+template <int NH, class A>
+cudaError_t prepare(const ConvShape& s, CUtensorMap (&maps)[N_MAPS], A* out, int* grid) {
   using G = Geom<NH>;
-  ConvArgs a;
+  A a;
   a.bias = s.bias;
   a.pa = s.pa;
   a.pb = s.pb;
@@ -749,8 +1006,10 @@ cudaError_t prepare(const ConvShape& s, CUtensorMap (&maps)[N_MAPS], ConvArgs* o
   a.cout_pad = ceil_div(s.Cout, G::BN) * G::BN;
   a.y_off = s.y_off;
   a.x_off = s.x_off;
-  a.tiles_x = ceil_div(s.W, TILE_W);
-  a.n_sp = ceil_div(s.H, TILE_H) * a.tiles_x;
+  int oy = 0, ox = 0, tiles_y = 0;
+  tile_grid(s.H, TILE_H, s.fold_h, &oy, &tiles_y);
+  tile_grid(s.W, TILE_W, s.fold_w, &ox, &a.tiles_x);
+  a.n_sp = tiles_y * a.tiles_x;
   a.n_cb = a.cout_pad / G::BN;
   a.total = a.n_sp * s.N * a.n_cb;
   a.n_parts = s.blocks;
@@ -760,6 +1019,16 @@ cudaError_t prepare(const ConvShape& s, CUtensorMap (&maps)[N_MAPS], ConvArgs* o
   a.w_mode = s.w_mode;
   a.flip = s.flip;
   a.res = s.res != nullptr;
+  if constexpr (std::is_same<A, DgradArgs>::value) {
+    a.fold_h = s.fold_h;
+    a.fold_w = s.fold_w;
+    a.oy = oy;
+    a.ox = ox;
+    a.y = s.y;
+    a.dpart = s.dpart;
+  } else if (s.fold_h || s.fold_w || s.dpart != nullptr) {
+    return cudaErrorInvalidValue;  // folds and DGRAD take DgradArgs
+  }
   auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
@@ -786,29 +1055,35 @@ cudaError_t prepare(const ConvShape& s, CUtensorMap (&maps)[N_MAPS], ConvArgs* o
                                (cuuint64_t)s.N};
   const cuuint64_t ystrides[3] = {py, py * s.W, py * s.W * s.H};
   const cuuint32_t ybox[4] = {KW, TILE_W, TILE_H, 1};
+  // a side map only where that pad holds data, the residual's only with one:
+  // the kernel reads no other (each encode is host time a launch)
+  const bool hd = s.h_mode == PAD_REFLECT || s.h_mode == PAD_WRAP;
+  const bool wd = s.w_mode == PAD_REFLECT || s.w_mode == PAD_WRAP;
+  const bool need[N_MAPS] = {true, hd, wd, hd && wd, true, true, s.res != nullptr};
   cudaError_t err = cudaSuccess;
-  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
-    err = encode_bf16_map(&maps[i], s.x, 4, xdims, xstrides, boxes[i], i == 0);
-  if (err == cudaSuccess) err = encode_bf16_map(&maps[4], s.wp, 2, wdims, wstrides, wbox, true);
-  if (err == cudaSuccess) err = encode_bf16_map(&maps[5], s.y, 4, ydims, ystrides, ybox, true);
-  // without a residual the map is never read: y's stands in
-  if (err == cudaSuccess)
-    err = encode_bf16_map(&maps[6], s.res != nullptr ? s.res : s.y, 4, ydims, ystrides, ybox,
-                          true);
+  for (int i = 0; i < N_MAPS && err == cudaSuccess; ++i) {
+    if (!need[i]) {
+      maps[i] = CUtensorMap{};
+      continue;
+    }
+    if (i < 4) err = encode_bf16_map(&maps[i], s.x, 4, xdims, xstrides, boxes[i], i == 0);
+    else if (i == 4) err = encode_bf16_map(&maps[4], s.wp, 2, wdims, wstrides, wbox, true);
+    else err = encode_bf16_map(&maps[i], i == 5 ? s.y : s.res, 4, ydims, ystrides, ybox, true);
+  }
   if (err != cudaSuccess) return err;
   *out = a;
   *grid = a.total < s.blocks ? a.total : s.blocks;
   return cudaSuccess;
 }
 
-template <int NH, int ACT, int OUT>
-cudaError_t launch_conv(const CUtensorMap (&maps)[N_MAPS], const ConvArgs& a, int grid,
+template <int NH, int ACT, int OUT, bool FOLD = false>
+cudaError_t launch_conv(const CUtensorMap (&maps)[N_MAPS], const ArgsOf<FOLD>& a, int grid,
                         cudaStream_t stream) {
-  using G = Geom<NH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_tma_kernel<NH, ACT, OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  constexpr int SMEM = Geom<NH>::SMEM + red_bytes<OUT, FOLD>();
+  cudaError_t err = cudaFuncSetAttribute(conv_tma_kernel<NH, ACT, OUT, FOLD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
-  conv_tma_kernel<NH, ACT, OUT><<<grid, THREADS, G::SMEM, stream>>>(
+  conv_tma_kernel<NH, ACT, OUT, FOLD><<<grid, THREADS, SMEM, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], a);
   return cudaGetLastError();
 }

@@ -66,8 +66,10 @@ checkout is missing, and at the first failure of any phase:
      periodic and zero-edge, every halo bitwise the ring's, and its device
      time per exchange;
   3b. the gradient phase: the fused block conv's backward kernel
-     (conv3x3_fused_bwd) called directly against its plain version (the
-     torch-ops backward) on the same inputs and cotangents, over every H pad
+     (conv3x3_fused_bwd; bf16 on its TMA / wgmma kernels, every call
+     counted, two calls bitwise equal) called directly against its plain
+     version (the torch-ops backward) on the same inputs and cotangents,
+     over every H pad
      with every W mode (the halo mode with wrap and zero-edge columns), the
      prologue under each act and without, moments and bias on and off,
      ragged and tiny shapes and the training shapes, f32 and bf16; each
@@ -81,8 +83,9 @@ checkout is missing, and at the first failure of any phase:
      autograd, and the card's forward and backward bounds; for the fused
      block conv and the instance norm also, in turns, the backward kernel
      called directly and the old torch-ops backward (the plain version),
-     and the device kernels each backward runs (torch.profiler); the
-     instance norm's backward kernel (instance_norm_act_bwd) called
+     and the device kernels each backward runs (torch.profiler, checked
+     profiles, in a fresh process: late in this long process the profiler
+     drops events); the instance norm's backward kernel (instance_norm_act_bwd) called
      directly against its plain version on the forward kernel's output and
      saved statistics, at every training shape of the all-kernel route,
      H W = 1 and C = 12, every act with and without a residual, f32 and
@@ -313,20 +316,25 @@ PATHS = {
                            {"halo_exchange_w": 24, "conv3x3_fused": 18}),
 }
 # kernel -> the wrapper's count of launches on its bf16 path, where the
-# wrapper routes by a rule (K1, K3, K4, K5, K6: bf16 takes the TMA / wgmma
-# kernel, f32 the CUDA-core checker); every bf16 call must take it (K6's
-# forward and input-gradient launches alike)
+# wrapper routes by a rule (K1, K2's backward, K3, K4, K5, K6: bf16 takes
+# the TMA / wgmma kernels, f32 the CUDA-core checkers); every bf16 call must
+# take it (K6's forward and input-gradient launches alike)
 PATH_COUNTERS = {"conv3x3_fused": "wgmma_launches", "conv3x3s2_fused": "wgmma_launches",
                  "convt3x3s2_fused": "wgmma_launches", "conv3x3_valid": "wgmma_launches",
-                 "conv7x7": "wgmma_launches"}
+                 "conv7x7": "wgmma_launches", "conv3x3_fused_bwd": "wgmma_launches"}
 # the instance norm's paths, each counted in instance_norm_act.<path>_launches
 NORM_PATHS = ("cluster", "persistent")
-# source -> its bf16 TMA / wgmma kernel (a part of cuobjdump's function
-# names; K6's is K1's tile loop, csrc/conv3x3_tma.cuh; K3's the stem's and
-# the head's, stem_wgmma_kernel and head_wgmma_kernel)
-WGMMA_KERNELS = {"conv3x3_fused": "conv_tma_kernel", "conv3x3s2_fused": "down_tma_kernel",
-                 "convt3x3s2_fused": "up_tma_kernel", "conv3x3_valid": "conv_tma_kernel",
-                 "conv7x7": "_wgmma_kernel"}
+# source -> its bf16 TMA / wgmma kernels (parts of cuobjdump's function
+# names, and whether each stores by TMA; K6's is K1's tile loop,
+# csrc/conv3x3_tma.cuh; K3's the stem's and the head's, stem_wgmma_kernel
+# and head_wgmma_kernel; K2's backward the same loop for its input gradient
+# and wgrad_tma_kernel, which loads by TMA and stores its partials itself)
+WGMMA_KERNELS = {"conv3x3_fused": {"conv_tma_kernel": True},
+                 "conv3x3s2_fused": {"down_tma_kernel": True},
+                 "convt3x3s2_fused": {"up_tma_kernel": True},
+                 "conv3x3_valid": {"conv_tma_kernel": True},
+                 "conv7x7": {"_wgmma_kernel": True},
+                 "conv3x3_fused_bwd": {"conv_tma_kernel": True, "wgrad_tma_kernel": False}}
 # the halo exchanges of one sharded globe forward, per rank: (the local
 # tensor's shape, dtype, left, right, exchanges per forward). W 1440 is 360
 # per rank; bf16 compute, but the stem pads the f32 input; H is padded
@@ -455,15 +463,21 @@ def build_kernels() -> None:
         for fn, u, sp in zip(fns, used, spills):
             short = re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}", "", fn)[:70]
             print(f"    {short}: {u} registers, {sp} bytes spilled")
+        # ptxas's notes where it serialized a kernel's wgmmas (C75xx)
+        for note in sorted(set(re.findall(r"C75\d\d[^\n]*", log))):
+            print(f"    ptxas: {note[:160]}")
     # the bf16 kernels run on wgmma and TMA: their machine code says so
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    for name, fn in WGMMA_KERNELS.items():
+    for name, fns in WGMMA_KERNELS.items():
         sass = subprocess.run([cuobjdump, "--dump-sass", paths[name]], capture_output=True,
                               text=True, check=True, timeout=120).stdout
-        body = "".join(f for f in re.split(r"\n\s*Function : ", sass) if fn in f)
-        ops = {op: len(re.findall(rf"\b{op}\b", body)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-        print(f"  {name} bf16 kernel {fn} (cuobjdump --dump-sass): {ops}")
-        check(all(ops.values()), f"{name} bf16 kernel lacks wgmma or TMA instructions: {ops}")
+        for fn, stores in fns.items():
+            body = "".join(f for f in re.split(r"\n\s*Function : ", sass) if fn in f)
+            ops = {op: len(re.findall(rf"\b{op}\b", body))
+                   for op in ("HGMMA", "UTMALDG") + (("UTMASTG",) if stores else ())}
+            print(f"  {name} bf16 kernel {fn} (cuobjdump --dump-sass): {ops}")
+            check(all(ops.values()), f"{name} bf16 kernel {fn} lacks wgmma or TMA "
+                  f"instructions: {ops}")
 
 
 def moment_error(got, ref, count: int) -> float:
@@ -1026,13 +1040,38 @@ TURN_CALLS["conv3x3_fused"] += (
     + [((2, 64, 64, 256, 256), dict(prologue=False))])
 TURN_CALLS["conv7x7"] += [((b, 262, 262, c, cout), {}) for c, cout in ((3, 64), (64, 3))
                           for b in (2, 3, 1)]
+# the block conv's backward called directly in the turns (bwd_case: H reflect,
+# the prologue with ReLU, the moments' cotangents, a bias): the training
+# step's three shapes and the sharded step's halo W mode
+BWD_TURN_CALLS = ([((b, 64, 64, 256, 256), "wrap") for b in (2, 3, 1)]
+                  + [((2, 64, 16, 256, 256), "halo-wrap")])
+HOST_CALLS, HOST_RUNS = 20, 5  # a wrapper's host time: runs of calls back to back
+
+
+def host_us(torch, fn) -> float:
+    """us of host time a call of ``fn``: the host clock around HOST_CALLS
+    calls issued back to back after a synchronize (the card idle at the
+    first), with no synchronize between them; the best of HOST_RUNS runs
+    (the host's clock varies more than the card's)."""
+    best = float("inf")
+    for _ in range(HOST_RUNS):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize()
+    return best
 
 
 def kernel_turn(torch) -> dict:
     """One turn of compare_parent, in the tree this process imports the
     port from: each COMPARE_KERNELS kernel at its TURN_CALLS shapes in bf16
     on seeded inputs, ms per call (best of three timed runs) and the call's
-    device ms by kernel, with the profile's check (``counted_device_time``)."""
+    device ms by kernel, with the profile's check (``counted_device_time``);
+    and the block conv's backward at BWD_TURN_CALLS, with its checked
+    profile retried (``checked_device_time``) and its host us a call."""
     g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for name in COMPARE_KERNELS:
@@ -1042,6 +1081,14 @@ def kernel_turn(torch) -> dict:
             ms = min(timed(torch, lambda: fn(*args)) for _ in range(3))
             key = f"{name} {tuple(shape)}" + "".join(f" {k}={v}" for k, v in opt.items())
             out[key] = {"ms": ms, **counted_device_time(torch, lambda: fn(*args))}
+    from biasgan_tpu_torch.kernels.conv3x3_fused import conv3x3_fused_bwd
+
+    for shape, w_mode in BWD_TURN_CALLS:
+        args = bwd_case(torch, g, shape, torch.bfloat16, "reflect", w_mode, BWD_VARIANTS[0])
+        ms = min(timed(torch, lambda: conv3x3_fused_bwd(*args)) for _ in range(3))
+        out[f"conv3x3_fused_bwd {tuple(shape)} {w_mode}"] = {
+            "ms": ms, **checked_device_time(torch, lambda: conv3x3_fused_bwd(*args), iters=10),
+            "host_us": host_us(torch, lambda: conv3x3_fused_bwd(*args))}
     return out
 
 
@@ -1115,6 +1162,7 @@ def compare_parent(torch, work: str) -> dict:
     if not os.path.isdir(os.path.join(PARENT_TREE, "biasgan_tpu_torch")):
         print(f"parent comparison: skipped, no parent tree in {PARENT_TREE}")
         return {}
+    t0 = time.perf_counter()
     turn_dir = os.path.join(work, "turn")
     os.makedirs(turn_dir, exist_ok=True)
     shutil.copy(os.path.abspath(__file__), os.path.join(turn_dir, "smoke_turn.py"))
@@ -1137,8 +1185,10 @@ def compare_parent(torch, work: str) -> dict:
             turn = json.loads(line[len("RESULT "):])
             for key, r in turn["kernels"].items():
                 print(f"  {side:6s} {key}: {r['ms']:.4f} ms per call (CUDA events), "
-                      f"{r['device_ms']:.4f} on the card (torch.profiler): "
+                      + (f"{r['device_ms']:.4f}" if r["device_ms"] is not None else "-")
+                      + " on the card (torch.profiler): "
                       + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms_by_kernel"].items())
+                      + (f"; host {r['host_us']:.1f} us a call" if "host_us" in r else "")
                       + ("" if r["device_valid"] else
                          f"; device reading DROPPED: {r['events']} kernel events in the "
                          f"profile, expected {r['expected_events']} ({r['kernels_per_call']} "
@@ -1146,6 +1196,11 @@ def compare_parent(torch, work: str) -> dict:
                 b = best["kernels"].setdefault(key, {}).setdefault(
                     side, {"ms": r["ms"], "device_ms": None, "dropped_device_turns": 0})
                 b["ms"] = min(b["ms"], r["ms"])
+                if "host_us" in r:
+                    b["host_us"] = min(b.get("host_us", r["host_us"]), r["host_us"])
+                    if r["device_valid"] and (b["device_ms"] is None
+                                              or r["device_ms"] < b["device_ms"]):
+                        b["device_ms_by_kernel"] = r["device_ms_by_kernel"]
                 if not r["device_valid"]:
                     b["dropped_device_turns"] += 1
                 elif b["device_ms"] is None or r["device_ms"] < b["device_ms"]:
@@ -1163,8 +1218,8 @@ def compare_parent(torch, work: str) -> dict:
                 for k, v in vals.items():
                     b[k] = min(b[k], v)
     print(f"parent comparison, best of {2 * COMPARE_ROUNDS} turns a side "
-          f"({torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} card(s)): "
-          f"{json.dumps(best)}")
+          f"({torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} card(s), "
+          f"{time.perf_counter() - t0:.1f} s): {json.dumps(best)}")
     return best
 
 
@@ -1381,8 +1436,9 @@ def check_bwd_kernel(torch) -> dict:
     on the same arguments: every shape of BWD_SHAPES with every H pad and W
     mode, the variants in turn (at the training shapes all of them for the
     training routes' modes), f32 and bf16, under GRAD_TOL, one launch per
-    call. Returns the largest |d| in bf16 (absolute, and relative to
-    max(1, |ref|))."""
+    call, each bf16 one on the TMA / wgmma kernels (``wgmma_launches``),
+    and two calls on the same arguments bitwise equal. Returns the largest
+    |d| in bf16 (absolute, and relative to max(1, |ref|))."""
     from biasgan_tpu_torch.kernels.conv3x3_fused import (
         conv3x3_fused_bwd,
         conv3x3_fused_bwd_plain,
@@ -1402,14 +1458,21 @@ def check_bwd_kernel(torch) -> dict:
                 for variant, dtype in ((v, d) for v in variants
                                        for d in (torch.bfloat16, torch.float32)):
                     args = bwd_case(torch, g, shape, dtype, h_mode, w_mode, variant)
-                    before = conv3x3_fused_bwd.launches
+                    before = (conv3x3_fused_bwd.launches, conv3x3_fused_bwd.wgmma_launches)
                     got = conv3x3_fused_bwd(*args)
+                    again = conv3x3_fused_bwd(*args)
                     torch.cuda.synchronize()
-                    check(conv3x3_fused_bwd.launches == before + 1,
-                          "conv3x3_fused_bwd: not one launch per call")
+                    bf16 = dtype == torch.bfloat16
+                    check((conv3x3_fused_bwd.launches, conv3x3_fused_bwd.wgmma_launches)
+                          == (before[0] + 2, before[1] + 2 * bf16),
+                          "conv3x3_fused_bwd: not one launch per call, each bf16 one on the "
+                          "TMA / wgmma kernels")
                     ref = conv3x3_fused_bwd_plain(*args)
                     atol, rtol = GRAD_TOL[str(dtype).replace("torch.", "")]
                     where = f"{shape} {dtype} {h_mode}/{w_mode} {variant}"
+                    for name, a, b in zip(("dx", "dw", "dbias", "da", "db"), got, again):
+                        check(a is None or torch.equal(a, b),
+                              f"conv3x3_fused_bwd {where}: two calls' {name} differ")
                     for name, a, b in zip(("dx", "dw", "dbias", "da", "db"), got, ref):
                         check((a is None) == (b is None), f"conv3x3_fused_bwd {where}: {name}")
                         if a is None:
@@ -1429,7 +1492,8 @@ def check_bwd_kernel(torch) -> dict:
                             worst["max_grad_err"] = max(worst["max_grad_err"], d / scale)
                     n_cases += 1
     print(f"conv3x3_fused_bwd: {n_cases} cases (kernel vs plain backward) within the "
-          f"gradient bounds; bf16 largest |d| {worst['max_abs_err']:.3g}, "
+          f"gradient bounds, two calls bitwise equal, every bf16 call on the TMA / wgmma "
+          f"kernels; bf16 largest |d| {worst['max_abs_err']:.3g}, "
           f"{worst['max_grad_err']:.3g} of max(1, |ref|)")
     return worst
 
@@ -1542,6 +1606,48 @@ def device_kernels(torch, fn):
     return len(ev), sum(e.device_time_total for e in ev) / 1e3
 
 
+PROFILE_TRIES = 3  # profiles a checked reading takes at most
+
+
+def checked_device_time(torch, fn, iters=5) -> dict:
+    """``counted_device_time`` taken again, up to PROFILE_TRIES times, until
+    its profile holds the kernel events the calls make; ``device_ms`` (and
+    its split by kernel) reads None where no try did."""
+    for tries in range(1, PROFILE_TRIES + 1):
+        d = counted_device_time(torch, fn, iters)
+        if d["device_valid"]:
+            break
+    if not d["device_valid"]:
+        d.update(device_ms=None, device_ms_by_kernel={})
+    return {**d, "tries": tries}
+
+
+def in_fresh_process(fn: str, work: str):
+    """``fn(torch)`` of this file run in a fresh process (a copy of this file
+    under ``work``, the port imported from this tree, TF32 off, the same
+    kernel builds), its JSON result back. torch.profiler has dropped a
+    call's device events in every profile late in this script's long
+    process; a fresh process's profiles hold them."""
+    turn_dir = os.path.join(work, "turn")
+    os.makedirs(turn_dir, exist_ok=True)
+    shutil.copy(os.path.abspath(__file__), os.path.join(turn_dir, "smoke_turn.py"))
+    code = ("import json, sys\n"
+            f"sys.path[:0] = [{HERE!r}, {turn_dir!r}]\n"
+            "import torch, smoke_turn\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            f"out = smoke_turn.{fn}(torch)\n"
+            "print('RESULT ' + json.dumps(out))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=HERE, capture_output=True,
+                          text=True, timeout=900)
+    print(proc.stdout[:proc.stdout.find("RESULT ")] if "RESULT " in proc.stdout
+          else proc.stdout, end="")
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")), None)
+    check(proc.returncode == 0 and line is not None,
+          f"{fn} in a fresh process failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(line[len("RESULT "):])
+
+
 def time_grads(torch) -> dict:
     """At each training shape in bf16: the differentiable form's forward
     (autograd recording) and backward, beside cuDNN's (or the library
@@ -1550,9 +1656,12 @@ def time_grads(torch) -> dict:
     and the instance norm also, in the same turns, the backward kernel
     called directly (``kernel_bwd``) and the old torch-ops backward
     (``plain_bwd``, the plain version at bf16), on the forward's output and
-    saved arguments, and the device kernels of one backward on each. Per
-    form, the per-step sums (each call's time times its count) and the
-    per-call numbers."""
+    saved arguments, and the device kernels of one backward on each, from
+    checked profiles (``checked_device_time``: a profile that lost or
+    doubled a call's kernel events is taken again; a reading none held is
+    None, and so is its form's per-step sum). Per form, the per-step sums
+    (each call's time times its count) and the per-call numbers; K2's
+    backward called directly is printed by kernel."""
     from biasgan_tpu_torch.kernels.conv3x3_fused import (
         conv3x3_fused_bwd,
         conv3x3_fused_bwd_plain,
@@ -1575,16 +1684,21 @@ def time_grads(torch) -> dict:
                                                           torch.bfloat16, **opt)
             runs = {k: [] for k in ("fwd", "bwd", "library_fwd", "library_bwd", "kernel_bwd",
                                     "plain_bwd")}
-            kernels, device_ms = {}, {}
+            kernels, device_ms, by_kernel = {}, {}, {}
+
+            def profiled(key, f):
+                if key not in kernels:
+                    d = checked_device_time(torch, f)
+                    kernels[key], device_ms[key] = d["kernels_per_call"], d["device_ms"]
+                    by_kernel[key] = d["device_ms_by_kernel"]
+
             for which, f in (("", fn), ("library_", lib), ("plain_", None), ("plain_", None),
                              ("library_", lib), ("", fn)):
                 if which == "plain_":
                     if direct:
                         runs["plain_bwd"].append(timed(torch, lambda: bwd_plain(*bwd_args),
                                                        iters=10, warmup=2))
-                        if "plain_bwd" not in kernels:
-                            kernels["plain_bwd"], device_ms["plain_bwd"] = device_kernels(
-                                torch, lambda: bwd_plain(*bwd_args))
+                        profiled("plain_bwd", lambda: bwd_plain(*bwd_args))
                     continue
                 outs = f()
                 cots = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
@@ -1595,9 +1709,7 @@ def time_grads(torch) -> dict:
                                                allow_unused=True)
 
                 runs[which + "bwd"].append(timed(torch, grad, iters=10, warmup=2))
-                if which + "bwd" not in kernels:
-                    kernels[which + "bwd"], device_ms[which + "bwd"] = device_kernels(torch,
-                                                                                      grad)
+                profiled(which + "bwd", grad)
                 if fused and which == "":
                     # the backward's own arguments: the stored y and the cotangents
                     x, w, bias, *pro = ins
@@ -1614,9 +1726,7 @@ def time_grads(torch) -> dict:
                 if direct and which == "":
                     runs["kernel_bwd"].append(timed(torch, lambda: bwd_fn(*bwd_args),
                                                     iters=10, warmup=2))
-                    if "kernel_bwd" not in kernels:
-                        kernels["kernel_bwd"], device_ms["kernel_bwd"] = device_kernels(
-                            torch, lambda: bwd_fn(*bwd_args))
+                    profiled("kernel_bwd", lambda: bwd_fn(*bwd_args))
                 del outs
             with torch.no_grad():
                 plain_ms = timed(torch, plain, iters=5, warmup=1)
@@ -1633,20 +1743,30 @@ def time_grads(torch) -> dict:
                          "bwd_bytes_ms": bwd_bytes_ms, "bwd_operations_ms": bwd_op_ms,
                          "device_kernels_per_bwd": kernels,
                          "device_ms_per_bwd": device_ms,
+                         "device_ms_per_bwd_by_kernel": by_kernel,
                          **({"kernel_bwd_ms": best["kernel_bwd"],
                              "plain_bwd_ms": best["plain_bwd"]} if direct else {})})
             print(f"{form} {shape} bf16 {opt} x{count}/step, ms per call (in turns): "
                   + "; ".join(f"{k} {v}" for k, v in runs.items() if v)
                   + f"; plain fwd {plain_ms:.4f}; fwd bound {max(byte_ms, op_ms):.4f}; bwd "
                   f"bound {max(bwd_bytes_ms, bwd_op_ms):.4f}; device kernels per backward "
-                  f"{kernels}, their device ms {device_ms}")
+                  f"{kernels}, their device ms {device_ms} (checked profiles)")
+            if fused:
+                print(f"  {form} {shape}: the backward kernel's device ms by kernel "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel["kernel_bwd"].items()))
         keys = ["ms", "bwd_ms", "plain_ms", "library_ms", "library_bwd_ms", "bound_ms",
                 "bytes_ms", "operations_ms", "bwd_bound_ms", "bwd_bytes_ms",
                 "bwd_operations_ms"] + (["kernel_bwd_ms", "plain_bwd_ms"] if direct else [])
         total = {k: sum(r[k] * r["count"] for r in rows) for k in keys}
         total["device_ms_per_step"] = {
-            k: sum(r["device_ms_per_bwd"][k] * r["count"] for r in rows)
+            k: (None if any(r["device_ms_per_bwd"][k] is None for r in rows)
+                else sum(r["device_ms_per_bwd"][k] * r["count"] for r in rows))
             for k in rows[0]["device_ms_per_bwd"]}
+        if fused:
+            by = total["kernel_bwd_device_ms_per_step_by_kernel"] = {}
+            for r in rows:
+                for k, v in r["device_ms_per_bwd_by_kernel"]["kernel_bwd"].items():
+                    by[k] = by.get(k, 0.0) + v * r["count"]
         total["bound_by"] = "bytes" if total["bytes_ms"] >= total["operations_ms"] else "operations"
         total["bwd_bound_by"] = ("bytes" if total["bwd_bytes_ms"] >= total["bwd_operations_ms"]
                                  else "operations")
@@ -3934,7 +4054,8 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
                             sharded["launches"]["spatial_fused"])):
         g = grad_times[form]
         bwd[form] = {
-            "route": route, "launches": n["conv3x3_fused_bwd"], "ms": g["kernel_bwd_ms"],
+            "route": route, "launches": n["conv3x3_fused_bwd"],
+            "wgmma_launches": n["conv3x3_fused_bwd.wgmma_launches"], "ms": g["kernel_bwd_ms"],
             "plain_ms": g["plain_bwd_ms"], "bound_ms": g["bwd_bound_ms"],
             "bound_by": g["bwd_bound_by"], "library_ms": g["library_bwd_ms"],
             "autograd_ms": g["bwd_ms"],
@@ -3949,6 +4070,12 @@ def kernel_report(times, errs, grad_times, grad_errs, bwd_errs, norm_bwd_errs, l
         **{k: v for k, v in bwd["conv3x3_fused_t"].items() if k != "route"},
         "max_abs_err": bwd_errs["max_abs_err"], "max_grad_err": bwd_errs["max_grad_err"],
         "path": "fused (training)",
+        "kernels": ("bf16: prep_kernel (dYc, u_pad, the packed weight); the input "
+                    "gradient on conv_tma_kernel (csrc/conv3x3_tma.cuh: TMA, wgmma, the "
+                    "reflect folds, the DGRAD epilogue); wgrad_tma_kernel (a wgmma GEMM "
+                    "over the pixels, split-K); reduce_kernel"),
+        "device_ms_by_kernel": grad_times["conv3x3_fused_t"].get(
+            "kernel_bwd_device_ms_per_step_by_kernel"),
         "per": ("step: each training-shape call's best time times its count per 256x256 "
                 "CycleGAN step at batch 1, bf16; ms the kernel called directly, plain_ms the "
                 "torch-ops backward (cuDNN dgrad and wgrad), library_ms cuDNN's conv backward "
@@ -4073,7 +4200,7 @@ def main() -> int:
         bwd_errs = check_bwd_kernel(torch)
         norm_bwd_errs = check_norm_bwd_kernel(torch)
         grad_errs = check_grads(torch)
-        grad_times = time_grads(torch)
+        grad_times = in_fresh_process("time_grads", work)
         check_small_generator(torch)
         check_small_sharded(torch)
         launches = serve_globe(torch, work)

@@ -734,7 +734,9 @@ def test_fused_bwd_kernel_matches_plain(dtype, shape):
     without, moments and bias on and off; ragged tiles, H = 2 (reflect's
     rows 1 and n-2 on the edges), and the training block shape. Bounds of
     the gradient checks: f32 2e-4 max(1, |ref|) + 2e-5 |ref|, bf16 0.05
-    max(1, |ref|) + 0.1 |ref|. One launch per call."""
+    max(1, |ref|) + 0.1 |ref|. One launch per call, each bf16 one on the
+    TMA / wgmma kernels (``wgmma_launches``); a second call on the same
+    arguments bitwise equal to the first (no float atomics)."""
     _needs_card()
     n, h, w, c, cout = shape
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
@@ -759,11 +761,15 @@ def test_fused_bwd_kernel_matches_plain(dtype, shape):
                     rnd(n, cout) if moments else None,
                     rnd(n, cout, scale=0.01) if moments else None,
                     act, h_mode, "halo" if halo else w_mode)
-            before = conv3x3_fused_bwd.launches
+            before = (conv3x3_fused_bwd.launches, conv3x3_fused_bwd.wgmma_launches)
             got = conv3x3_fused_bwd(*args)
-            assert conv3x3_fused_bwd.launches == before + 1
+            assert conv3x3_fused_bwd.launches == before[0] + 1
+            assert conv3x3_fused_bwd.wgmma_launches == before[1] + (dtype == torch.bfloat16)
+            again = conv3x3_fused_bwd(*args)
             ref = conv3x3_fused_bwd_plain(*args)
             torch.cuda.synchronize()
+            for name, a, b in zip(("dx", "dw", "dbias", "da", "db"), got, again):
+                assert a is None or torch.equal(a, b), (name, h_mode, w_mode)
             for name, a, b in zip(("dx", "dw", "dbias", "da", "db"), got, ref):
                 assert (a is None) == (b is None), name
                 if a is None:
@@ -774,6 +780,32 @@ def test_fused_bwd_kernel_matches_plain(dtype, shape):
                 assert bool(torch.isfinite(a).all()), (name, h_mode, w_mode)
                 assert bool(((a - b).abs() <= atol * scale + rtol * b.abs()).all()), (
                     name, h_mode, w_mode, float((a - b).abs().max()) / scale)
+
+
+@pytest.mark.cuda
+def test_fused_bwd_bf16_kernel_refuses_what_tma_cannot_load():
+    """The bf16 backward loads dYc, x and the weight slabs by TMA: C or Cout
+    not a multiple of 8, or an x 2 bytes off a 16-byte boundary, raises
+    and launches nothing (there is no fallback)."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+
+    def args(c, cout, x=None):
+        x = torch.randn((1, 8, 16, c), generator=g, device="cuda").to(bf) if x is None else x
+        return (x, torch.randn((cout, c, 3, 3), generator=g, device="cuda").to(bf), None,
+                None, None, torch.randn((1, 8, 16, cout), generator=g, device="cuda").to(bf),
+                torch.randn((1, 8, 16, cout), generator=g, device="cuda").to(bf), None, None)
+
+    before = (conv3x3_fused_bwd.launches, conv3x3_fused_bwd.wgmma_launches)
+    for c, cout in ((12, 16), (16, 20)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            conv3x3_fused_bwd(*args(c, cout))
+    x = torch.randn((1, 8, 16, 16), generator=g, device="cuda").to(bf)
+    shifted = torch.empty(x.numel() + 1, dtype=bf, device="cuda")[1:].view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned x"):
+        conv3x3_fused_bwd(*args(16, 16, shifted))
+    assert (conv3x3_fused_bwd.launches, conv3x3_fused_bwd.wgmma_launches) == before
 
 
 # ---------------------------------------------------------------------------
