@@ -72,6 +72,7 @@ from biasgan_tpu_torch.nn.generators import fused_blocks_blocker
 from biasgan_tpu_torch.nn.layers import conv7_eligible
 from biasgan_tpu_torch.parallel import HaloCtx, pad_to_multiple, placement, spatial_apply, spawn
 from biasgan_tpu_torch.registry import get_model
+from biasgan_tpu_torch.trace import span
 from biasgan_tpu_torch.utils import checkpoint
 
 
@@ -110,15 +111,23 @@ def field_runner(G, h_multiple: int, w_multiple: int):
     target stats. Returns ``run(x, a_mean, a_std, b_mean, b_std)`` on NHWC
     ``x``. ``G`` may be a sharded forward (``spatial_apply``), which gives
     the field on rank 0 and None on the other ranks; ``run`` then does the
-    same."""
+    same. A call runs in the span ``port.serve.field_runner``, each phase
+    in its own (``trace``)."""
 
     @torch.inference_mode()
     def run(x, a_mean, a_std, b_mean, b_std):
-        h0, w0 = x.shape[1], x.shape[2]
-        y = G(pad_field(standardize(x, a_mean, a_std), h_multiple, w_multiple))
-        if y is None:
-            return None
-        return standardize(y[:, :h0, :w0, :], b_mean, b_std, inverse=True)
+        with span("port.serve.field_runner"):
+            h0, w0 = x.shape[1], x.shape[2]
+            with span("port.serve.standardize"):
+                z = standardize(x, a_mean, a_std)
+            with span("port.serve.pad"):
+                z = pad_field(z, h_multiple, w_multiple)
+            with span("port.serve.G"):
+                y = G(z)
+            if y is None:
+                return None
+            with span("port.serve.crop"):
+                return standardize(y[:, :h0, :w0, :], b_mean, b_std, inverse=True)
 
     return run
 

@@ -58,6 +58,8 @@ SOURCES = {
     "conv3x3_valid": ("conv3x3_valid", "conv3x3_valid"),
     "halo_exchange": ("halo_exchange", "halo_exchange_w"),
 }
+# the span each library's launches run in (kernels/common.launch)
+SPANS = {lib: "port.kernel." + wrapper for lib, (_, wrapper) in SOURCES.items()}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -21,6 +21,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from biasgan_tpu_torch.trace import span
+
 PAD_CODE = {"zero": 0, "reflect": 1, "wrap": 2}
 ACT_CODE = {"none": 0, "relu": 1, "lrelu": 2}
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,8 +133,9 @@ def ptr(t: Optional[torch.Tensor]):
 def launch(name: str, fn: str, argtypes: Sequence, device: torch.device, *args,
            stream: Optional[torch.cuda.Stream] = None) -> None:
     """Call ``fn`` of kernel library ``name`` (built on first use) with
-    ``args`` and ``stream`` (by default the device's current stream); raise
-    on a CUDA error."""
+    ``args`` and ``stream`` (by default the device's current stream), in
+    the span ``build.SPANS[name]`` (``port.kernel.<wrapper>``, the wrapper
+    as ``build.SOURCES`` names it); raise on a CUDA error."""
     from biasgan_tpu_torch.kernels import build
 
     lib = build.load(name)
@@ -142,7 +145,7 @@ def launch(name: str, fn: str, argtypes: Sequence, device: torch.device, *args,
         f.restype = INT
         lib.port_error_string.argtypes = [INT]
         lib.port_error_string.restype = ctypes.c_char_p
-    with torch.cuda.device(device):
+    with span(build.SPANS[name]), torch.cuda.device(device):
         s = torch.cuda.current_stream(device) if stream is None else stream
         err = f(*args, s.cuda_stream)
     if err != 0:

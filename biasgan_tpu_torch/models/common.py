@@ -32,6 +32,7 @@ from biasgan_tpu_torch.data.transforms import in_step_augment, standardize
 from biasgan_tpu_torch.nn import compute_dtype_of, define_G
 from biasgan_tpu_torch.nn.layers import running_stats_frozen
 from biasgan_tpu_torch.parallel.spatial import shard_w
+from biasgan_tpu_torch.trace import span
 
 
 class Adam:
@@ -269,13 +270,14 @@ def make_scan_step(train_step, k: int, seed: int):
     decisions and augmentation included (where JAX folds the index into
     the call's key). No host read falls between the steps: the losses are
     device tensors of shape (k,), stacked after the last step, and the
-    visuals are the last step's."""
+    visuals are the last step's. Each step runs in the span ``port.step``."""
 
     def scan_step(state, stacked, step: int):
         losses = []
         for i in range(k):
             batch = {name: v[i] for name, v in stacked.items()}
-            ls, visuals = train_step(state, batch, step_generator(seed, step + i))
+            with span("port.step"):
+                ls, visuals = train_step(state, batch, step_generator(seed, step + i))
             losses.append(ls)
         return {name: torch.stack([ls[name] for ls in losses]) for name in losses[0]}, visuals
 

@@ -59,6 +59,7 @@ from biasgan_tpu_torch.models.common import (
     step_generator,
 )
 from biasgan_tpu_torch.nn import compute_dtype_of, define_D
+from biasgan_tpu_torch.trace import span
 from biasgan_tpu_torch.utils.image_pool import create_pool, pool_query
 
 LOSS_NAMES = ("D_A", "G_A", "cycle_A", "idt_A", "D_B", "G_B", "cycle_B", "idt_B")
@@ -180,69 +181,75 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
         return pool, data.rank_slice(out)
 
     def step(state: GANTrainState, batch, generator: Optional[torch.Generator] = None):
-        if generator is None:
-            generator = step_generator(cfg.seed, state.step)
-        # the rank's own draws (augmentation, dropout); the pools draw from
-        # the shared generator
-        own = generator if data is None else rank_generator(generator, data.rank)
-        batch = prepare_batch(batch, own, cfg, train=True)
-        # the Ds' real inputs: the whole W, which every rank holds
-        whole_A, whole_B = resolve_direction(batch, cfg.direction)
-        if ctx is not None:
-            batch = shard_batch(batch, ctx)
-        real_A, real_B = resolve_direction(batch, cfg.direction)
-        # the resnet blocks' dropout masks, where dropout is on
-        drop = device_generator(own, real_A.device) if cfg.dropout() else None
-        G_A, G_B = (lambda x, G=state.nets[k]: G(x, ctx=ctx, generator=drop)
-                    for k in ("G_A", "G_B"))
-        D_A, D_B = state.nets["D_A"], state.nets["D_B"]
-        lr = lr_fn(state.step, state.lr_scale)
-        b = real_A.shape[0]
+        with span("port.step.prepare"):
+            if generator is None:
+                generator = step_generator(cfg.seed, state.step)
+            # the rank's own draws (augmentation, dropout); the pools draw from
+            # the shared generator
+            own = generator if data is None else rank_generator(generator, data.rank)
+            batch = prepare_batch(batch, own, cfg, train=True)
+            # the Ds' real inputs: the whole W, which every rank holds
+            whole_A, whole_B = resolve_direction(batch, cfg.direction)
+            if ctx is not None:
+                batch = shard_batch(batch, ctx)
+            real_A, real_B = resolve_direction(batch, cfg.direction)
+            # the resnet blocks' dropout masks, where dropout is on
+            drop = device_generator(own, real_A.device) if cfg.dropout() else None
+            G_A, G_B = (lambda x, G=state.nets[k]: G(x, ctx=ctx, generator=drop)
+                        for k in ("G_A", "G_B"))
+            D_A, D_B = state.nets["D_A"], state.nets["D_B"]
+            lr = lr_fn(state.step, state.lr_scale)
+            b = real_A.shape[0]
 
         # ---- G update (first; the Ds constant) ----
         for p in (*D_A.parameters(), *D_B.parameters()):
             p.requires_grad_(False)
-        if fuse_g:
-            out1 = G_A(torch.cat([real_A, real_B]) if lam_idt > 0 else real_A)
-            fake_B = out1[:b]
-            idt_A = out1[b:] if lam_idt > 0 else None
-            out2 = G_B(torch.cat([real_B, fake_B] + ([real_A] if lam_idt > 0 else [])))
-            fake_A, rec_A = out2[:b], out2[b : 2 * b]
-            idt_B = out2[2 * b :] if lam_idt > 0 else None
-            rec_B = G_A(fake_A)
-        else:
-            fake_B = G_A(real_A)
-            rec_A = G_B(fake_B)
-            fake_A = G_B(real_B)
-            rec_B = G_A(fake_A)
-            idt_A = G_A(real_B) if lam_idt > 0 else None
-            idt_B = G_B(real_A) if lam_idt > 0 else None
-        zero = torch.zeros((), device=real_A.device)
-        if lam_idt > 0:
-            loss_idt_A = losses.l1_loss(idt_A, real_B) * lam_B * lam_idt
-            loss_idt_B = losses.l1_loss(idt_B, real_A) * lam_A * lam_idt
-        else:
-            loss_idt_A = loss_idt_B = zero
-        loss_G_A = losses.gan_loss(D_A(for_d(fake_B)), True, gan_mode)
-        loss_G_B = losses.gan_loss(D_B(for_d(fake_A)), True, gan_mode)
-        loss_cycle_A = losses.l1_loss(rec_A, real_A) * lam_A
-        loss_cycle_B = losses.l1_loss(rec_B, real_B) * lam_B
-        loss_g = loss_G_A + loss_G_B + loss_cycle_A + loss_cycle_B + loss_idt_A + loss_idt_B
-        for _, p in state.opts["G"].params:
-            p.grad = None
-        loss_g.backward()
-        mean_grads(state.opts["G"])
-        for p in (*D_A.parameters(), *D_B.parameters()):
-            p.requires_grad_(True)
-        g_grads = _grads(state.opts["G"]) if debug_grads else None
-        state.opts["G"].step(lr)
+        with span("port.step.G_forward"):
+            if fuse_g:
+                out1 = G_A(torch.cat([real_A, real_B]) if lam_idt > 0 else real_A)
+                fake_B = out1[:b]
+                idt_A = out1[b:] if lam_idt > 0 else None
+                out2 = G_B(torch.cat([real_B, fake_B] + ([real_A] if lam_idt > 0 else [])))
+                fake_A, rec_A = out2[:b], out2[b : 2 * b]
+                idt_B = out2[2 * b :] if lam_idt > 0 else None
+                rec_B = G_A(fake_A)
+            else:
+                fake_B = G_A(real_A)
+                rec_A = G_B(fake_B)
+                fake_A = G_B(real_B)
+                rec_B = G_A(fake_A)
+                idt_A = G_A(real_B) if lam_idt > 0 else None
+                idt_B = G_B(real_A) if lam_idt > 0 else None
+        with span("port.step.G_backward"):
+            zero = torch.zeros((), device=real_A.device)
+            if lam_idt > 0:
+                loss_idt_A = losses.l1_loss(idt_A, real_B) * lam_B * lam_idt
+                loss_idt_B = losses.l1_loss(idt_B, real_A) * lam_A * lam_idt
+            else:
+                loss_idt_A = loss_idt_B = zero
+            loss_G_A = losses.gan_loss(D_A(for_d(fake_B)), True, gan_mode)
+            loss_G_B = losses.gan_loss(D_B(for_d(fake_A)), True, gan_mode)
+            loss_cycle_A = losses.l1_loss(rec_A, real_A) * lam_A
+            loss_cycle_B = losses.l1_loss(rec_B, real_B) * lam_B
+            loss_g = (loss_G_A + loss_G_B + loss_cycle_A + loss_cycle_B + loss_idt_A
+                      + loss_idt_B)
+            for _, p in state.opts["G"].params:
+                p.grad = None
+            loss_g.backward()
+        with span("port.step.G_update"):
+            mean_grads(state.opts["G"])
+            for p in (*D_A.parameters(), *D_B.parameters()):
+                p.requires_grad_(True)
+            g_grads = _grads(state.opts["G"]) if debug_grads else None
+            state.opts["G"].step(lr)
         fake_B, fake_A = fake_B.detach(), fake_A.detach()
 
         # ---- replay pools (reference ImagePool.query) ----
         fake_B_q, fake_A_q = fake_B, fake_A
         if state.pools:
-            state.pools["fake_B"], fake_B_q = query(state.pools["fake_B"], fake_B, generator)
-            state.pools["fake_A"], fake_A_q = query(state.pools["fake_A"], fake_A, generator)
+            with span("port.step.pools"):
+                state.pools["fake_B"], fake_B_q = query(state.pools["fake_B"], fake_B, generator)
+                state.pools["fake_A"], fake_A_q = query(state.pools["fake_A"], fake_A, generator)
 
         # ---- D update (reference backward_D_basic, 0.5 weighting) ----
         def d_pair(D, real, fake):
@@ -252,19 +259,21 @@ def make_train_step(cfg, fuse_g: Optional[bool] = None, debug_grads: bool = Fals
                 pr, pf = D(real), D(fake)
             return 0.5 * (losses.gan_loss(pr, True, gan_mode) + losses.gan_loss(pf, False, gan_mode))
 
-        loss_D_A = d_pair(D_A, whole_B, for_d(fake_B_q))
-        loss_D_B = d_pair(D_B, whole_A, for_d(fake_A_q))
-        for _, p in state.opts["D"].params:
-            p.grad = None
-        (loss_D_A + loss_D_B).backward()
-        mean_grads(state.opts["D"])
-        d_grads = _grads(state.opts["D"]) if debug_grads else None
-        state.opts["D"].step(lr)
-        for _, p in state.opts["G"].params + state.opts["D"].params:
-            p.grad = None
-        if mesh is not None:
-            for net in state.nets.values():
-                mesh.mean_buffers_(net)
+        with span("port.step.D"):
+            loss_D_A = d_pair(D_A, whole_B, for_d(fake_B_q))
+            loss_D_B = d_pair(D_B, whole_A, for_d(fake_A_q))
+            for _, p in state.opts["D"].params:
+                p.grad = None
+            (loss_D_A + loss_D_B).backward()
+        with span("port.step.D_update"):
+            mean_grads(state.opts["D"])
+            d_grads = _grads(state.opts["D"]) if debug_grads else None
+            state.opts["D"].step(lr)
+            for _, p in state.opts["G"].params + state.opts["D"].params:
+                p.grad = None
+            if mesh is not None:
+                for net in state.nets.values():
+                    mesh.mean_buffers_(net)
         state.step += 1
 
         vals = (loss_D_A, loss_G_A, loss_cycle_A, loss_idt_A,

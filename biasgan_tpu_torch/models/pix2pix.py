@@ -74,6 +74,7 @@ from biasgan_tpu_torch.models.common import (
 )
 from biasgan_tpu_torch.nn import compute_dtype_of, define_D
 from biasgan_tpu_torch.nn.layers import running_stats_frozen
+from biasgan_tpu_torch.trace import span
 
 LOSS_NAMES = ("G_GAN", "G_L1", "D_real", "D_fake")
 
@@ -172,66 +173,72 @@ def make_train_step(cfg, debug_grad_norms: bool = False, ctx=None, data=None):
 
     def step(state: GANTrainState, batch, generator: Optional[torch.Generator] = None,
              gp_alpha: Optional[torch.Tensor] = None):
-        if generator is None:
-            generator = step_generator(cfg.seed, state.step)
-        if data is not None:
-            generator = rank_generator(generator, data.rank)
-        batch = prepare_batch(batch, generator, cfg, train=True)
-        # D's real inputs: the whole W, which every rank of the row holds
-        whole_A, whole_B = resolve_direction(batch, cfg.direction)
-        if ctx is not None:
-            batch = shard_batch(batch, ctx)
-        real_A, real_B = resolve_direction(batch, cfg.direction)
-        G, D = state.nets["G"], state.nets["D"]
-        drop = device_generator(generator, real_A.device) if cfg.dropout() else None
-        lr = lr_fn(state.step, state.lr_scale)
+        with span("port.step.prepare"):
+            if generator is None:
+                generator = step_generator(cfg.seed, state.step)
+            if data is not None:
+                generator = rank_generator(generator, data.rank)
+            batch = prepare_batch(batch, generator, cfg, train=True)
+            # D's real inputs: the whole W, which every rank of the row holds
+            whole_A, whole_B = resolve_direction(batch, cfg.direction)
+            if ctx is not None:
+                batch = shard_batch(batch, ctx)
+            real_A, real_B = resolve_direction(batch, cfg.direction)
+            G, D = state.nets["G"], state.nets["D"]
+            drop = device_generator(generator, real_A.device) if cfg.dropout() else None
+            lr = lr_fn(state.step, state.lr_scale)
 
         # one G forward serves both updates (the reference's forward())
-        fake_B = G(real_A, ctx=ctx, generator=drop)
-        real_AB = torch.cat([whole_A, whole_B], dim=-1)
-        fake_AB = torch.cat([whole_A, for_d(fake_B.detach())], dim=-1)
+        with span("port.step.G_forward"):
+            fake_B = G(real_A, ctx=ctx, generator=drop)
+            real_AB = torch.cat([whole_A, whole_B], dim=-1)
+            fake_AB = torch.cat([whole_A, for_d(fake_B.detach())], dim=-1)
 
         # ---- D update (first, as in the reference) ----
-        if fuse_d:
-            pred_fake, pred_real = torch.chunk(D(torch.cat([fake_AB, real_AB])), 2)
-        else:
-            pred_fake = D(fake_AB)
-            pred_real = D(real_AB)
-        loss_D_fake = losses.gan_loss(pred_fake, False, gan_mode)
-        loss_D_real = losses.gan_loss(pred_real, True, gan_mode)
-        loss_D = 0.5 * (loss_D_fake + loss_D_real)
-        if gan_mode == "wgangp":
-            with running_stats_frozen(D):
-                loss_D = loss_D + lambda_gp * losses.gradient_penalty(
-                    D, real_AB, fake_AB, alpha=gp_alpha, generator=generator)
-        _zero_grads(state.opts["D"])
-        loss_D.backward()
-        if mesh is not None:
-            mesh.mean_grads_([p for _, p in state.opts["D"].params])
-        d_norm = _grad_norm(state.opts["D"]) if debug_grad_norms else None
-        state.opts["D"].step(lr)
+        with span("port.step.D"):
+            if fuse_d:
+                pred_fake, pred_real = torch.chunk(D(torch.cat([fake_AB, real_AB])), 2)
+            else:
+                pred_fake = D(fake_AB)
+                pred_real = D(real_AB)
+            loss_D_fake = losses.gan_loss(pred_fake, False, gan_mode)
+            loss_D_real = losses.gan_loss(pred_real, True, gan_mode)
+            loss_D = 0.5 * (loss_D_fake + loss_D_real)
+            if gan_mode == "wgangp":
+                with running_stats_frozen(D):
+                    loss_D = loss_D + lambda_gp * losses.gradient_penalty(
+                        D, real_AB, fake_AB, alpha=gp_alpha, generator=generator)
+            _zero_grads(state.opts["D"])
+            loss_D.backward()
+        with span("port.step.D_update"):
+            if mesh is not None:
+                mesh.mean_grads_([p for _, p in state.opts["D"].params])
+            d_norm = _grad_norm(state.opts["D"]) if debug_grad_norms else None
+            state.opts["D"].step(lr)
 
         # ---- G update, through the updated D (its grads not kept) ----
-        for p in D.parameters():
-            p.requires_grad_(False)
-        try:
-            loss_G_GAN = losses.gan_loss(D(torch.cat([whole_A, for_d(fake_B)], dim=-1)), True,
-                                         gan_mode)
-            loss_G_L1 = losses.l1_loss(fake_B, real_B) * lambda_l1
-            _zero_grads(state.opts["G"])
-            (loss_G_GAN + loss_G_L1).backward()
-        finally:
+        with span("port.step.G_backward"):
             for p in D.parameters():
-                p.requires_grad_(True)
-        if mesh is not None:
-            mesh.mean_grads_([p for _, p in state.opts["G"].params])
-        g_norm = _grad_norm(state.opts["G"]) if debug_grad_norms else None
-        state.opts["G"].step(lr)
-        for opt in state.opts.values():
-            _zero_grads(opt)
-        if mesh is not None:
-            for net in (G, D):
-                mesh.mean_buffers_(net)
+                p.requires_grad_(False)
+            try:
+                loss_G_GAN = losses.gan_loss(D(torch.cat([whole_A, for_d(fake_B)], dim=-1)),
+                                             True, gan_mode)
+                loss_G_L1 = losses.l1_loss(fake_B, real_B) * lambda_l1
+                _zero_grads(state.opts["G"])
+                (loss_G_GAN + loss_G_L1).backward()
+            finally:
+                for p in D.parameters():
+                    p.requires_grad_(True)
+        with span("port.step.G_update"):
+            if mesh is not None:
+                mesh.mean_grads_([p for _, p in state.opts["G"].params])
+            g_norm = _grad_norm(state.opts["G"]) if debug_grad_norms else None
+            state.opts["G"].step(lr)
+            for opt in state.opts.values():
+                _zero_grads(opt)
+            if mesh is not None:
+                for net in (G, D):
+                    mesh.mean_buffers_(net)
         state.step += 1
 
         vals = [loss_G_GAN, loss_G_L1, loss_D_real, loss_D_fake]

@@ -71,6 +71,7 @@ from biasgan_tpu_torch.nn.layers import (
     norm_act,
     norm_uses_bias,
 )
+from biasgan_tpu_torch.trace import span
 
 
 def _check_spatial(ctx, w: int, stride: int, where: str) -> None:
@@ -157,23 +158,25 @@ class UNetGenerator(nn.Module):
     def forward(self, x: torch.Tensor, ctx=None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         D = self.num_downs
-        _check_spatial(ctx, x.shape[2], 2, "unet down0")
-        d = [self.downs[0](x, ctx=ctx)]
-        for i in range(1, D):
-            _check_spatial(ctx, d[-1].shape[2], 2, f"unet down{i}")
-            h = self.downs[i](F.leaky_relu(d[-1], negative_slope=0.2), ctx=ctx)
-            if i < D - 1:
-                h = norm_act(h, self.down_norms[str(i)], ctx=ctx)
-            d.append(h)
-        u = norm_act(self.ups[D - 1](F.relu(d[D - 1]), ctx=ctx), self.up_norms[str(D - 1)],
-                     ctx=ctx)
-        for i in range(D - 2, 0, -1):
-            u = self.ups[i](F.relu(torch.cat([d[i], u], dim=-1)), ctx=ctx)
-            u = norm_act(u, self.up_norms[str(i)], ctx=ctx)
-            if i in self.drop_at and self.training:
-                u = dropout(u, 0.5, generator, ctx)
-        u = self.ups[0](F.relu(torch.cat([d[0], u], dim=-1)), ctx=ctx).float()
-        return torch.tanh(u) if self.out_activation == "tanh" else u
+        with span("port.G.down"):
+            _check_spatial(ctx, x.shape[2], 2, "unet down0")
+            d = [self.downs[0](x, ctx=ctx)]
+            for i in range(1, D):
+                _check_spatial(ctx, d[-1].shape[2], 2, f"unet down{i}")
+                h = self.downs[i](F.leaky_relu(d[-1], negative_slope=0.2), ctx=ctx)
+                if i < D - 1:
+                    h = norm_act(h, self.down_norms[str(i)], ctx=ctx)
+                d.append(h)
+        with span("port.G.up"):
+            u = norm_act(self.ups[D - 1](F.relu(d[D - 1]), ctx=ctx), self.up_norms[str(D - 1)],
+                         ctx=ctx)
+            for i in range(D - 2, 0, -1):
+                u = self.ups[i](F.relu(torch.cat([d[i], u], dim=-1)), ctx=ctx)
+                u = norm_act(u, self.up_norms[str(i)], ctx=ctx)
+                if i in self.drop_at and self.training:
+                    u = dropout(u, 0.5, generator, ctx)
+            u = self.ups[0](F.relu(torch.cat([d[0], u], dim=-1)), ctx=ctx).float()
+            return torch.tanh(u) if self.out_activation == "tanh" else u
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -417,37 +420,44 @@ class ResNetGenerator(nn.Module):
         device generator the blocks' dropout masks come from, in training
         with dropout on (``dropout``)."""
         fused_down, fused_up = self.updown_engaged(x) if ctx is None else (False, False)
-        h = self.stem(x, conv7=self.conv7, ctx=ctx)
-        if fused_down:
-            # the stem's norm + ReLU rides into down0, down0's into down1
-            count = h.shape[1] * h.shape[2]
-            a, b = instance_moments_to_affine(*stored_moments(h), count)
-            for down in (self.down0, self.down1):
-                h, m = down.forward_fused_s2(h, prologue=(a, b))
-                a, b = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
-            h = apply_affine(h, a, b, relu=True)
-        else:
-            h = self._norm_act(h, self.stem_norm, activation="relu", ctx=ctx)
-            for i, (down, norm) in enumerate(
-                ((self.down0, self.down_norm0), (self.down1, self.down_norm1))
-            ):
-                _check_spatial(ctx, h.shape[2], 2, f"resnet down{i}")
-                h = self._norm_act(down(h, ctx=ctx), norm, activation="relu", ctx=ctx)
-        fused = self.fused_engaged()
-        for block in self.blocks:
-            h = block(
-                h, fused=fused, fused_norm=self.fused_norm,
-                pallas_conv=self.pallas_conv, ctx=ctx, generator=generator,
-            )
-        if fused_up:
-            # up0's norm + ReLU rides into up1
-            prologue = None
-            for up in (self.up0, self.up1):
-                h, m = up.forward_fused(h, prologue=prologue)
-                prologue = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
-            h = apply_affine(h, *prologue, relu=True)
-        else:
-            h = self._norm_act(self.up0(h, ctx=ctx), self.up_norm0, activation="relu", ctx=ctx)
-            h = self._norm_act(self.up1(h, ctx=ctx), self.up_norm1, activation="relu", ctx=ctx)
-        h = self.head(h, conv7=self.conv7, ctx=ctx).float()
-        return torch.tanh(h) if self.out_activation == "tanh" else h
+        with span("port.G.stem"):
+            h = self.stem(x, conv7=self.conv7, ctx=ctx)
+        with span("port.G.down"):
+            if fused_down:
+                # the stem's norm + ReLU rides into down0, down0's into down1
+                count = h.shape[1] * h.shape[2]
+                a, b = instance_moments_to_affine(*stored_moments(h), count)
+                for down in (self.down0, self.down1):
+                    h, m = down.forward_fused_s2(h, prologue=(a, b))
+                    a, b = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
+                h = apply_affine(h, a, b, relu=True)
+            else:
+                h = self._norm_act(h, self.stem_norm, activation="relu", ctx=ctx)
+                for i, (down, norm) in enumerate(
+                    ((self.down0, self.down_norm0), (self.down1, self.down_norm1))
+                ):
+                    _check_spatial(ctx, h.shape[2], 2, f"resnet down{i}")
+                    h = self._norm_act(down(h, ctx=ctx), norm, activation="relu", ctx=ctx)
+        with span("port.G.blocks"):
+            fused = self.fused_engaged()
+            for block in self.blocks:
+                h = block(
+                    h, fused=fused, fused_norm=self.fused_norm,
+                    pallas_conv=self.pallas_conv, ctx=ctx, generator=generator,
+                )
+        with span("port.G.up"):
+            if fused_up:
+                # up0's norm + ReLU rides into up1
+                prologue = None
+                for up in (self.up0, self.up1):
+                    h, m = up.forward_fused(h, prologue=prologue)
+                    prologue = instance_moments_to_affine(*m, h.shape[1] * h.shape[2])
+                h = apply_affine(h, *prologue, relu=True)
+            else:
+                h = self._norm_act(self.up0(h, ctx=ctx), self.up_norm0, activation="relu",
+                                   ctx=ctx)
+                h = self._norm_act(self.up1(h, ctx=ctx), self.up_norm1, activation="relu",
+                                   ctx=ctx)
+        with span("port.G.head"):
+            h = self.head(h, conv7=self.conv7, ctx=ctx).float()
+            return torch.tanh(h) if self.out_activation == "tanh" else h

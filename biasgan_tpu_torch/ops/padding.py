@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from biasgan_tpu_torch.trace import span
+
 PAD_MODES = ("zero", "reflect", "wrap")
 
 
@@ -25,10 +27,11 @@ def pad_axis(x: torch.Tensor, axis: int, lo: int, hi: int, mode: str) -> torch.T
         return F.pad(x, pad)
     if mode not in ("reflect", "wrap"):
         raise ValueError(f"unknown pad mode {mode!r}; expected one of {PAD_MODES}")
-    # numpy's own index arithmetic gives jnp.pad's semantics for any width
-    # (a wrap or reflect wider than the axis repeats, where F.pad refuses)
-    idx = np.pad(np.arange(x.shape[axis]), (lo, hi), mode=mode)
-    return x.index_select(axis, torch.from_numpy(idx).to(x.device))
+    with span("port.pad"):
+        # numpy's own index arithmetic gives jnp.pad's semantics for any width
+        # (a wrap or reflect wider than the axis repeats, where F.pad refuses)
+        idx = np.pad(np.arange(x.shape[axis]), (lo, hi), mode=mode)
+        return x.index_select(axis, torch.from_numpy(idx).to(x.device))
 
 
 def pad_hw(

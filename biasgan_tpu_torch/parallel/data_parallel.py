@@ -29,13 +29,12 @@ rank of the mesh, as the JAX step ``pmean``s over ("data", "spatial").
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.distributed as dist
 from torch import nn
 
 from biasgan_tpu_torch.parallel.mesh import RankCtx
+from biasgan_tpu_torch.trace import span
 
 
 class DataCtx(RankCtx):
@@ -48,28 +47,21 @@ class DataCtx(RankCtx):
     ``mean_buffers_`` then span all ``n * spatial`` ranks, the world
     (``mesh``).
 
-    ``grad_reduce_s``: the host seconds of each ``mean_grads_`` call, the
-    card synchronized before and after (under gloo the staging copies
-    synchronize it anyway)."""
+    ``grad_reduces``: the ``mean_grads_`` calls so far (a step makes one
+    a net); each runs in the span ``port.step.grad_reduce``."""
 
     def __init__(self, n: int = 1, group=None, spatial: int = 1):
         super().__init__(n, group)
         self.mesh = self if spatial == 1 else RankCtx(n * spatial)
-        self.grad_reduce_s = []
-
-    def _sync(self, params) -> None:
-        if params and params[0].is_cuda:
-            torch.cuda.synchronize(params[0].device)
+        self.grad_reduces = 0
 
     @torch.no_grad()
     def mean_grads_(self, params) -> None:
-        """``RankCtx.mean_grads_``, timed into ``grad_reduce_s``."""
-        params = list(params)
-        self._sync(params)
-        t0 = time.perf_counter()
-        RankCtx.mean_grads_(self.mesh, params)
-        self._sync(params)
-        self.grad_reduce_s.append(time.perf_counter() - t0)
+        """``RankCtx.mean_grads_`` over the mesh's ranks, counted in
+        ``grad_reduces``."""
+        with span("port.step.grad_reduce"):
+            RankCtx.mean_grads_(self.mesh, list(params))
+        self.grad_reduces += 1
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean of ``t`` over the mesh's ranks (the losses)."""

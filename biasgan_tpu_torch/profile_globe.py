@@ -25,7 +25,13 @@ run the four paths in that order, twice, and each round measures:
 * profile: ``torch.profiler`` over PROFILED forwards: device busy ms per
   forward (the sum of the kernels' self device time), the largest kernels,
   the idle share 1 - busy / wall, and the launches of each hand-written
-  kernel per forward.
+  kernel per forward;
+* spans: ``torch.profiler`` over PROFILED served fields with the port's
+  spans on (``trace.enabled()``): the host ms per field in each ``port.``
+  span, and the CUDA runtime calls that block the host (SYNCS) inside
+  ``port.serve.field_runner``: their count and host ms per field, by the
+  two innermost spans they start in (a reflect or wrap pad's index upload
+  shows as ``port.pad`` in its layer's span).
 
 Then the 7x7 convs' input pads alone (``pad_hw`` as ``nn/layers.py``'s
 ``conv2d`` calls it: reflect 3 on H, wrap 3 on W, before the conv), at the
@@ -44,10 +50,11 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
 
-from biasgan_tpu_torch import infer
+from biasgan_tpu_torch import infer, trace
 from biasgan_tpu_torch.kernels import launch_counts
 from biasgan_tpu_torch.nn.factory import define_G
 from biasgan_tpu_torch.ops.padding import pad_hw
@@ -65,6 +72,46 @@ PATHS = {
     "fused_all": dict(fused_blocks=True, fused_updown=True, conv7=True),
     "plain_norm": dict(fused_norm=True),
 }
+
+
+# the CUDA runtime calls that block the host until the card catches up
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+         "cudaMemcpy")
+
+
+def host_events(prof) -> list:
+    """(name, start us, end us) of the profile's host events that
+    ``serve_spans`` reads: the port's spans and the SYNCS calls."""
+    from torch.autograd import DeviceType
+
+    return [
+        (e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CPU and (e.name.startswith("port.") or e.name in SYNCS)
+    ]
+
+
+def serve_spans(events, fields: int) -> dict:
+    """From ``host_events`` of ``fields`` served fields: the host ms per
+    field in each ``port.`` span, and the SYNCS calls that start inside a
+    ``port.serve.field_runner``: their count and host ms per field, in all
+    and by the two innermost spans they start in ("inner < outer")."""
+    spans = [e for e in events if e[0].startswith("port.")]
+    outer = [e for e in spans if e[0] == "port.serve.field_runner"]
+    span_ms = Counter()
+    for name, a, b in spans:
+        span_ms[name] += (b - a) / 1e3 / fields
+    count, blocked, where = 0, 0.0, {}
+    for name, a, b in events:
+        if name not in SYNCS or not any(x <= a <= y for _, x, y in outer):
+            continue
+        around = sorted((s for s in spans if s[1] <= a <= s[2]), key=lambda s: s[2] - s[1])
+        key = " < ".join(s[0] for s in around[:2])
+        n, ms = where.get(key, (0.0, 0.0))
+        where[key] = (n + 1 / fields, ms + (b - a) / 1e3 / fields)
+        count += 1
+        blocked += (b - a) / 1e3
+    return {"span_ms_per_field": dict(span_ms), "syncs_per_field": count / fields,
+            "sync_ms_per_field": blocked / fields, "syncs_by_span": where}
 
 
 def _device_rows(prof, forwards: int, top: int):
@@ -92,6 +139,7 @@ def set_path(G, path: str) -> None:
 def profile_round(G, x, path: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     set_path(G, path)
     multiples = infer.pad_multiples("resnet_9blocks")
     run = infer.field_runner(G, *multiples)
@@ -118,11 +166,15 @@ def profile_round(G, x, path: str) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / FORWARDS
         before = launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(PROFILED):
                 G(xp)
             torch.cuda.synchronize()
         launches = {k: (v - before[k]) / PROFILED for k, v in launch_counts().items()}
+    with trace.enabled(), profile(activities=activities) as spanned:
+        for _ in range(PROFILED):
+            run(x, *stats).cpu()
+        torch.cuda.synchronize()
     busy, top = _device_rows(prof, PROFILED, TOP)
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the forwards")
@@ -137,6 +189,7 @@ def profile_round(G, x, path: str) -> dict:
         "idle_share": 1 - busy / wall,
         "launches_per_forward": launches,
         "top_kernels": top,
+        "spans": serve_spans(host_events(spanned), PROFILED),
     }
 
 
@@ -194,6 +247,13 @@ def main(argv=None) -> int:
         )
         for ms, calls, key in r["top_kernels"]:
             print(f"  {ms:8.3f} ms/fwd {calls:6.1f} calls/fwd  {key}")
+        sp = r["spans"]
+        print(f"  spans: {sp['syncs_per_field']:g} host-blocking calls/field "
+              f"({sp['sync_ms_per_field']:.3f} ms): "
+              + (", ".join(f"{k} {n:g} ({ms:.3f} ms)"
+                           for k, (n, ms) in sp["syncs_by_span"].items()) or "none")
+              + "; host ms/field: "
+              + ", ".join(f"{k} {ms:.3f}" for k, ms in sorted(sp["span_ms_per_field"].items())))
     pads = pad_round()
     for name, r in pads.items():
         print(f"{name} input pad {tuple(r['shape'])} {r['dtype']}: {r['device_ms']:.4f} device "

@@ -95,8 +95,9 @@ running averages. --debug_nans runs the loop in autograd's anomaly mode
 (``torch.autograd.set_detect_anomaly``, the counterpart of
 ``jax_debug_nans``): a backward op that returns NaN raises, naming the
 forward op that made it. --profile writes a ``torch.profiler`` Chrome
-trace of the run's steps 10-20 to ``<run_dir>/profile/trace.json`` (a
-rank's to ``trace_rank<r>.json``) and prints its path.
+trace of the run's steps 10-20, with the port's spans on (``trace``), to
+``<run_dir>/profile/trace.json`` (a rank's to ``trace_rank<r>.json``) and
+prints its path.
 
 --steps_per_call K (the JAX CLI's scan of K steps per dispatch,
 ``models.common.make_scan_step``): the loop groups the loader's batches K
@@ -132,6 +133,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from biasgan_tpu_torch import trace
 from biasgan_tpu_torch.config import (
     format_config,
     mesh_of,
@@ -321,7 +323,9 @@ class StepProfiler:
     (steps 10-20 at --steps_per_call 1; the JAX CLI's window, which counts
     dispatches: after the first calls' warm-up), written as
     a Chrome trace to ``<run_dir>/profile/trace.json`` (a rank's to
-    ``trace_rank<r>.json``); the path is printed."""
+    ``trace_rank<r>.json``); the path is printed. The port's spans
+    (``trace``) are on in the window, so the trace names the step's
+    phases, the generators' stages, the pads and each kernel launch."""
 
     START, STOP = 10, 20
 
@@ -330,7 +334,7 @@ class StepProfiler:
         self.device, self.say = device, say
         name = "trace.json" if rank is None else f"trace_rank{rank}.json"
         self.path = os.path.join(cfg.run_dir(), "profile", name)
-        self.prof = None
+        self.prof = self.window = None
 
     def before_call(self, calls: int) -> None:
         if self.on and calls == self.START and self.prof is None:
@@ -339,14 +343,15 @@ class StepProfiler:
             acts = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
-            self.prof = profile(activities=acts)
-            self.prof.__enter__()
+            self.window = contextlib.ExitStack()
+            self.prof = self.window.enter_context(profile(activities=acts))
+            self.window.enter_context(trace.enabled())
 
     def after_call(self, calls: int) -> None:
         if self.prof is not None and calls >= self.STOP:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            self.prof.__exit__(None, None, None)
+            self.window.close()
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             self.prof.export_chrome_trace(self.path)
             self.prof, self.on = None, False
@@ -542,9 +547,10 @@ def train_rank(rank, n, device, say, argv):
     slice or W shard of every step. Returns each rank's kernel launches
     (with ``conv3x3_fused_t``'s, the differentiable block conv's), whether
     the state ended bitwise equal on every rank (the pools on every data
-    rank), rank 0's ms per step and, per rank, its host ms per grads'
-    all-reduce (with data ranks) and its peak memory allocated (None on
-    the CPU). Under --steps_per_call K the ms are per call of K steps."""
+    rank), rank 0's ms per step and, per rank, its count of the grads'
+    all-reduces (with data ranks: one a net a step) and its peak memory
+    allocated (None on the CPU). Under --steps_per_call K the ms are per
+    call of K steps."""
     cfg = parse_config(argv, train=True)
     ctx, data = rank_contexts(cfg, n)
     if device.type == "cuda":
@@ -555,7 +561,7 @@ def train_rank(rank, n, device, say, argv):
     dist.all_gather_object(launches, kernel_counts())
     result = {"launches": launches, "step_ms": [s * 1e3 for s in step_times],
               "params_equal": params_equal_across_ranks(state, RankCtx(n), pools=data)}
-    mine = {"grad_reduce_ms": None if data is None else [s * 1e3 for s in data.grad_reduce_s],
+    mine = {"grad_reduces": None if data is None else data.grad_reduces,
             "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
                                      if device.type == "cuda" else None)}
     result["ranks"] = [None] * n
@@ -598,10 +604,8 @@ def main(argv=None, step_times=None):
     result = spawn(train_rank, n, (argv,), device=cfg.device)
     print(f"{kind}: kernel launches per rank {json.dumps(result['launches'])}")
     for r, got in enumerate(result["ranks"]):
-        ms, mem = got["grad_reduce_ms"], got["max_memory_allocated"]
-        reduce = ("" if ms is None else
-                  f"the grads' all-reduce {len(ms)} calls, host ms mean "
-                  f"{sum(ms) / max(len(ms), 1):.3f}, max {max(ms, default=0.0):.3f}; ")
+        calls, mem = got["grad_reduces"], got["max_memory_allocated"]
+        reduce = "" if calls is None else f"the grads' all-reduce {calls} calls; "
         print(f"{kind}: rank {r}: {reduce}max_memory_allocated "
               f"{'n/a (CPU)' if mem is None else f'{mem / 2**30:.2f} GiB'}")
     print(f"{kind}: parameters bitwise equal on every rank: {result['params_equal']}")

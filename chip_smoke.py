@@ -163,8 +163,8 @@ checkout is missing, and at the first failure of any phase:
      which): the bench configuration (batch norm, dropout on, bf16) at
      global batch 128 through ``biasgan_tpu_torch.train.main --data_mesh
      2`` for five steps with --val_split and --val_freq (both validation
-     lines; ms/step, samples/s, each rank's host ms in the grads'
-     all-reduce and peak memory; every rank's parameters, running averages
+     lines; ms/step, samples/s, each rank's count of the grads'
+     all-reduces and peak memory; every rank's parameters, running averages
      and pools bitwise equal; no kernel launched); step 1 in f32 at global
      batch 2, dropout off: instance norm, the card's ranks against the
      one-card step on the global batch, batch norm, the card's ranks
@@ -198,8 +198,8 @@ checkout is missing, and at the first failure of any phase:
      W mode; (d) the 2-D mesh, --data_mesh 2 --spatial_mesh 2 (four
      ranks), on the bench configuration at 512x512, global batch 2, three
      bf16 steps with --val_split 2 --val_freq 2 (both validation lines,
-     every rank bitwise equal, each rank's host ms in the grads'
-     all-reduce and peak memory), and its f32 step 1 with dropout on held
+     every rank bitwise equal, each rank's count of the grads'
+     all-reduces and peak memory), and its f32 step 1 with dropout on held
      to the --data_mesh 2 step on the card (batch statistics per data rank
      in both); (e) CycleGAN at its defaults with --fused_blocks --w_pad_mode
      wrap on the 2-D mesh, 256x256, global batch 2, two bf16 steps, K2's
@@ -3052,13 +3052,15 @@ def data_parallel_phase(torch, work) -> dict:
     check(not any(v for counts in result["launches"] for v in counts.values()),
           f"data-parallel bench CLI: kernel launches {result['launches']}, expected none")
     ms = result["step_ms"]
-    reduce_ms = [[sum(r["grad_reduce_ms"][2 * i:2 * i + 2]) for i in range(DP_STEPS)]
-                 for r in result["ranks"]]
+    reduces = [r["grad_reduces"] for r in result["ranks"]]
+    check(reduces == [2 * DP_STEPS] * DP_RANKS,
+          f"data-parallel bench CLI: grads' all-reduces per rank {reduces}, expected "
+          f"{2 * DP_STEPS} (G and D a step)")
     peak = [r["max_memory_allocated"] for r in result["ranks"]]
     out["bench"] = {
         "batch": BENCH_BATCH, "step_ms": ms,
         "samples_per_s": BENCH_BATCH * 1e3 / statistics.mean(ms[1:]),
-        "grad_all_reduce_ms_per_step": reduce_ms, "max_memory_allocated": peak,
+        "grad_all_reduces": reduces, "max_memory_allocated": peak,
         "validation": [ln for ln in text.splitlines() if ln.startswith("validation")]}
     for ln in text.splitlines():
         if re.match(r"data:|validation|The number|\(epoch", ln):
@@ -3069,7 +3071,7 @@ def data_parallel_phase(torch, work) -> dict:
     print(f"data-parallel pix2pix bench configuration, --data_mesh {DP_RANKS}, global batch "
           f"{BENCH_BATCH}, 256x256 bf16, dropout on: ms/step {ms} (step 1 warms up), "
           f"{out['bench']['samples_per_s']:.1f} samples/s over steps 2-{DP_STEPS}; the grads' "
-          f"all-reduce host ms per step per rank {reduce_ms}; max_memory_allocated per rank "
+          f"all-reduces per rank {reduces}; max_memory_allocated per rank "
           f"{[round(p / 2**30, 2) for p in peak]} GiB on {name}{shared}")
 
     # (b) step 1 held, f32
@@ -3318,7 +3320,7 @@ def mesh_2d_bench(torch, work) -> dict:
     four, else the ranks share them over gloo), global batch 2, bf16,
     dropout on, --val_split 2 --val_freq 2: both validation lines, no
     kernel, every rank bitwise equal; rank 0's ms/step, and each rank's
-    host ms in the grads' all-reduce and its peak memory."""
+    count of the grads' all-reduces (G and D a step) and its peak memory."""
     name = card()
     argv = p2p_argv(work, "mesh_bench", "--crop_size", str(SP_CROP), "--batch_size",
                     str(MESH_BATCH), "--compute_dtype", "bfloat16", "--synthetic_samples",
@@ -3331,16 +3333,18 @@ def mesh_2d_bench(torch, work) -> dict:
     check(not any(v for c in result["launches"] for v in c.values()),
           f"2-D mesh pix2pix: kernel launches {result['launches']}")
     ms = result["step_ms"]
-    reduce_ms = [[sum(r["grad_reduce_ms"][2 * i:2 * i + 2]) for i in range(MESH_STEPS)]
-                 for r in result["ranks"]]
+    reduces = [r["grad_reduces"] for r in result["ranks"]]
+    check(reduces == [2 * MESH_STEPS] * len(reduces),
+          f"2-D mesh pix2pix: grads' all-reduces per rank {reduces}, expected "
+          f"{2 * MESH_STEPS} (G and D a step)")
     peak = [r["max_memory_allocated"] for r in result["ranks"]]
     backend = re.search(r"backend (\w+)", text).group(1)
     print(f"2-D mesh pix2pix bench configuration, data 2 x spatial 2, {SP_CROP}x{SP_CROP} "
           f"global batch {MESH_BATCH} bf16, dropout on, {backend}: rank 0 ms/step {ms} (step 1 "
-          f"warms up); the grads' all-reduce host ms per step per rank {reduce_ms}; "
+          f"warms up); the grads' all-reduces per rank {reduces}; "
           f"max_memory_allocated per rank {[round(p / 2**30, 2) for p in peak]} GiB on {name}")
     return {"backend": backend, "step_ms": ms, "ms_per_step": statistics.mean(ms[1:]),
-            "grad_all_reduce_ms_per_step": reduce_ms, "max_memory_allocated": peak,
+            "grad_all_reduces": reduces, "max_memory_allocated": peak,
             "validation": [ln for ln in text.splitlines() if ln.startswith("validation")],
             "card": name}
 

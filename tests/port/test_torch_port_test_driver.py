@@ -48,7 +48,7 @@ from biasgan_tpu.models.template import make_train_step as jax_template_step
 from biasgan_tpu.models.test_model import TestModel as JaxTestModel
 from biasgan_tpu.utils.imaging import tensor2im as jax_tensor2im
 from biasgan_tpu_torch import test as driver
-from biasgan_tpu_torch import train
+from biasgan_tpu_torch import trace, train
 from biasgan_tpu_torch.config import parse_config
 from biasgan_tpu_torch.convert import params_to_state_dict, state_dict_to_params
 from biasgan_tpu_torch.models import template
@@ -375,13 +375,17 @@ def test_check_finite_raises(tmp_path, monkeypatch):
 def test_debug_nans_and_profile(tmp_path, monkeypatch):
     """--debug_nans: anomaly mode for the run (a NaN from the backward
     raises, naming its op), restored after; --profile: the trace of steps
-    10-20 written and its path printed."""
+    10-20 written, with the port's spans, and its path printed."""
     base = TINY + ["--checkpoints_dir", str(tmp_path)]
     state, out = _train(base + ["--synthetic_samples", "21", "--profile", "--name", "p",
                                 "--print_freq", "100"])
     path = tmp_path / "p" / "profile" / "trace.json"
     assert f"profile trace written to {path}" in out and path.stat().st_size > 0
     assert state.step == 21
+    # the port's spans are on in the window, and off after it
+    text = path.read_text()
+    assert all(f'"{name}"' in text for name in ("port.step", "port.G.down", "port.G.up"))
+    assert trace.span("port.step") is trace.span("port.G.down")
 
     real_batch_to = train.batch_to
     monkeypatch.setattr(train, "batch_to", lambda d, dev: {
